@@ -1,0 +1,103 @@
+"""Geometric primitives on tensors (counterpart of ``repro.core.geometry``).
+
+Every projection that feeds a strict comparison is written out as
+``(v0*x0) + (v1*x1)`` (left to right over d), rounded after each op, the
+way the JAX engine's inline path forms it.  A dot, ``matmul`` or an FMA
+rounds differently and flips ties where a point's projection is compared
+with a bound built from that same point.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch import _device
+
+
+def project(V: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(m, d) × (..., n, d) -> (..., m, n): every point on every direction,
+    ``sum_i V[:, i] * X[..., i]`` left to right over d, one rounding per
+    multiply and per add."""
+    p = V[:, None, 0] * X[..., None, :, 0]
+    for i in range(1, V.shape[1]):
+        p = p + V[:, None, i] * X[..., None, :, i]
+    return p
+
+
+def project_each(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, ..., d) × (B, d) -> (B, ...): each instance's points on its own
+    direction, rounded as :func:`project`."""
+    vb = v.reshape(v.shape[0:1] + (1,) * (X.ndim - 2) + v.shape[1:])
+    p = X[..., 0] * vb[..., 0]
+    for i in range(1, X.shape[-1]):
+        p = p + X[..., i] * vb[..., i]
+    return p
+
+
+def signed_margins(w: torch.Tensor, b, X: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """y * (X @ w + b) — positive iff correctly classified."""
+    return y * (X @ w + b)
+
+
+def classification_error(w: torch.Tensor, b, X: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """Fraction of misclassified points (ties count as errors)."""
+    return (signed_margins(w, b, X, y) <= 0).float().mean()
+
+
+def direction_grid(n_angles: int, device="cuda") -> torch.Tensor:
+    """Unit vectors covering S^1: (n_angles, 2) f32.
+
+    θ is the f32 ``linspace(0, 2π, n_angles, endpoint=False)`` exactly as
+    the JAX package forms it; cos/sin are taken in float64 on the host and
+    rounded once to f32, then moved to ``device``.  The grid is therefore
+    the same on the card and on the CPU; it is within 1 ulp of XLA's f32
+    cos/sin (they differ on 4 of the 512 entries at 256 angles).
+    """
+    dev = _device.resolve(device)
+    theta = torch.linspace(0.0, 2.0 * math.pi, n_angles + 1,
+                           dtype=torch.float32)[:-1].double()
+    V = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+    return V.float().to(dev)
+
+
+def consistent_threshold_ranges(
+    V: torch.Tensor, Xw: torch.Tensor, yw: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-direction interval of thresholds consistent with transcript W.
+
+    Classifier convention: predict +1 iff v·x < t.  For direction v the
+    consistent thresholds are ( max_{+} v·x , min_{-} v·x ); the interval is
+    empty (lo >= hi) iff W is not separable along v.  Returns (lo, hi),
+    each (m,); an empty transcript gives lo=-inf, hi=+inf.
+    """
+    if Xw.shape[0] == 0:
+        return (torch.full((V.shape[0],), -math.inf, device=V.device),
+                torch.full((V.shape[0],), math.inf, device=V.device))
+    proj = project(V, Xw)                                   # (m, n)
+    lo = proj.masked_fill(~(yw == 1)[None, :], -math.inf).amax(dim=1)
+    hi = proj.masked_fill(~(yw == -1)[None, :], math.inf).amin(dim=1)
+    return lo, hi
+
+
+def uncertain_mask(
+    V: torch.Tensor,
+    dir_ok: torch.Tensor,
+    Xw: torch.Tensor,
+    yw: torch.Tensor,
+    X: torch.Tensor,
+    y: torch.Tensor,
+) -> torch.Tensor:
+    """Set of uncertainty (paper §4.1): which of (X, y) can a
+    transcript-consistent classifier with an allowed direction still
+    misclassify?  Boolean (n,)."""
+    lo, hi = consistent_threshold_ranges(V, Xw, yw)
+    nonempty = (lo < hi) & dir_ok
+    proj = project(V, X)
+    at_risk = torch.where((y == 1)[None, :], proj > lo[:, None],
+                          proj < hi[:, None])
+    return (at_risk & nonempty[:, None]).any(dim=0)

@@ -1,0 +1,24 @@
+"""MEDIAN's per-turn scans, routed to the port's kernels (counterpart of
+``repro.engine.dataplane``).
+
+``median_cut(V, dir_ok, lo, hi, X, y)`` gives the batched median-cut scores
+(int32 (B, m), -1 at disallowed cuts) that the MEDIAN coordinator argmaxes;
+``median_extremes(v, XW, yW)`` the per-node extreme-point rows ``(i_p,
+i_q)`` of stage 5 at the hot loop's fill-capped width.  A CUDA tensor
+launches the hand-written kernel; a CPU tensor takes its plain PyTorch
+version.  There is no fallback: a kernel that fails to build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import median_cut_scores as median_cut  # noqa: F401
+from repro_torch.kernels import median_extremes  # noqa: F401
+
+
+def use_kernels_default(device: torch.device) -> bool:
+    """The engine's kernel toggles default on for a CUDA device and off on
+    the CPU, as the JAX engine's default on for a TPU only."""
+    return torch.device(device).type == "cuda"

@@ -1,0 +1,206 @@
+"""Batched protocol state as NamedTuple records of tensors (counterpart of
+``repro.engine.state``).
+
+A *sweep* is B independent MEDIAN/k-party protocol instances (same party
+count k, possibly different datasets, shard sizes, error budgets and seeds)
+advanced in lock-step by one ``step``.  The shapes and padding rules are the
+JAX package's, leaf for leaf:
+
+* shards are padded to a common ``n_max`` with **label-0 rows** — inert in
+  every masked reduction;
+* per-node transcript buffers have static capacity ``cap`` plus a fill
+  counter; rows at or beyond the fill always carry label 0;
+* communication is accounted in :class:`BatchCommLog`, one int32 counter per
+  instance, lowered to ``CommLog.summary()``-shaped dicts at the end.
+
+Every record lives on one explicit device.  :func:`from_reference` turns the
+JAX package's packed records (as numpy arrays) into the port's, so the tests
+run both packages on identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import _device
+from repro_torch.core.comm import wire_bytes
+
+
+class BatchCommLog(NamedTuple):
+    """Vectorized communication ledger: one int32 counter per instance,
+    field-for-field :class:`repro_torch.core.comm.CommStats`; ``rounds``
+    counts protocol *turns* exactly like ``CommLog.new_round()``."""
+
+    points: torch.Tensor    # (B,) i32
+    scalars: torch.Tensor   # (B,) i32
+    bits: torch.Tensor      # (B,) i32
+    messages: torch.Tensor  # (B,) i32
+    rounds: torch.Tensor    # (B,) i32
+
+    def summary(self, i: int, dim: int) -> Dict[str, Any]:
+        """Lower instance ``i`` to the exact dict ``CommLog.summary()`` emits."""
+        p = int(self.points[i])
+        s = int(self.scalars[i])
+        b = int(self.bits[i])
+        return {
+            "points": p,
+            "scalars": s,
+            "bits": b,
+            "messages": int(self.messages[i]),
+            "rounds": int(self.rounds[i]),
+            "bytes": wire_bytes(p, s, b, dim),
+        }
+
+    def summaries(self, dim: int) -> List[Dict[str, Any]]:
+        host = BatchCommLog(*(a.cpu().numpy() for a in self))
+        return [host.summary(i, dim) for i in range(host.points.shape[0])]
+
+
+class ProtocolState(NamedTuple):
+    """Per-instance protocol state advanced by ``median.step``.
+
+    All leading axes are the batch axis B, including ``turn``: the
+    coordinator index ``ci = turn % k`` is per-instance.  A lock-step sweep
+    keeps every row's turn identical.
+    """
+
+    dir_ok: torch.Tensor     # (B, m) bool — allowed direction arc
+    wx: torch.Tensor         # (B, k, cap, d) f32 — per-node transcript points
+    wy: torch.Tensor         # (B, k, cap) i32 — transcript labels (0 = empty)
+    w_fill: torch.Tensor     # (B, k) i32 — transcript fill counters
+    lo_w: torch.Tensor       # (B, k, m) f32 — running per-node threshold lo
+    hi_w: torch.Tensor       # (B, k, m) f32 — running per-node threshold hi
+    turn: torch.Tensor       # (B,) i32 — per-instance turn counter
+    done: torch.Tensor       # (B,) bool
+    converged: torch.Tensor  # (B,) bool
+    epochs: torch.Tensor     # (B,) i32 — 1-based epoch at termination
+    h_v: torch.Tensor        # (B, d) f32 — current hypothesis direction
+    h_t: torch.Tensor        # (B,) f32 — current hypothesis threshold
+    h_valid: torch.Tensor    # (B,) bool
+    comm: BatchCommLog
+
+
+class EngineData(NamedTuple):
+    """Per-instance constants of a sweep."""
+
+    X: torch.Tensor       # (B, k, n_max, d) f32, zero-padded rows
+    y: torch.Tensor       # (B, k, n_max) i32 ±1 (0 = padding)
+    budget: torch.Tensor  # (B,) i32 — floor(eps * n_total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolInstance:
+    """One protocol problem: k shards plus an error budget ε and a selector.
+    Only the "median" selector is ported so far; ``seed`` keys per-instance
+    randomness of the one-way "sampling" selector."""
+
+    shards: Sequence[Tuple[np.ndarray, np.ndarray]]
+    eps: float = 0.05
+    selector: str = "median"
+    seed: int = 0
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def transcript_capacity(k: int, max_epochs: int) -> int:
+    """Static per-node transcript bound.  Per epoch a node appends at most
+    ``8k - 4`` rows: one coordinator turn (its own ≤2 band points, ≤2 extreme
+    points from each of k-1 repliers, a 2-point pivot pair) plus k-1
+    non-coordinator turns (≤2 received band points, its own ≤2 extremes,
+    a 2-point pivot pair).  +8 slack keeps the 2-row block writes in bounds.
+    """
+    return _round_up(max_epochs * (8 * k - 4) + 8, 8)
+
+
+def _state_to(state_np: Dict[str, np.ndarray], comm_np, dev) -> ProtocolState:
+    leaves = {f: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for f, a in state_np.items()}
+    comm = BatchCommLog(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in comm_np))
+    return ProtocolState(comm=comm, **leaves)
+
+
+def pack_instances(
+    instances: Sequence[ProtocolInstance],
+    *,
+    n_angles: int,
+    max_epochs: int,
+    device="cuda",
+) -> Tuple[EngineData, ProtocolState, int, int]:
+    """Pad a sweep onto the engine's static shapes, on ``device``.
+
+    Returns ``(data, state0, k, cap)``.  All instances must share the party
+    count k and dimension d=2; shard sizes may be ragged (label-0 padding).
+    ``n_max`` and ``cap`` are rounded up to multiples of 8.  The arrays are
+    built in numpy exactly as the JAX package builds them and uploaded
+    once.
+    """
+    dev = _device.resolve(device)
+    if not instances:
+        raise ValueError("need at least one instance")
+    ks = {len(inst.shards) for inst in instances}
+    if len(ks) != 1:
+        raise ValueError(f"instances must share the party count, got {ks}")
+    k = ks.pop()
+    ds = {s[0].shape[1] for inst in instances for s in inst.shards}
+    if ds != {2}:
+        raise ValueError(f"MEDIAN engine is specified for R^2, got d={ds}")
+    B = len(instances)
+    n_max = _round_up(max(s[0].shape[0] for inst in instances
+                          for s in inst.shards), 8)
+    cap = transcript_capacity(k, max_epochs)
+
+    X = np.zeros((B, k, n_max, 2), np.float32)
+    y = np.zeros((B, k, n_max), np.int32)
+    budget = np.zeros((B,), np.int32)
+    for b, inst in enumerate(instances):
+        n_total = 0
+        for j, (Xs, ys) in enumerate(inst.shards):
+            n = Xs.shape[0]
+            if not (np.abs(ys) == 1).all():
+                raise ValueError("labels must be +-1")
+            X[b, j, :n] = Xs
+            y[b, j, :n] = ys
+            n_total += n
+        budget[b] = int(np.floor(inst.eps * n_total))
+
+    data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
+    state0 = _state_to(dict(
+        dir_ok=np.ones((B, n_angles), bool),
+        wx=np.zeros((B, k, cap, 2), np.float32),
+        wy=np.zeros((B, k, cap), np.int32),
+        w_fill=np.zeros((B, k), np.int32),
+        lo_w=np.full((B, k, n_angles), -np.inf, np.float32),
+        hi_w=np.full((B, k, n_angles), np.inf, np.float32),
+        turn=np.zeros((B,), np.int32),
+        done=np.zeros((B,), bool),
+        converged=np.zeros((B,), bool),
+        epochs=np.zeros((B,), np.int32),
+        h_v=np.zeros((B, 2), np.float32),
+        h_t=np.zeros((B,), np.float32),
+        h_valid=np.zeros((B,), bool),
+    ), [np.zeros((B,), np.int32) for _ in BatchCommLog._fields], dev)
+    return data, state0, k, cap
+
+
+def from_reference(data, state, V, device="cuda"):
+    """Carry the JAX package's packed sweep across: ``data`` an
+    ``EngineData``, ``state`` a ``ProtocolState`` (with its ``comm`` log) and
+    ``V`` the (m, d) direction grid, each leaf anything ``np.asarray``
+    accepts.  Returns the port's ``(EngineData, ProtocolState, V)`` on
+    ``device``, leaf for leaf, bit for bit — this system's "weights" are its
+    packed state, and the tests run both packages on identical inputs."""
+    dev = _device.resolve(device)
+    data_t = EngineData(*(torch.from_numpy(np.array(a)).to(dev)
+                          for a in data))
+    leaves = {f: np.array(getattr(state, f))
+              for f in ProtocolState._fields if f != "comm"}
+    state_t = _state_to(leaves, [np.array(a) for a in state.comm], dev)
+    V_t = torch.from_numpy(np.array(V, dtype=np.float32)).to(dev)
+    return data_t, state_t, V_t

@@ -1,0 +1,37 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version (the CPU path and the kernel's oracle) and a launch counter.
+
+========================  ===========================  =====================
+wrapper                   CUDA source                  replaces (TPU kernel)
+========================  ===========================  =====================
+``median_cut_scores``     ``csrc/median_cut.cu``       ``median_cut_scores_batched``
+``median_extremes``       ``csrc/median_extremes.cu``  ``median_extremes_batched``
+========================  ===========================  =====================
+
+Sources build with ``nvcc`` at first launch (:mod:`._build`); importing this
+package builds nothing.
+"""
+
+from typing import Dict
+
+from repro_torch.kernels.median_cut import (  # noqa: F401
+    median_cut_scores,
+    median_cut_scores_plain,
+)
+from repro_torch.kernels.support_margin import (  # noqa: F401
+    median_extremes,
+    median_extremes_plain,
+)
+
+WRAPPERS = (median_cut_scores, median_extremes)
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last :func:`reset_launches`."""
+    return {w.__name__: w.launches for w in WRAPPERS}

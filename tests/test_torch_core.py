@@ -1,0 +1,202 @@
+"""The port's core modules (``repro_torch.core``) against the JAX package's,
+and the port's import hygiene.
+
+Tolerances: the numpy copies (datasets, comm) must be bit-identical; the
+direction grid within 1 ulp of XLA's f32 cos/sin, with the count of
+differing entries printed and bounded; geometry helpers exact on integer
+and boolean outputs, 1e-6 on floats (the JAX helpers project with a dot,
+the port with one rounding per operation).
+"""
+
+import ast
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+from repro.core import comm as jcomm, datasets as jdata, geometry as jgeo
+
+import torch
+
+from repro_torch.core import comm as tcomm, datasets as tdata
+from repro_torch.core import geometry as tgeo
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+# -- (a) numpy copies and the direction grid --------------------------------
+
+@pytest.mark.parametrize("module", ["datasets.py", "comm.py"])
+def test_numpy_modules_are_verbatim_copies(module):
+    assert ((PORT / "core" / module).read_bytes()
+            == (ROOT / "src" / "repro" / "core" / module).read_bytes())
+
+
+@pytest.mark.parametrize("gen,kw", [
+    ("data1", dict(n_per_node=50, k=2, seed=0)),
+    ("data2", dict(n_per_node=50, k=3, seed=1)),
+    ("data3", dict(n_per_node=50, k=4, seed=2)),
+    ("data_mixed_hardness", dict(n_per_node=40, k=4, seed=3)),
+    ("data_highd", dict(n_per_node=40, k=2, d=6, seed=4)),
+    ("threshold_instance", dict(n=60, k=2, seed=5)),
+    ("interval_instance", dict(n=60, k=2, seed=6)),
+    ("rectangle_instance", dict(n=60, k=2, d=3, seed=7)),
+])
+def test_datasets_bit_identical(gen, kw):
+    a = getattr(jdata, gen)(**kw)
+    b = getattr(tdata, gen)(**kw)
+    assert len(a) == len(b)
+    for (Xa, ya), (Xb, yb) in zip(a, b):
+        assert Xa.dtype == Xb.dtype and ya.dtype == yb.dtype
+        np.testing.assert_array_equal(Xa, Xb)
+        np.testing.assert_array_equal(ya, yb)
+
+
+def test_label_noise_bit_identical():
+    shards = jdata.data3(n_per_node=80, k=2, seed=9)
+    for (Xa, ya), (Xb, yb) in zip(jdata.add_label_noise(shards, 0.1, seed=4),
+                                  tdata.add_label_noise(shards, 0.1, seed=4)):
+        np.testing.assert_array_equal(Xa, Xb)
+        np.testing.assert_array_equal(ya, yb)
+
+
+def test_comm_wire_accounting_identical():
+    for p in range(0, 9, 3):
+        for s in range(0, 7, 2):
+            for b in range(0, 11, 5):
+                for d in (2, 3, 16):
+                    assert (jcomm.wire_bytes(p, s, b, d)
+                            == tcomm.wire_bytes(p, s, b, d))
+                    assert (jcomm.wire_bits(p, s, b, d)
+                            == tcomm.wire_bits(p, s, b, d))
+
+
+@pytest.mark.parametrize("m", [64, 256, 1024])
+def test_direction_grid_within_one_ulp(m):
+    """θ is reproduced exactly; cos/sin in float64 rounded once to f32 land
+    within 1 ulp of XLA's f32 cos/sin, on a few entries."""
+    want = np.asarray(jgeo.direction_grid(m))
+    got = tgeo.direction_grid(m, device="cpu").numpy()
+    assert got.dtype == np.float32 and got.shape == (m, 2)
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    differ = int((ulps > 0).sum())
+    print(f"direction_grid({m}): {differ} of {2 * m} entries differ from "
+          f"XLA's by 1 ulp")
+    assert ulps.max() <= 1
+    assert differ <= (2 * m) // 25
+
+
+# -- geometry helpers -------------------------------------------------------
+
+def _geom_inputs(seed, m=128, n=40, nw=12):
+    rng = np.random.default_rng(seed)
+    V = np.array(jgeo.direction_grid(m))
+    Xw = rng.normal(size=(nw, 2)).astype(np.float32)
+    yw = rng.choice([-1, 0, 1], size=nw).astype(np.int32)
+    X = rng.normal(size=(n, 2)).astype(np.float32)
+    y = rng.choice([-1, 1], size=n).astype(np.int32)
+    dir_ok = rng.random(m) < 0.7
+    return V, dir_ok, Xw, yw, X, y
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_threshold_ranges_and_uncertain_mask(seed):
+    V, dir_ok, Xw, yw, X, y = _geom_inputs(seed)
+    lo_j, hi_j = jgeo.consistent_threshold_ranges(V, Xw, yw)
+    lo_t, hi_t = tgeo.consistent_threshold_ranges(
+        *map(torch.from_numpy, (V, Xw, yw)))
+    np.testing.assert_allclose(lo_t.numpy(), np.asarray(lo_j), atol=1e-6)
+    np.testing.assert_allclose(hi_t.numpy(), np.asarray(hi_j), atol=1e-6)
+    want = jgeo.uncertain_mask(V, dir_ok, Xw, yw, X, y)
+    got = tgeo.uncertain_mask(*map(torch.from_numpy,
+                                   (V, dir_ok, Xw, yw, X, y)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_threshold_ranges_empty_transcript():
+    V = tgeo.direction_grid(16, device="cpu")
+    lo, hi = tgeo.consistent_threshold_ranges(
+        V, torch.zeros((0, 2)), torch.zeros((0,), dtype=torch.int32))
+    assert torch.isneginf(lo).all() and torch.isposinf(hi).all()
+
+
+def test_margins_and_error():
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(50, 2)).astype(np.float32)
+    y = rng.choice([-1.0, 1.0], size=50).astype(np.float32)
+    w = np.array([0.6, -0.8], np.float32)
+    b = np.array(0.1, np.float32)
+    np.testing.assert_allclose(
+        tgeo.signed_margins(*map(torch.from_numpy, (w, b, X, y))).numpy(),
+        np.asarray(jgeo.signed_margins(w, b, X, y)), atol=1e-6)
+    assert math.isclose(
+        float(tgeo.classification_error(*map(torch.from_numpy,
+                                              (w, b, X, y)))),
+        float(jgeo.classification_error(w, b, X, y)), abs_tol=1e-7)
+
+
+# -- (g) import hygiene and devices -----------------------------------------
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _foreign(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_neither_jax_nor_reference(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_foreign(n) for n in names), (path, names)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, chip_smoke, repro_torch, repro_torch.core, "
+        "repro_torch.engine, repro_torch.kernels, repro_torch.core.protocols;"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_without_device_raise_when_no_card(monkeypatch):
+    """The default device is the card; with none the entry points raise
+    rather than carry on on the CPU."""
+    from repro_torch import engine
+    from repro_torch.core.protocols import kparty, two_way
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shards = tdata.data1(n_per_node=20, k=2, seed=0)
+    inst = [engine.ProtocolInstance(shards, 0.1)]
+    for call in (lambda: engine.run_sweep(inst),
+                 lambda: engine.run_instances(inst),
+                 lambda: engine.pack_instances(inst, n_angles=8,
+                                               max_epochs=2),
+                 lambda: two_way.iterative_support_median(shards),
+                 lambda: kparty.iterative_support_kparty(shards),
+                 lambda: tgeo.direction_grid(8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
