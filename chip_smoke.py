@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's MEDIAN sweep on one NVIDIA GPU and check it.
+"""Run the PyTorch port's MEDIAN and MAXMARG sweeps on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,22 +8,45 @@ Phases (any failure exits non-zero; none is caught):
 
 1. card and build — print the card's name and power limit, build every CUDA
    kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc`` (timed);
-2. kernels against their plain PyTorch versions on the card, integer-exact:
-   the cut scan and the extremes scan at the smoke sweep's full-batch turn
-   shape, the extremes scan at the sweep's widest turn, and crafted ties
-   (duplicate points, bounds built from the points themselves, an absent
-   class, all directions disallowed); each kernel timed with CUDA events
-   beside its plain version;
-3. the full-size sweep through ``repro_torch.engine.run_sweep`` on the card,
-   with every kernel's launch count read around it;
-4. the card against the CPU on a 48-instance subset with noisy tail
-   instances: integer outputs exact, separators to 1e-6.
+2. MEDIAN's kernels against their plain PyTorch versions on the card,
+   integer-exact: the cut scan and the extremes scan at the smoke sweep's
+   full-batch turn shape, the extremes scan at the sweep's widest turn, and
+   crafted ties (duplicate points, bounds built from the points themselves,
+   an absent class, all directions disallowed); each kernel timed with
+   CUDA events beside its plain version;
+2b. MAXMARG's kernels against their plain versions on the card, bit for
+   bit: the turn scan and the Pegasos stage at the first MAXMARG bucket's
+   full-batch turn-1 shape (the stage at nsteps=2000 and at the polish
+   shape, t0=1024), the stage at d=16, both at the widest tail turn, and
+   crafted inputs (duplicate rows, a row exactly on the band edge, a node
+   without valid rows, an all-padding instance, instances that enter
+   latched); each kernel timed beside its plain version;
+3. the MEDIAN sweep through ``repro_torch.engine.run_sweep`` on the card,
+   with every kernel's launch count set to 0 before it and read after;
+4. MEDIAN card against CPU on a 48-instance subset with noisy tail
+   instances: integer outputs exact, separators to 1e-6;
+5. the MAXMARG sweep (three buckets, one ``run_sweep`` call) on the card,
+   launch counts read around it, outputs checked; then the same sweep
+   with CUDA events around every call of the two MAXMARG kernels (their
+   share of the wall), and both kernels held at the widest tail turn;
+6. MAXMARG card against CPU on 56 instances of it, the same solver path on
+   both: comm, rounds and convergence exact, separator directions to a
+   cosine of 1 - 1e-4.
 
-The smoke config is the shape of the JAX package's engine benchmark grid
+MEDIAN smoke config: the shape of the JAX package's engine benchmark grid
 (``benchmarks/engine_sweep.py``: data1/2/3 × ε ∈ {0.2, 0.1, 0.05, 0.025},
 k=2, n_per_node=1000, 1024 angles, 32 epochs), widened to 256 seeds
 (B=3072), with every 24th instance given 10% label noise and ε=0.02 so 128
 sessions run the whole 64-turn budget on the compacted hot path.
+
+MAXMARG smoke config: the JAX MAXMARG benchmark's settings
+(``benchmarks/maxmarg_sweep.py``: max_epochs=8, max_support=4, steps=2000,
+stages=3, λ=1e-3) over three buckets — k=2 d=2 B=1152 (its
+``build_instances`` grid, data1/2/3 × ε ∈ {0.05, 0.02, 0.01}, at
+n_per_node=1000 over seeds 0–127, every 24th instance with 10% label noise
+and ε=0.02), k=4 d=2 B=128 (``data_mixed_hardness(n_per_node=100, k=4)`` ×
+ε ∈ {0.05, 0.02} over seeds 0–63) and k=2 d=16 B=64
+(``data_highd(n_per_node=200, d=16, margin=0.2)`` at ε=0.05, seeds 0–63).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` name and power limit, and before that
@@ -44,6 +68,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SMOKE = dict(B=3072, n_per_node=1000, n_angles=1024, max_epochs=32,
              noisy_every=24)
 SUBSET = 48            # card-against-CPU instances (two of them noisy)
+MAXMARG = dict(max_epochs=8, max_support=4, steps=2000, stages=3, lam=1e-3)
+MM_SUBSET = (48, 8)    # MAXMARG card-against-CPU: bucket 1 and bucket 2
+COS_TOL = 1e-4         # the reference's own warm-vs-cold direction tier
 PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 
@@ -99,6 +126,102 @@ def crafted_cut_inputs(V, device, seed=0):
                  t(y[:, r:r + 2].copy()),
                  torch.ones(B, dtype=torch.bool, device=device), Vd)
     return Vd, t(dir_ok), lo, hi, t(X), t(y)
+
+
+def maxmarg_buckets(datasets, engine):
+    """The MAXMARG smoke sweep's three buckets as ``(name, instances)``;
+    the first bucket's noisy instances are every 24th."""
+    gens = (datasets.data1, datasets.data2, datasets.data3)
+    b1 = []
+    for i in range(1152):
+        shards = gens[i % 3](n_per_node=1000, k=2, seed=i // 9)
+        eps = (0.05, 0.02, 0.01)[(i // 3) % 3]
+        if i % 24 == 0:
+            shards = datasets.add_label_noise(shards, 0.1, seed=i)
+            eps = 0.02
+        b1.append(engine.ProtocolInstance(shards, eps, "maxmarg"))
+    b2 = [engine.ProtocolInstance(
+        datasets.data_mixed_hardness(n_per_node=100, k=4, seed=i // 2),
+        (0.05, 0.02)[i % 2], "maxmarg") for i in range(128)]
+    b3 = [engine.ProtocolInstance(
+        datasets.data_highd(n_per_node=200, k=2, d=16, seed=i, margin=0.2),
+        0.05, "maxmarg") for i in range(64)]
+    return [("k2_d2", b1), ("k4_d2", b2), ("k2_d16", b3)]
+
+
+def crafted_turn_inputs(device, seed=0):
+    """Turn-scan inputs built to sit on every tie the scan has, as
+    ``(w, b, K, yK, X, y)``: instance 0 has margins that are exact copies
+    of the first coordinate (w = (1, 0), b = 0), one row exactly on the
+    band edge max(min margin, 1e-12)·f32(1.15) and one a step beyond it;
+    instance 1 has equal margins many times over (rank ties broken by
+    index) in its fit set and its shards; instance 2 a node without valid
+    rows; instance 3 is padding only; instance 4 misclassifies its fit set
+    (the band edge clamps to 1e-12); instance 5 is in general position."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B, N, k, n, d = 6, 64, 3, 40, 2
+    w = rng.normal(size=(B, d)).astype(np.float32)
+    b = rng.normal(size=B).astype(np.float32)
+    K = rng.normal(size=(B, N, d)).astype(np.float32)
+    yK = np.where(rng.random((B, N)) < 0.5, 1, -1).astype(np.int32)
+    X = rng.normal(size=(B, k, n, d)).astype(np.float32)
+    y = np.where(rng.random((B, k, n)) < 0.5, 1, -1).astype(np.int32)
+    yK[:, -6:] = 0                            # padding rows in every one
+    y[:, :, -4:] = 0
+    for i in (0, 1):
+        w[i], b[i] = (1.0, 0.0), 0.0          # margin = y * x0 exactly
+    # instance 0: the band edge
+    edge = np.float32(0.5) * np.float32(1.15)
+    m0 = rng.uniform(1.0, 3.0, N).astype(np.float32)
+    m0[:4] = (0.5, edge, np.nextafter(edge, np.float32(np.inf)), edge)
+    K[0, :, 0] = yK[0] * m0
+    yK[0, :4] = np.where(yK[0, :4] == 0, 1, yK[0, :4])
+    K[0, :4, 0] = yK[0, :4] * m0[:4]
+    # instance 1: repeated margins in the fit set and the shards
+    K[1, :, 0] = yK[1] * rng.choice(
+        np.array([0.75, 0.75, 1.0, 1.25], np.float32), N)
+    X[1, :, :, 0] = y[1] * rng.choice(
+        np.array([-0.5, -0.5, -0.25, 1.0], np.float32), (k, n))
+    y[2, 1] = 0                               # a node without valid rows
+    yK[3], y[3] = 0, 0                        # padding only
+    K[4] = -yK[4, :, None] * np.abs(K[4]) * np.sign(w[4])   # all wrong
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(w), t(b), t(K), t(yK), t(X), t(y)
+
+
+def crafted_pegasos_inputs(device, seed=0):
+    """Pegasos-stage inputs with the edge cases of the latch, as ``(X, y,
+    nv, w, b, lam, found, w_best, b_best)``: a separable instance with a
+    margin, one that enters latched, one of padding only, one with
+    duplicate rows, one with random labels (never separable) and one with
+    half its rows padding; N spans two rows per kernel thread."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B, N, d = 6, 300, 3
+    X = rng.normal(size=(B, N, d)).astype(np.float32)
+    w_true = rng.normal(size=(B, d)).astype(np.float32)
+    proj = np.einsum("bnd,bd->bn", X, w_true)
+    y = np.where(proj > 0, 1.0, -1.0).astype(np.float32)
+    X += (0.3 * y[..., None] * w_true[:, None, :]
+          / np.linalg.norm(w_true, axis=1)[:, None, None]).astype(np.float32)
+    y[2] = 0.0                                # padding only
+    X[3, 150:] = X[3, :150]                   # duplicate rows
+    y[3, 150:] = y[3, :150]
+    y[4] = np.where(rng.random(N) < 0.5, 1.0, -1.0)   # not separable
+    y[5, ::2] = 0.0                           # half padding
+    nv = np.maximum((y != 0).sum(axis=1), 1).astype(np.float32)
+    w = np.zeros((B, d), np.float32)
+    b = np.zeros(B, np.float32)
+    lam = np.full(B, 1e-2, np.float32)
+    found = np.zeros(B, bool)
+    found[1] = True                           # enters latched
+    w_best = rng.normal(size=(B, d)).astype(np.float32)
+    b_best = rng.normal(size=B).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return tuple(t(a) for a in (X, y, nv, w, b, lam, found, w_best, b_best))
 
 
 def crafted_extremes_inputs(device, seed=0):
@@ -266,7 +389,145 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
 
-    # -- 3. the full-size sweep on the card ----------------------------------
+
+    # -- 2b. MAXMARG's kernels against plain versions ------------------------
+    from repro_torch.core import classifiers
+    from repro_torch.engine import maxmarg
+
+    mm = MAXMARG
+    t0 = time.perf_counter()
+    buckets = maxmarg_buckets(datasets, engine)
+    mm_insts = buckets[0][1]
+    dm, sm0, km, capm = engine.pack_instances_maxmarg(
+        mm_insts, max_epochs=mm["max_epochs"],
+        max_support=mm["max_support"], device=dev)
+    print(f"setup: {sum(len(b) for _, b in buckets)} MAXMARG instances "
+          f"built, the first bucket packed, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    scan_opts = dict(rtol=maxmarg.RTOL, max_support=mm["max_support"],
+                     viol_ship=maxmarg.VIOL_SHIP)
+    lam0 = classifiers.lam_schedule(mm["lam"], 1)[0]
+
+    def stage_args(K, yK, w=None, b=None):
+        """One λ-0 stage's inputs on a fit set, as the solver forms them."""
+        B, _, d = K.shape
+        z_w = torch.zeros((B, d), device=dev)
+        z_b = torch.zeros((B,), device=dev)
+        K, yK = K.contiguous(), yK.contiguous()
+        return (K, yK.float(), (yK != 0).sum(1).clamp_min(1).float(),
+                z_w if w is None else w, z_b if b is None else b,
+                torch.full((B,), lam0, device=dev),
+                torch.zeros((B,), dtype=torch.bool, device=dev), z_w, z_b)
+
+    # turn 1's fit set exactly as step gathers it: node 1's shard and its
+    # transcript after turn 0, at the hot loop's quantized width
+    sm1 = maxmarg.step(dm, sm0, k=km, max_support=mm["max_support"],
+                       steps=mm["steps"], stages=mm["stages"],
+                       lam0=mm["lam"], fused_kernel=True, solver_kernel=True)
+    Wm = hotloop.quantize_width(int(sm1.w_fill[:, 1].max()), capm)
+    K1 = torch.cat([dm.X[:, 1], sm1.wx[:, 1, :Wm]], dim=1)
+    yK1 = torch.cat([dm.y[:, 1], sm1.wy[:, 1, :Wm]], dim=1)
+    peg1 = stage_args(K1, yK1)
+    polish1 = stage_args(K1, yK1, sm1.h_w, sm1.h_b)
+    w1, b1, _ = classifiers._svm_solve_batch(
+        K1, yK1.float(), mm["lam"], mm["steps"], mm["stages"], kernel=True)
+    turn1 = (w1, b1, K1, yK1, dm.X, dm.y)
+    d16 = buckets[2][1]
+    dh, _sh, _, _ = engine.pack_instances_maxmarg(
+        d16, max_epochs=mm["max_epochs"], max_support=mm["max_support"],
+        device=dev)
+    peg16 = stage_args(dh.X[:, 0], dh.y[:, 0])
+
+    errs["maxmarg_turn_scan"] = 0
+    errs["pegasos_stage"] = 0.0
+
+    def hold_turn(args, what):
+        for got, want in zip(kernels.maxmarg_turn_scan(*args, **scan_opts),
+                             kernels.maxmarg_turn_scan_plain(*args,
+                                                             **scan_opts)):
+            errs["maxmarg_turn_scan"] = max(errs["maxmarg_turn_scan"],
+                                            _exact(got, want, what))
+
+    def hold_stage(args, what, **kw):
+        """Bit for bit: the plain version sums in the kernel's order."""
+        got = kernels.pegasos_stage(*args, **kw)
+        want = kernels.pegasos_stage_plain(*args, **kw)
+        for name, g, e in zip(("w", "b", "mmin", "found", "w_best",
+                               "b_best"), got, want):
+            if g.dtype == torch.bool:
+                _exact(g, e, f"{what}: {name}")
+                continue
+            err = float((g.double() - e.double()).abs().max())
+            errs["pegasos_stage"] = max(errs["pegasos_stage"], err)
+            if not torch.equal(g, e):
+                raise AssertionError(
+                    f"{what}: {name} differs from the plain version on "
+                    f"{int((g != e).sum())} of {g.numel()} entries (max "
+                    f"|diff| {err})")
+
+    hold_turn(turn1, "turn scan, full batch")
+    hold_stage(peg1, "pegasos stage, full batch", nsteps=mm["steps"])
+    hold_stage(polish1, "pegasos polish, full batch",
+               nsteps=classifiers.WARM_STEPS, t0=classifiers.WARM_OFFSET)
+    hold_stage(peg16, "pegasos stage, d=16", nsteps=mm["steps"])
+    for seed in range(3):
+        hold_turn(crafted_turn_inputs(dev, seed), f"turn scan, ties {seed}")
+        for skip in (False, True):
+            hold_stage(crafted_pegasos_inputs(dev, seed),
+                       f"pegasos stage, crafted {seed}", nsteps=300,
+                       skip_latched=skip)
+    print("kernels: MAXMARG turn scan and Pegasos stage bit for bit against "
+          "the plain versions at the full-batch turn, the polish, d=16 and "
+          "on crafted ties")
+
+    Bm, N1, dd = K1.shape
+    kn_valid = int((dm.y != 0).sum())
+    N_valid = int((yK1 != 0).sum())
+    turn_out = 4 * (Bm * N1 + Bm * km + dm.y.numel())
+    stage_out = 4 * (3 * Bm * dd + 3 * Bm) + Bm
+    mm_rows = [
+        dict(name="maxmarg_turn_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/maxmarg_turn.cu",
+             replaces="src/repro/kernels/support_margin.py:299",
+             fn=lambda: kernels.maxmarg_turn_scan(*turn1, **scan_opts),
+             plain=lambda: kernels.maxmarg_turn_scan_plain(*turn1,
+                                                           **scan_opts),
+             bytes=_nbytes(*turn1) + turn_out,
+             # margin (2d+1) and band or error test per valid row, one
+             # compare per valid row in each ranking round
+             ops=((2 * dd + 2 + mm["max_support"]) * N_valid
+                  + (2 * dd + 2 + maxmarg.VIOL_SHIP) * kn_valid),
+             shape=f"B={Bm} N={N1} k={km} n={dm.X.shape[2]} d={dd}",
+             reps=(20, 3)),
+        dict(name="pegasos_stage", route="cuda",
+             source="src/repro_torch/kernels/csrc/pegasos_stage.cu",
+             replaces="src/repro/kernels/pegasos.py:127",
+             fn=lambda: kernels.pegasos_stage(*peg1, nsteps=mm["steps"]),
+             plain=lambda: kernels.pegasos_stage_plain(*peg1,
+                                                       nsteps=mm["steps"]),
+             bytes=_nbytes(*peg1) + stage_out,
+             # every valid row's margin (2d+1) and hinge test at every
+             # step and in the final scan; the gradient of the violating
+             # rows depends on the iterates and is left out (a lower bound)
+             ops=(mm["steps"] + 1) * N_valid * (2 * dd + 2),
+             shape=f"B={Bm} N={N1} d={dd} nsteps={mm['steps']}",
+             reps=(5, 2)),
+    ]
+    for r in mm_rows:
+        r["ms"] = _median_ms(r["fn"], r["reps"][0])
+        r["plain_ms"] = _median_ms(r["plain"], r["reps"][1])
+        by_bytes = r["bytes"] / PEAK_BYTES * 1e3
+        by_ops = r["ops"] / PEAK_F32 * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
+    print(f"time pegasos_stage at d=16 (B={peg16[0].shape[0]} "
+          f"N={peg16[0].shape[1]}): kernel "
+          f"{_median_ms(lambda: kernels.pegasos_stage(*peg16, nsteps=mm['steps']), 5):.4f} ms")
+
+    # -- 3. the MEDIAN sweep on the card --------------------------------------
     hotloop.KEY_LOG.clear()
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -276,13 +537,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launches()
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"the sweep never launched {name}")
+    for name in ("median_cut_scores", "median_extremes"):
+        if counts[name] <= 0:
+            raise AssertionError(f"the MEDIAN sweep never launched {name}")
     turns = len(hotloop.KEY_LOG)
     noisy = {i for i in range(cfg["B"]) if i % cfg["noisy_every"] == 0}
     conv = [r.converged for r in res]
-    print(f"sweep: {cfg['B']} instances in {wall:.3f} s, {turns} turns, "
+    print(f"median sweep: {cfg['B']} instances in {wall:.3f} s, {turns} turns, "
           f"{sum(conv)} converged, KEY_LOG size {turns}, launches {counts}, "
           f"tail widths {sorted({w for _, w, *_ in hotloop.KEY_LOG})[-3:]}")
     for i, (inst, r) in enumerate(zip(insts, res)):
@@ -340,12 +601,152 @@ def main() -> int:
           f"noisy), integer outputs exact, {bitwise}/{SUBSET} separators "
           f"bitwise equal (cpu run {cpu_s:.2f} s)")
 
+    # -- 5. the MAXMARG sweep on the card --------------------------------------
+    all_mm = [inst for _, b in buckets for inst in b]
+    hotloop.KEY_LOG.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mres = engine.run_sweep(all_mm, device=dev, **MAXMARG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mm_counts = kernels.launches()
+    for name in ("maxmarg_turn_scan", "pegasos_stage"):
+        if mm_counts[name] <= 0:
+            raise AssertionError(f"the MAXMARG sweep never launched {name}")
+    keys = list(hotloop.KEY_LOG)
+    print(f"maxmarg sweep: {len(all_mm)} instances "
+          f"({', '.join(f'{n} B={len(b)}' for n, b in buckets)}) in "
+          f"{wall:.3f} s, {len(keys)} turns, "
+          f"{sum(r.converged for r in mres)} converged, KEY_LOG warm hits "
+          f"{sum(1 for key in keys if key[2])}, warm latches "
+          f"{sum(r.extra['warm_latches'] for r in mres)}, launches "
+          f"{mm_counts}")
+    i0 = 0
+    for name, binsts in buckets:
+        for i, (inst, r) in enumerate(zip(binsts, mres[i0:i0 + len(binsts)])):
+            d = inst.shards[0][0].shape[1]
+            w, b = r.classifier.w, r.classifier.b
+            if not (w.shape == (d,) and np.isfinite(w).all()
+                    and np.isfinite(b)):
+                raise AssertionError(f"{name} {i}: separator {w}, {b}")
+            noisy = name == "k2_d2" and i % 24 == 0
+            if noisy:
+                if r.converged:
+                    raise AssertionError(f"noisy instance {i} converged")
+                continue
+            if not r.converged:
+                raise AssertionError(f"{name} {i} did not converge")
+            X = np.concatenate([s[0] for s in inst.shards])
+            y = np.concatenate([s[1] for s in inst.shards])
+            err = float(np.mean(r.classifier.predict(X) != y))
+            if err > inst.eps + 2.0 / len(y):
+                raise AssertionError(f"{name} {i}: error {err} > "
+                                     f"ε={inst.eps}")
+        i0 += len(binsts)
+    # the port kernels' share of the sweep: the same sweep once more, with
+    # CUDA events recorded around every call of the two MAXMARG wrappers
+    from repro_torch.engine import dataplane
+    from repro_torch.kernels import pegasos as pegasos_module
+    spans = {"maxmarg_turn_scan": [], "pegasos_stage": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            spans[name].append(ev)
+            return out
+        # a wrapper counts its launches through its module-level name,
+        # which is this shim during the pass (the counts were read above)
+        call.launches = 0
+        return call
+
+    originals = (dataplane.maxmarg_turn_scan, pegasos_module.pegasos_stage)
+    dataplane.maxmarg_turn_scan = timed("maxmarg_turn_scan", originals[0])
+    pegasos_module.pegasos_stage = timed("pegasos_stage", originals[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_sweep(all_mm, device=dev, **MAXMARG)
+        torch.cuda.synchronize()
+        timed_wall = time.perf_counter() - t0
+    finally:
+        dataplane.maxmarg_turn_scan, pegasos_module.pegasos_stage = originals
+    kern_s = {n: sum(a.elapsed_time(b) for a, b in v) / 1e3
+              for n, v in spans.items()}
+    print(f"maxmarg sweep again with events: {timed_wall:.3f} s wall, "
+          + ", ".join(f"{n} {len(spans[n])} calls {v:.4f} s" for n, v in
+                      kern_s.items())
+          + f": the two kernels are {sum(kern_s.values()) / timed_wall:.1%} "
+          f"of the wall")
+
+    # the widest tail turn: the noisy instances' fit set at their last fill
+    tail = [mm_insts[i] for i in range(0, len(mm_insts), 24)]
+    d_t, st, _, _ = engine.pack_instances_maxmarg(
+        tail, max_epochs=mm["max_epochs"], max_support=mm["max_support"],
+        device=dev)
+    ft = maxmarg.run_hot(d_t, st, k=km, max_turns=km * mm["max_epochs"],
+                         max_support=mm["max_support"], steps=mm["steps"],
+                         stages=mm["stages"], lam0=mm["lam"],
+                         fused_kernel=True, solver_kernel=True)
+    Wt = hotloop.quantize_width(int(ft.w_fill[:, 0].max()), capm)
+    Kt = torch.cat([d_t.X[:, 0], ft.wx[:, 0, :Wt]], dim=1)
+    yKt = torch.cat([d_t.y[:, 0], ft.wy[:, 0, :Wt]], dim=1)
+    wide_turn = (ft.h_w, ft.h_b, Kt, yKt, d_t.X, d_t.y)
+    wide_stage = stage_args(Kt, yKt)
+    hold_turn(wide_turn, "turn scan, widest tail turn")
+    hold_stage(wide_stage, "pegasos stage, widest tail turn",
+               nsteps=mm["steps"])
+    print(f"time at the widest tail turn (B={len(tail)} N={Kt.shape[1]}): "
+          f"maxmarg_turn_scan "
+          f"{_median_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts), 20):.4f} ms, "
+          f"pegasos_stage "
+          f"{_median_ms(lambda: kernels.pegasos_stage(*wide_stage, nsteps=mm['steps']), 5):.4f} ms")
+
+    # -- 6. MAXMARG card against CPU, the same solver path on both -----------
+    sub = buckets[0][1][:MM_SUBSET[0]] + buckets[1][1][:MM_SUBSET[1]]
+    opts = dict(MAXMARG, fused_kernel=True, solver_kernel=True)
+    on_card = engine.run_sweep(sub, device=dev, **opts)
+    t0 = time.perf_counter()
+    on_cpu = engine.run_sweep(sub, device="cpu", **opts)
+    cpu_s = time.perf_counter() - t0
+    bitwise, worst, apart = 0, 1.0, []
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        if (a.comm, a.rounds, a.converged) != (b.comm, b.rounds, b.converged):
+            raise AssertionError(f"maxmarg instance {i}: card {a.comm} "
+                                 f"{a.rounds} {a.converged}, cpu {b.comm} "
+                                 f"{b.rounds} {b.converged}")
+        va = np.concatenate([a.classifier.w, [a.classifier.b]])
+        vb = np.concatenate([b.classifier.w, [b.classifier.b]])
+        cos = float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
+        worst = min(worst, cos)
+        if not cos > 1.0 - COS_TOL:
+            raise AssertionError(f"maxmarg instance {i}: separator cosine "
+                                 f"{cos} (card {va}, cpu {vb})")
+        if np.array_equal(va, vb):
+            bitwise += 1
+        else:
+            apart.append(f"{i} (max |diff| {np.abs(va - vb).max():.3g}, "
+                         f"{'' if a.converged else 'not '}converged)")
+    print(f"maxmarg card vs cpu: {len(sub)} instances ({MM_SUBSET[0]} k=2 "
+          f"with {len(range(0, MM_SUBSET[0], 24))} noisy, {MM_SUBSET[1]} "
+          f"k=4), comm/rounds/convergence exact, min cosine {worst!r}, "
+          f"{bitwise}/{len(sub)} separators bitwise equal"
+          + (f", apart: {'; '.join(apart)}" if apart else "")
+          + f" (cpu run {cpu_s:.2f} s)")
+
+    launches = dict(counts, maxmarg_turn_scan=mm_counts["maxmarg_turn_scan"],
+                    pegasos_stage=mm_counts["pegasos_stage"])
+
     print(json.dumps({"kernels": [
         dict(name=r["name"], route=r["route"], source=r["source"],
-             replaces=r["replaces"], launches=counts[r["name"]],
+             replaces=r["replaces"], launches=launches[r["name"]],
              max_abs_err=errs[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
-        for r in rows]}))
+        for r in rows + mm_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ kernels for Hopper (``repro_torch.kernels``).  Entry points take
 ``device=`` (default ``"cuda"``) and raise when no card is present; pass
 ``device="cpu"`` to run the plain PyTorch versions on the host.
 
-Ported so far: the two-way MEDIAN / k-party sweep
-(``engine.run_sweep`` → ``engine.median.run_instances`` → ``run_hot`` →
-``hotloop.run_hot`` → ``median.step``) and its B=1 public delegations.
+Ported so far: the two-way protocol sweep for both support selectors,
+``engine.run_sweep`` → ``engine.median.run_instances`` /
+``engine.maxmarg.run_instances`` → ``run_hot`` → ``hotloop.run_hot`` → the
+selector's ``step``, with the batched max-margin solver
+(``core.classifiers``) and the B=1 public delegations
+(``core.protocols.two_way`` / ``kparty``).
 """

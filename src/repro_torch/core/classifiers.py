@@ -1,14 +1,28 @@
-"""Classifier records (counterpart of ``repro.core.classifiers``).
+"""Linear separators and the batched max-margin solver (counterpart of
+``repro.core.classifiers``).
 
-Only :class:`LinearSeparator` is ported so far — the MEDIAN engine's result
-type.  The batched max-margin solver comes with the MAXMARG slice.
+The solver is hard-margin-annealed Pegasos, batched over B independent fit
+sets: ``stages`` λ stages (λ0, λ0/10, …), each warm-started from the last,
+the result latched at the first stage that reaches 0 training error and
+canonicalised to functional margin 1.  It has the JAX package's two inner
+loops: the classic d-unrolled loop in plain PyTorch, and the kernel path,
+one :func:`repro_torch.kernels.pegasos_stage` launch per λ stage (the
+hand-written CUDA kernel on the card, its plain version on the CPU).
+``kernel=None`` takes the kernel path on a CUDA device and the classic loop
+on the CPU, as the JAX package takes its Pallas kernel on a TPU only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch import _device
+from repro_torch.core.geometry import decide
 
 
 @dataclasses.dataclass
@@ -25,3 +39,217 @@ class LinearSeparator:
 
     def error(self, X: np.ndarray, y: np.ndarray) -> float:
         return float(np.mean(self.predict(X) != y)) if len(y) else 0.0
+
+
+# Warm-polish defaults: a quarter of a stage's step budget refines the
+# carried separator, and the eta schedule starts as if WARM_OFFSET steps had
+# already elapsed, so the first polish steps refine instead of kicking.
+WARM_STEPS = 500
+WARM_OFFSET = 1024.0
+
+
+def lam_schedule(lam0: float, stages: int) -> Tuple[float, ...]:
+    """The f32 λ of each stage, ``lam0 * 0.1 ** s`` rounded as the JAX
+    package rounds it (f32 operands, one rounding per operation), computed
+    on the host so the card and the CPU use the same values."""
+    lam = torch.tensor(lam0, dtype=torch.float32)
+    tenth = torch.tensor(0.1, dtype=torch.float32)
+    return tuple(float(lam * tenth ** torch.tensor(float(s)))
+                 for s in range(stages))
+
+
+def _margins_min(X, y, valid, w, b) -> torch.Tensor:
+    return torch.where(valid, y * decide(X, w, b), math.inf).amin(dim=1)
+
+
+def _classic_stage(X, y, valid, nv, w, b, lam, nsteps, t0=0.0):
+    """``nsteps`` Pegasos steps of the classic loop: the hinge gradient as d
+    masked sums over the rows, as the JAX package unrolls it."""
+    d = X.shape[2]
+    inv_sqrt_lam = 1.0 / torch.sqrt(lam)
+    for i in range(nsteps):
+        c = float(np.float32(i) + np.float32(2.0) + np.float32(t0))
+        eta = 1.0 / (lam * c)
+        m = y * decide(X, w, b)
+        vy = ((m < 1.0) & valid).to(X.dtype) * y
+        gsum = torch.stack([(vy * X[:, :, j]).sum(dim=1) for j in range(d)],
+                           dim=1)
+        gw = lam[:, None] * w - gsum / nv[:, None]
+        gb = -vy.sum(dim=1) / nv
+        w = w - eta[:, None] * gw
+        b = b - eta * gb
+        nrm = torch.sqrt((w * w).sum(dim=1))
+        scale = torch.clamp(inv_sqrt_lam / (nrm + 1e-12), max=1.0)
+        w, b = w * scale[:, None], b * scale
+    return w, b
+
+
+def _svm_solve_batch(
+    X: torch.Tensor,               # (B, N, d) f32; label-0 rows are padding
+    y: torch.Tensor,               # (B, N) f32 in {+1, -1, 0}
+    lam0: float,                   # stage-0 λ
+    steps: int = 2000,
+    stages: int = 3,
+    w0: Optional[torch.Tensor] = None,       # (B, d) warm-init separator
+    b0: Optional[torch.Tensor] = None,       # (B,)
+    warm_ok: Optional[torch.Tensor] = None,  # (B,) bool — init trustworthy
+    warm_steps: int = WARM_STEPS,
+    warm_offset: float = WARM_OFFSET,
+    return_gate: bool = False,
+    kernel: Optional[bool] = None,
+    early_exit: Optional[bool] = None,
+):
+    """Batched hard-margin-annealed Pegasos: B independent fits in lock-step
+    (the JAX package's ``_svm_solve_batch``).
+
+    Label-0 rows are inert: no hinge violations, and the gradient
+    normalises by each instance's valid row count.  Each stage warm-starts
+    from the previous one; an instance latches at the first stage whose
+    iterate classifies its fit set without error, and one that never does
+    keeps the last stage's iterate.
+
+    **Warm entry** (``w0``/``b0`` given): a polish of ``warm_steps`` steps
+    at the stage-0 λ, with the step schedule offset by ``warm_offset``,
+    refines the carried separator first.  It latches an instance whose
+    carried separator already classified the fit set cleanly (and
+    ``warm_ok``) and still does after the polish; the others fall through
+    to the cold anneal from zeros.
+
+    **Stage loop.**  The JAX package leaves its stage loop as soon as every
+    instance has latched.  Here ``early_exit`` (default: on the CPU only,
+    where reading ``found`` costs nothing) does the same; on the card every
+    stage is launched, and the kernel path skips the steps of an instance
+    that has latched (the classic loop steps it), whose later iterates the
+    latch discards.  The results are the same either way.
+
+    ``kernel`` picks the inner loop: ``True`` one
+    :func:`repro_torch.kernels.pegasos_stage` per stage with the latch
+    fused, ``False`` the classic loop, ``None`` the kernel path on a CUDA
+    device.  The two are float approximations of the same optimum; their
+    decisions agree, their floats need not.
+
+    Returns ``(w, b, converged)`` canonicalised to functional margin 1
+    at the support points, and with ``return_gate=True`` also the polish
+    gate bits (the carried separator classified the fit set cleanly;
+    all False on the cold entry).
+    """
+    from repro_torch.engine.dataplane import use_kernels_default
+    from repro_torch.kernels.pegasos import pegasos_stage
+
+    B, N, d = X.shape
+    dev = X.device
+    valid = y != 0
+    nv = valid.sum(dim=1).clamp_min(1).to(X.dtype)
+    use_kernel = use_kernels_default(dev) if kernel is None else bool(kernel)
+    if early_exit is None:
+        early_exit = dev.type == "cpu"
+    lams = lam_schedule(lam0, max(stages, 1))
+
+    def full(v):
+        return torch.full((B,), v, dtype=X.dtype, device=dev)
+
+    zeros_w = torch.zeros((B, d), dtype=X.dtype, device=dev)
+    zeros_b = torch.zeros((B,), dtype=X.dtype, device=dev)
+    no = torch.zeros((B,), dtype=torch.bool, device=dev)
+    if w0 is not None:
+        w0, b0 = w0.to(X.dtype), b0.to(X.dtype)
+        ok0 = _margins_min(X, y, valid, w0, b0) > 0.0
+        if warm_ok is not None:
+            ok0 = ok0 & warm_ok
+        gate = ok0
+        if use_kernel:
+            # polish runs un-latched (found=False in); the gate composes
+            # the carried and the polished margin, as the classic loop
+            w_p, b_p, mm_p, _f, _wb, _bb = pegasos_stage(
+                X, y, nv, w0, b0, full(lams[0]), no, zeros_w, zeros_b,
+                nsteps=warm_steps, t0=float(warm_offset))
+            ok_p = ok0 & (mm_p > 0.0)
+        else:
+            w_p, b_p = _classic_stage(X, y, valid, nv, w0, b0,
+                                      full(lams[0]), warm_steps,
+                                      float(warm_offset))
+            ok_p = ok0 & (_margins_min(X, y, valid, w_p, b_p) > 0.0)
+        found = ok_p
+        w_best = torch.where(ok_p[:, None], w_p, zeros_w)
+        b_best = torch.where(ok_p, b_p, zeros_b)
+    else:
+        found, gate = no, no
+        w_best, b_best = zeros_w, zeros_b
+
+    w, b = zeros_w, zeros_b
+    for s in range(stages):
+        if early_exit and bool(found.all()):
+            break
+        if use_kernel:
+            w, b, _mm, found, w_best, b_best = pegasos_stage(
+                X, y, nv, w, b, full(lams[s]), found, w_best, b_best,
+                nsteps=steps, skip_latched=True)
+            continue
+        w, b = _classic_stage(X, y, valid, nv, w, b, full(lams[s]), steps)
+        ok = _margins_min(X, y, valid, w, b) > 0.0
+        take = ok & ~found
+        w_best = torch.where(take[:, None], w, w_best)
+        b_best = torch.where(take, b, b_best)
+        found = found | ok
+    w = torch.where(found[:, None], w_best, w)
+    b = torch.where(found, b_best, b)
+
+    # canonicalise: functional margin 1 at the support points
+    mmin = _margins_min(X, y, valid, w, b)
+    can = found & torch.isfinite(mmin) & (mmin > 0.0)
+    scale = torch.where(can, 1.0 / torch.where(can, mmin, 1.0), 1.0)
+    if return_gate:
+        return w * scale[:, None], b * scale, found, gate
+    return w * scale[:, None], b * scale, found
+
+
+def anneal_hard_margin(
+    X: np.ndarray,
+    y: np.ndarray,
+    lam: float = 1e-3,
+    steps: int = 2000,
+    stages: int = 3,
+    kernel: Optional[bool] = None,
+    device="cuda",
+) -> Tuple[np.ndarray, float, bool]:
+    """Single-instance entry to the annealed solver (B=1) on ``device``:
+    ``(w, b, converged)`` in float64/bool host types — the MAXMARG engine's
+    per-turn fit at B=1."""
+    dev = _device.resolve(device)
+    Xt = torch.as_tensor(np.atleast_2d(X), dtype=torch.float32)[None].to(dev)
+    yt = torch.as_tensor(np.asarray(y), dtype=torch.float32)[None].to(dev)
+    w, b, ok = _svm_solve_batch(Xt, yt, lam, steps, stages, kernel=kernel)
+    return (w[0].cpu().double().numpy(), float(b[0]), bool(ok[0]))
+
+
+def fit_max_margin(
+    X: np.ndarray,
+    y: np.ndarray,
+    steps: int = 2000,
+    lam: float = 1e-3,
+    refine: int = 2,
+    device="cuda",
+) -> LinearSeparator:
+    """Approximate hard-margin SVM: the annealed solver at B=1 with
+    ``refine + 1`` λ stages, canonicalised to min functional margin 1."""
+    w, b, _ = anneal_hard_margin(X, y, lam=lam, steps=steps,
+                                 stages=refine + 1, device=device)
+    geo = (y * (X @ w + b)).min() / (np.linalg.norm(w) + 1e-30)
+    return LinearSeparator(w, float(b), margin=float(geo))
+
+
+def support_points(
+    clf: LinearSeparator, X: np.ndarray, y: np.ndarray, rtol: float = 0.15,
+    max_support: int = 8,
+) -> np.ndarray:
+    """Indices of active-margin points (functional margin within (1+rtol) of
+    the minimum) — what MAXMARG ships each round.  Beyond ``max_support``
+    the tightest are kept, exact margin ties by ascending index (the
+    engine's (margin, index) order)."""
+    m = y * (X @ clf.w + clf.b)
+    mmin = max(m.min(), 1e-12)
+    idx = np.where(m <= mmin * (1.0 + rtol))[0]
+    if len(idx) > max_support:
+        order = np.argsort(m[idx], kind="stable")
+        idx = np.asarray(sorted(idx[order[:max_support]]))
+    return idx

@@ -37,6 +37,18 @@ def project_each(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def decide(X: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, ..., d) × (B, d) × (B,) -> (B, ...): each instance's decision
+    values ``sum_i x_i w_i + b``, left to right over d and then the offset,
+    rounded as :func:`project` — the order the MAXMARG solver, its kernels
+    and its step form every margin in."""
+    wb = w.reshape(w.shape[0:1] + (1,) * (X.ndim - 2) + w.shape[1:])
+    dec = X[..., 0] * wb[..., 0]
+    for i in range(1, X.shape[-1]):
+        dec = dec + X[..., i] * wb[..., i]
+    return dec + b.reshape(b.shape + (1,) * (X.ndim - 2))
+
+
 def signed_margins(w: torch.Tensor, b, X: torch.Tensor,
                    y: torch.Tensor) -> torch.Tensor:
     """y * (X @ w + b) — positive iff correctly classified."""

@@ -1,41 +1,50 @@
 """Batched protocol engine on tensors (counterpart of ``repro.engine``).
 
 The paper's experiments are sweeps — ε × partition × dataset × protocol —
-and every instance is independent, so the data plane batches them: a
-:class:`ProtocolState` record with a leading instance axis, one ``step``
-driven by the host-side hot loop, and on-device communication accounting
+and every instance is independent, so the data plane batches them: a state
+record with a leading instance axis, one selector ``step`` driven by the
+host-side hot loop, and on-device communication accounting
 (:class:`BatchCommLog`) lowered to ``CommLog.summary`` dicts at the end.
-MEDIAN's per-turn scans run as hand-written CUDA kernels on the card
-(:mod:`repro_torch.kernels`).
+The per-turn scans and the MAXMARG refit solver run as hand-written CUDA
+kernels on the card (:mod:`repro_torch.kernels`).
 
-Ported so far: the MEDIAN / k-party selector (:mod:`.median`).  The other
-selectors raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Ported so far: the MEDIAN / k-party selector (:mod:`.median`) and the
+MAXMARG selector (:mod:`.maxmarg`).  The other selectors raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from repro_torch.engine.state import (
     BatchCommLog,
     EngineData,
+    MaxMargState,
     ProtocolInstance,
     ProtocolState,
     from_reference,
+    maxmarg_transcript_capacity,
     pack_instances,
+    pack_instances_maxmarg,
     transcript_capacity,
 )
 from repro_torch.engine.median import run_compiled, run_instances, step
-from repro_torch.engine import dataplane, hotloop, median
+from repro_torch.engine import dataplane, hotloop, maxmarg, median
 
 # selectors of the JAX engine that later slices port (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "maxmarg": "ROADMAP Queue 1 item 6 (MAXMARG)",
     "sampling": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
     "naive": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
     "voting": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
     "mixing": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
 }
-_MEDIAN_OPTS = ("eps", "n_angles", "max_epochs", "cut_kernel",
-                "extremes_kernel", "compact", "overlap", "device")
-# MEDIAN options of the JAX engine that belong to the sharded slice
+# each ported selector's options, as the JAX package's ``_ALLOWED``
+_ALLOWED = {
+    "median": ("eps", "n_angles", "max_epochs", "cut_kernel",
+               "extremes_kernel", "compact", "overlap", "device"),
+    "maxmarg": ("eps", "max_epochs", "max_support", "warm", "per_node",
+                "compact", "fused_kernel", "solver_kernel", "overlap",
+                "steps", "stages", "lam", "device"),
+}
+_RUNNERS = {"median": run_instances, "maxmarg": maxmarg.run_instances}
+# options of the JAX engine that belong to the sharded slice
 _SHARDED_OPTS = ("mesh", "donate", "stats")
 
 
@@ -43,15 +52,18 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
     """Dispatch a sweep and return results in input order.
 
     Instances bucket by (selector, k, d), one engine dispatch per bucket, as
-    in the JAX package.  Only the "median" selector is ported: another
-    selector, ``unified_dispatch=True`` or a sharded option raises
+    in the JAX package; each bucket's runner gets only the options its
+    selector accepts.  The "median" and "maxmarg" selectors are ported:
+    another selector, ``unified_dispatch=True`` or a sharded option raises
     ``NotImplementedError`` naming its ROADMAP item; an option no selector
-    understands raises ``TypeError``; an unknown selector ``ValueError``.
+    in the sweep accepts raises ``TypeError``; an unknown selector
+    ``ValueError``.
 
     Launch-shape contract: each bucket's per-turn shapes key on the static
-    scenario shape (k, d, n_max and cap rounded to multiples of 8,
-    ``n_angles``, ``max_epochs``) and the hot loop's quantized
-    ``(n_pad, width)`` buckets, never on ε, seeds or shard contents.
+    scenario shape (k, d, n_max and cap rounded to multiples of 8, the
+    selector's static options) and the hot loop's quantized
+    ``(n_pad, width, use_warm)`` buckets, never on ε, seeds or shard
+    contents.
     """
     if unified_dispatch:
         raise NotImplementedError(
@@ -63,7 +75,7 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
             raise NotImplementedError(
                 f"selector {inst.selector!r} is not ported yet: "
                 f"{_NOT_PORTED[inst.selector]}")
-        if inst.selector != "median":
+        if inst.selector not in _ALLOWED:
             raise ValueError(f"unknown selector {inst.selector!r}")
         key = (inst.selector, len(inst.shards), inst.shards[0][0].shape[1])
         buckets.setdefault(key, []).append(i)
@@ -72,13 +84,15 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
         raise NotImplementedError(
             f"run_sweep option(s) {sharded} are not ported yet: ROADMAP "
             f"Queue 1 item 11 (sharded B axis)")
-    unknown = set(kwargs) - set(_MEDIAN_OPTS)
+    understood = set().union(*(_ALLOWED[sel] for sel, _k, _d in buckets))
+    unknown = set(kwargs) - understood
     if unknown:
         raise TypeError(f"run_sweep got option(s) {sorted(unknown)} that no "
                         f"selector in this sweep accepts")
     out = [None] * len(instances)
-    for idxs in buckets.values():
-        res = run_instances([instances[i] for i in idxs], **kwargs)
+    for (selector, _k, _d), idxs in buckets.items():
+        opts = {a: kwargs[a] for a in _ALLOWED[selector] if a in kwargs}
+        res = _RUNNERS[selector]([instances[i] for i in idxs], **opts)
         for i, r in zip(idxs, res):
             out[i] = r
     return out
@@ -87,13 +101,17 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
 __all__ = [
     "BatchCommLog",
     "EngineData",
+    "MaxMargState",
     "ProtocolInstance",
     "ProtocolState",
     "dataplane",
     "from_reference",
     "hotloop",
+    "maxmarg",
+    "maxmarg_transcript_capacity",
     "median",
     "pack_instances",
+    "pack_instances_maxmarg",
     "run_compiled",
     "run_instances",
     "run_sweep",

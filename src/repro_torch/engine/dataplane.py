@@ -1,13 +1,18 @@
-"""MEDIAN's per-turn scans, routed to the port's kernels (counterpart of
-``repro.engine.dataplane``).
+"""The selectors' per-turn scans, routed to the port's kernels
+(counterpart of ``repro.engine.dataplane``).
 
-``median_cut(V, dir_ok, lo, hi, X, y)`` gives the batched median-cut scores
-(int32 (B, m), -1 at disallowed cuts) that the MEDIAN coordinator argmaxes;
-``median_extremes(v, XW, yW)`` the per-node extreme-point rows ``(i_p,
-i_q)`` of stage 5 at the hot loop's fill-capped width.  A CUDA tensor
-launches the hand-written kernel; a CPU tensor takes its plain PyTorch
-version.  There is no fallback: a kernel that fails to build or launch
-raises.
+MEDIAN: ``median_cut(V, dir_ok, lo, hi, X, y)`` gives the batched
+median-cut scores (int32 (B, m), -1 at disallowed cuts) that the
+coordinator argmaxes; ``median_extremes(v, XW, yW)`` the per-node
+extreme-point rows ``(i_p, i_q)`` of stage 5 at the hot loop's fill-capped
+width.  MAXMARG: ``maxmarg_turn_scan(w, b, K, yK, X, y, ...)`` gives the
+support ranks, per-node error counts and most-violated ranks of a refit
+proposal; ``pegasos_stage(X, y, nv, w, b, lam, found, w_best, b_best, ...)``
+runs one λ stage of the refit solver with its first-0-error latch.
+
+A CUDA tensor launches the hand-written kernel; a CPU tensor takes its
+plain PyTorch version.  There is no fallback: a kernel that fails to build
+or launch raises.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from repro_torch.kernels import median_cut_scores as median_cut  # noqa: F401
 from repro_torch.kernels import median_extremes  # noqa: F401
+from repro_torch.kernels import maxmarg_turn_scan, pegasos_stage  # noqa: F401
 
 
 def use_kernels_default(device: torch.device) -> bool:

@@ -6,6 +6,9 @@ change between turns:
 
 * **one packed transfer per turn** — done flags, warm flags and live
   transcript fills cross to the host as one (3, B) int32 view;
+* **warm refits** (``warm=True``, MAXMARG) — from turn 1 on, a turn whose
+  view shows a live instance that may latch its carried separator
+  dispatches with ``use_warm=True``; the others skip the polish;
 * **width compaction** — per-turn transcript reads run at
   ``round_up(max live fill + slack, 8)`` rows instead of the capacity;
 * **batch compaction** — finished instances drop out of the dispatch: the
@@ -18,9 +21,9 @@ change between turns:
   one-turn-stale view before the host waits on turn t's view.
 
 ``KEY_LOG`` records every compacted dispatch's launch shape
-``(n_pad, width, warm, first_turn)`` exactly as the JAX loop records its
-compile keys.  Sharded dispatch (``shard_skew``/``balanced_index``) and the
-warm carry come with later slices.
+``(n_pad, width, use_warm, first_turn)`` exactly as the JAX loop records
+its compile keys.  Sharded dispatch (``shard_skew``/``balanced_index``)
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -133,8 +136,9 @@ def run_hot(
     max_turns: int,
     cap: int,
     host_view: Callable,      # (state, ci) -> (3, B) i32 [done, warm, fill]
-    dispatch_full: Callable,  # (state, *, t, width) -> state
-    dispatch_sub: Callable,   # (state, idx, n_act, *, t, width) -> state
+    dispatch_full: Callable,  # (state, *, t, width, use_warm) -> state
+    dispatch_sub: Callable,   # (state, idx, n_act, *, t, width, use_warm)
+    warm: bool = False,
     compact: bool = True,
     width_slack: int = 0,
     width_growth: int = 0,
@@ -143,11 +147,14 @@ def run_hot(
     """The generic host-driven sweep loop over a selector's ``step``.
 
     ``host_view`` returns the packed per-turn host knowledge on the state's
-    device: row 0 done flags, row 1 warm flags (zero for MEDIAN), row 2 the
-    transcript fills the width compaction keys on; it crosses to the host
-    once per turn.  ``width_slack`` widens the compacted read past the
-    turn-start fill (MEDIAN's stage-5 scan reads transcripts after the S
-    append).  ``dispatch_full`` runs the whole batch at a compacted
+    device: row 0 done flags, row 1 the upcoming coordinator's warm-latch
+    flags (zero for MEDIAN), row 2 the transcript fills the width
+    compaction keys on; it crosses to the host once per turn.  With
+    ``warm`` a dispatch gets ``use_warm=True`` from turn 1 on whenever a
+    live instance's warm flag is set: polish only where it can latch.
+    ``width_slack`` widens the compacted read past the turn-start fill
+    (MEDIAN's stage-5 scan reads transcripts after the S append).
+    ``dispatch_full`` runs the whole batch at a compacted
     ``width`` (``None`` on the non-compacted path); ``dispatch_sub``
     gathers the ``idx`` rows, steps them and scatters them back in place.
 
@@ -158,7 +165,9 @@ def run_hot(
     before waiting on turn t's view.  Stale parameters are sound: ``done``
     is monotone, so the stale active set is a superset whose extra rows are
     masked no-ops, and the stale fill plus ``width_growth`` covers the true
-    fill.  At most one wasted all-done masked dispatch runs at termination.
+    fill.  MEDIAN stays bit-exact; a warm selector may make other, equally
+    valid, polish-skip choices (the solver re-checks its warm gate).  At
+    most one wasted all-done masked dispatch runs at termination.
     """
     B = int(state.done.shape[0])
     device = state.done.device
@@ -173,45 +182,51 @@ def run_hot(
 
     if not compact:
         while t < max_turns:
-            done, _warm, _fills = wait_view(view(state, t % k))
+            done, warm_ok, _fills = wait_view(view(state, t % k))
             if bool(done.all()):
                 break
-            state = dispatch_full(state, t=t, width=None)
+            act = np.flatnonzero(done == 0)
+            use_warm = warm and t > 0 and bool(warm_ok[act].any())
+            state = dispatch_full(state, t=t, width=None, use_warm=use_warm)
             t += 1
         return state
 
-    def params(done, fills, growth):
+    def params(done, warm_ok, fills, t, growth):
         act = np.flatnonzero(done == 0)
+        # polish only where it can latch: turn 0 has no carry, and a turn
+        # where no live instance may latch falls through to the cold anneal
+        use_warm = warm and t > 0 and bool(warm_ok[act].any())
         width = quantize_width(int(fills[act].max(initial=0))
                                + width_slack + growth, cap)
-        return act, width
+        return act, width, use_warm
 
-    def dispatch(state, act, width, t):
+    def dispatch(state, act, width, use_warm, t):
         n_act = len(act)
         if n_act == B:
-            KEY_LOG.append((B, width, False, t == 0))
-            return dispatch_full(state, t=t, width=width)
+            KEY_LOG.append((B, width, use_warm, t == 0))
+            return dispatch_full(state, t=t, width=width, use_warm=use_warm)
         n_pad = min(B, _round_up(n_act, BATCH_MULT))
         idx = np.concatenate([act, pad_tail[:n_pad - n_act]])
-        KEY_LOG.append((n_pad, width, False, t == 0))
+        KEY_LOG.append((n_pad, width, use_warm, t == 0))
         return dispatch_sub(state, torch.from_numpy(idx).to(device), n_act,
-                            t=t, width=width)
+                            t=t, width=width, use_warm=use_warm)
 
     # one packed transfer per turn for everything the host needs
     current = wait_view(view(state, t % k))
     while t < max_turns:
-        done, _warm, fills = current
+        done, warm_ok, fills = current
         if bool(done.all()):
             break
-        act, width = params(done, fills, 0)
-        state = dispatch(state, act, width, t)
+        act, width, use_warm = params(done, warm_ok, fills, t, 0)
+        state = dispatch(state, act, width, use_warm, t)
         vh = view(state, (t + 1) % k)
         t += 1
         if overlap and t < max_turns:
             # double buffer: dispatch turn t from the now-stale view before
             # waiting on turn t-1's view (vh)
-            act_s, width_s = params(done, fills, width_growth)
-            state = dispatch(state, act_s, width_s, t)
+            act_s, width_s, warm_s = params(done, warm_ok, fills, t,
+                                            width_growth)
+            state = dispatch(state, act_s, width_s, warm_s, t)
             vh2 = view(state, (t + 1) % k)
             t += 1
             if bool(wait_view(vh)[0].all()):

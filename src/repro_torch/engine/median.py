@@ -363,11 +363,12 @@ def run_hot(
     cap = int(state.wx.shape[2])
     opts = dict(k=k, cut_kernel=cut_kernel, extremes_kernel=extremes_kernel)
 
-    def dispatch_full(s, *, t, width):
+    # MEDIAN has no warm carry: run_hot(warm=False) passes use_warm=False
+    def dispatch_full(s, *, t, width, use_warm):
         return step(data, V, s, first_turn=(t == 0), trans_width=width,
                     **opts)
 
-    def dispatch_sub(s, idx, n_act, *, t, width):
+    def dispatch_sub(s, idx, n_act, *, t, width, use_warm):
         step_fn = functools.partial(step, first_turn=(t == 0),
                                     trans_width=width, **opts)
         return hotloop.gathered_turn(

@@ -1,10 +1,11 @@
 """Batched protocol state as NamedTuple records of tensors (counterpart of
 ``repro.engine.state``).
 
-A *sweep* is B independent MEDIAN/k-party protocol instances (same party
-count k, possibly different datasets, shard sizes, error budgets and seeds)
-advanced in lock-step by one ``step``.  The shapes and padding rules are the
-JAX package's, leaf for leaf:
+A *sweep* is B independent protocol instances of one selector (same party
+count k and dimension d, possibly different datasets, shard sizes, error
+budgets and seeds) advanced in lock-step by the selector's ``step``:
+:class:`ProtocolState` for MEDIAN, :class:`MaxMargState` for MAXMARG.  The
+shapes and padding rules are the JAX package's, leaf for leaf:
 
 * shards are padded to a common ``n_max`` with **label-0 rows** — inert in
   every masked reduction;
@@ -84,6 +85,42 @@ class ProtocolState(NamedTuple):
     comm: BatchCommLog
 
 
+class MaxMargState(NamedTuple):
+    """Per-instance MAXMARG protocol state advanced by ``maxmarg.step``.
+
+    Same conventions as :class:`ProtocolState` (leading batch axis B,
+    per-instance ``turn``, label-0 transcript padding) but no direction
+    grid: the selector refits a max-margin separator every turn.
+    Transcripts hold *received* points only.  ``h_w``/``h_b`` hold the
+    latest proposal (the result, and the single-carry warm init);
+    ``c_w``/``c_b``/``c_valid`` each node's carried separator — the latest
+    proposal that node verified clean on everything it knows — with
+    ``warm_node`` tracking whether it still classifies the node's grown
+    transcript cleanly; ``latches`` counts refits whose warm gate passed
+    (observability only).
+    """
+
+    wx: torch.Tensor         # (B, k, cap, d) f32 — received-point transcripts
+    wy: torch.Tensor         # (B, k, cap) i32 — transcript labels (0 = empty)
+    w_fill: torch.Tensor     # (B, k) i32 — live transcript length per node
+    turn: torch.Tensor       # (B,) i32 — per-instance turn counter
+    done: torch.Tensor       # (B,) bool
+    converged: torch.Tensor  # (B,) bool
+    epochs: torch.Tensor     # (B,) i32 — 1-based epoch at termination
+    h_w: torch.Tensor        # (B, d) f32 — current hypothesis weights
+    h_b: torch.Tensor        # (B,) f32 — current hypothesis offset
+    h_valid: torch.Tensor    # (B,) bool — (h_w, h_b) is a fitted separator
+    warm_turn: torch.Tensor  # (B,) bool — latest proposal classified the
+    #                          next coordinator's shard cleanly
+    c_w: torch.Tensor        # (B, k, d) f32 — per-node carried separators
+    c_b: torch.Tensor        # (B, k) f32
+    c_valid: torch.Tensor    # (B, k) bool — node has a carry
+    warm_node: torch.Tensor  # (B, k) bool — the carry still classifies the
+    #                          node's grown transcript cleanly
+    latches: torch.Tensor    # (B,) i32 — warm-gate hits (observability)
+    comm: BatchCommLog
+
+
 class EngineData(NamedTuple):
     """Per-instance constants of a sweep."""
 
@@ -95,8 +132,8 @@ class EngineData(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class ProtocolInstance:
     """One protocol problem: k shards plus an error budget ε and a selector.
-    Only the "median" selector is ported so far; ``seed`` keys per-instance
-    randomness of the one-way "sampling" selector."""
+    The "median" and "maxmarg" selectors are ported so far; ``seed`` keys
+    per-instance randomness of the one-way "sampling" selector."""
 
     shards: Sequence[Tuple[np.ndarray, np.ndarray]]
     eps: float = 0.05
@@ -118,12 +155,46 @@ def transcript_capacity(k: int, max_epochs: int) -> int:
     return _round_up(max_epochs * (8 * k - 4) + 8, 8)
 
 
-def _state_to(state_np: Dict[str, np.ndarray], comm_np, dev) -> ProtocolState:
+def _state_to(state_np: Dict[str, np.ndarray], comm_np, dev,
+              record=ProtocolState):
     leaves = {f: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
               for f, a in state_np.items()}
     comm = BatchCommLog(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                           for a in comm_np))
-    return ProtocolState(comm=comm, **leaves)
+    return record(comm=comm, **leaves)
+
+
+def _pack_shards(instances, d: int):
+    """The (X, y, budget) numpy arrays of a sweep: shards padded to n_max
+    (rounded up to 8) with label-0 rows, budget = floor(ε · n_total)."""
+    k = len(instances[0].shards)
+    B = len(instances)
+    n_max = _round_up(max(s[0].shape[0] for inst in instances
+                          for s in inst.shards), 8)
+    X = np.zeros((B, k, n_max, d), np.float32)
+    y = np.zeros((B, k, n_max), np.int32)
+    budget = np.zeros((B,), np.int32)
+    for b, inst in enumerate(instances):
+        n_total = 0
+        for j, (Xs, ys) in enumerate(inst.shards):
+            n = Xs.shape[0]
+            if not (np.abs(ys) == 1).all():
+                raise ValueError("labels must be +-1")
+            X[b, j, :n] = Xs
+            y[b, j, :n] = ys
+            n_total += n
+        budget[b] = int(np.floor(inst.eps * n_total))
+    return X, y, budget
+
+
+def _shared_k_d(instances):
+    if not instances:
+        raise ValueError("need at least one instance")
+    ks = {len(inst.shards) for inst in instances}
+    if len(ks) != 1:
+        raise ValueError(f"instances must share the party count, got {ks}")
+    ds = {s[0].shape[1] for inst in instances for s in inst.shards}
+    return ks.pop(), ds
 
 
 def pack_instances(
@@ -142,33 +213,12 @@ def pack_instances(
     once.
     """
     dev = _device.resolve(device)
-    if not instances:
-        raise ValueError("need at least one instance")
-    ks = {len(inst.shards) for inst in instances}
-    if len(ks) != 1:
-        raise ValueError(f"instances must share the party count, got {ks}")
-    k = ks.pop()
-    ds = {s[0].shape[1] for inst in instances for s in inst.shards}
+    k, ds = _shared_k_d(instances)
     if ds != {2}:
         raise ValueError(f"MEDIAN engine is specified for R^2, got d={ds}")
     B = len(instances)
-    n_max = _round_up(max(s[0].shape[0] for inst in instances
-                          for s in inst.shards), 8)
     cap = transcript_capacity(k, max_epochs)
-
-    X = np.zeros((B, k, n_max, 2), np.float32)
-    y = np.zeros((B, k, n_max), np.int32)
-    budget = np.zeros((B,), np.int32)
-    for b, inst in enumerate(instances):
-        n_total = 0
-        for j, (Xs, ys) in enumerate(inst.shards):
-            n = Xs.shape[0]
-            if not (np.abs(ys) == 1).all():
-                raise ValueError("labels must be +-1")
-            X[b, j, :n] = Xs
-            y[b, j, :n] = ys
-            n_total += n
-        budget[b] = int(np.floor(inst.eps * n_total))
+    X, y, budget = _pack_shards(instances, 2)
 
     data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
     state0 = _state_to(dict(
@@ -189,18 +239,95 @@ def pack_instances(
     return data, state0, k, cap
 
 
-def from_reference(data, state, V, device="cuda"):
-    """Carry the JAX package's packed sweep across: ``data`` an
-    ``EngineData``, ``state`` a ``ProtocolState`` (with its ``comm`` log) and
-    ``V`` the (m, d) direction grid, each leaf anything ``np.asarray``
-    accepts.  Returns the port's ``(EngineData, ProtocolState, V)`` on
-    ``device``, leaf for leaf, bit for bit — this system's "weights" are its
-    packed state, and the tests run both packages on identical inputs."""
+def maxmarg_transcript_capacity(k: int, max_epochs: int,
+                                max_support: int) -> int:
+    """Static per-node transcript bound for the MAXMARG selector.  Per epoch
+    a node *receives* at most ``max_support`` points on each of the k-1
+    turns where it is not coordinator, plus (as coordinator) a 2-point
+    violation reply from each of the k-1 others: ``(max_support + 2)(k-1)``
+    rows.  +8 slack keeps every block write (≤ 8 rows, at the fill) inside
+    the buffer; the appends assert it."""
+    if not 1 <= max_support <= 8:
+        raise ValueError(
+            f"max_support must be in [1, 8] (block appends write at most 8 "
+            f"rows past the fill), got {max_support}")
+    return _round_up(max_epochs * (max_support + 2) * (k - 1) + 8, 8)
+
+
+def _maxmarg_state0(B: int, k: int, cap: int, d: int):
+    return dict(
+        wx=np.zeros((B, k, cap, d), np.float32),
+        wy=np.zeros((B, k, cap), np.int32),
+        w_fill=np.zeros((B, k), np.int32),
+        turn=np.zeros((B,), np.int32),
+        done=np.zeros((B,), bool),
+        converged=np.zeros((B,), bool),
+        epochs=np.zeros((B,), np.int32),
+        h_w=np.zeros((B, d), np.float32),
+        h_b=np.zeros((B,), np.float32),
+        h_valid=np.zeros((B,), bool),
+        warm_turn=np.zeros((B,), bool),
+        c_w=np.zeros((B, k, d), np.float32),
+        c_b=np.zeros((B, k), np.float32),
+        c_valid=np.zeros((B, k), bool),
+        warm_node=np.zeros((B, k), bool),
+        latches=np.zeros((B,), np.int32),
+    )
+
+
+def pack_instances_maxmarg(
+    instances: Sequence[ProtocolInstance],
+    *,
+    max_epochs: int,
+    max_support: int,
+    device="cuda",
+) -> Tuple[EngineData, MaxMargState, int, int]:
+    """Pad a MAXMARG sweep onto the engine's static shapes, on ``device``.
+
+    Returns ``(data, state0, k, cap)``.  All instances must share the party
+    count k and the dimension d (any d — MAXMARG has no direction grid);
+    shard sizes may be ragged (label-0 padding).  ``n_max`` and ``cap`` are
+    rounded up to multiples of 8; the arrays are built in numpy exactly as
+    the JAX package builds them and uploaded once.
+    """
     dev = _device.resolve(device)
+    k, ds = _shared_k_d(instances)
+    if len(ds) != 1:
+        raise ValueError(f"instances must share the dimension, got {ds}")
+    d = ds.pop()
+    cap = maxmarg_transcript_capacity(k, max_epochs, max_support)
+    X, y, budget = _pack_shards(instances, d)
+    data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
+    state0 = _state_to(
+        _maxmarg_state0(len(instances), k, cap, d),
+        [np.zeros((len(instances),), np.int32) for _ in BatchCommLog._fields],
+        dev, MaxMargState)
+    return data, state0, k, cap
+
+
+def from_reference(data, state, V=None, device="cuda"):
+    """Carry the JAX package's packed sweep across: ``data`` an
+    ``EngineData`` and ``state`` a MEDIAN ``ProtocolState`` with ``V`` its
+    (m, d) direction grid, or a ``MaxMargState`` (no ``V``), each leaf
+    anything ``np.asarray`` accepts.  Returns the port's ``(EngineData,
+    state, V)`` on ``device`` (``V`` None for MAXMARG), leaf for leaf, bit
+    for bit — this system's "weights" are its packed state, and the tests
+    run both packages on identical inputs."""
+    dev = _device.resolve(device)
+    fields = tuple(f for f in type(state)._fields if f != "comm")
+    record = {tuple(f for f in r._fields if f != "comm"): r
+              for r in (ProtocolState, MaxMargState)}.get(fields)
+    if record is None:
+        raise TypeError(f"from_reference takes a ProtocolState or a "
+                        f"MaxMargState, got {type(state).__name__}")
+    if (record is ProtocolState) != (V is not None):
+        raise ValueError("a MEDIAN state comes with its direction grid V, "
+                         "a MAXMARG state without one")
     data_t = EngineData(*(torch.from_numpy(np.array(a)).to(dev)
                           for a in data))
-    leaves = {f: np.array(getattr(state, f))
-              for f in ProtocolState._fields if f != "comm"}
-    state_t = _state_to(leaves, [np.array(a) for a in state.comm], dev)
-    V_t = torch.from_numpy(np.array(V, dtype=np.float32)).to(dev)
+    leaves = {f: np.array(getattr(state, f)) for f in fields}
+    state_t = _state_to(leaves, [np.array(a) for a in state.comm], dev,
+                        record)
+    V_t = (None if V is None
+           else torch.from_numpy(np.array(V, dtype=np.float32)).to(dev))
     return data_t, state_t, V_t

@@ -1,12 +1,14 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (the CPU path and the kernel's oracle) and a launch counter.
 
-========================  ===========================  =====================
+========================  ===========================  =============================
 wrapper                   CUDA source                  replaces (TPU kernel)
-========================  ===========================  =====================
+========================  ===========================  =============================
 ``median_cut_scores``     ``csrc/median_cut.cu``       ``median_cut_scores_batched``
 ``median_extremes``       ``csrc/median_extremes.cu``  ``median_extremes_batched``
-========================  ===========================  =====================
+``maxmarg_turn_scan``     ``csrc/maxmarg_turn.cu``     ``maxmarg_turn_scan_batched``
+``pegasos_stage``         ``csrc/pegasos_stage.cu``    ``pegasos_stage_batched``
+========================  ===========================  =============================
 
 Sources build with ``nvcc`` at first launch (:mod:`._build`); importing this
 package builds nothing.
@@ -18,12 +20,19 @@ from repro_torch.kernels.median_cut import (  # noqa: F401
     median_cut_scores,
     median_cut_scores_plain,
 )
+from repro_torch.kernels.pegasos import (  # noqa: F401
+    pegasos_stage,
+    pegasos_stage_plain,
+)
 from repro_torch.kernels.support_margin import (  # noqa: F401
+    maxmarg_turn_scan,
+    maxmarg_turn_scan_plain,
     median_extremes,
     median_extremes_plain,
 )
 
-WRAPPERS = (median_cut_scores, median_extremes)
+WRAPPERS = (median_cut_scores, median_extremes, maxmarg_turn_scan,
+            pegasos_stage)
 
 
 def reset_launches() -> None:

@@ -1,13 +1,19 @@
-"""MEDIAN's stage-5 per-node extremes scan: CUDA kernel, wrapper and plain
-PyTorch version.
+"""The support-margin scans of the turn loops: CUDA kernels, wrappers and
+plain PyTorch versions.
 
-Replaces the TPU kernel ``src/repro/kernels/support_margin.py``
-(``median_extremes_batched``).  The CUDA source is
-``csrc/median_extremes.cu``; its note gives the bound on an H100 and the
-design.  The wrapper :func:`median_extremes` launches the kernel for CUDA
-tensors and takes :func:`median_extremes_plain` only for tensors on the
-CPU.  Row choices are integers, so the two agree exactly; both form the
-projection as ``(x0*v0) + (x1*v1)`` with one rounding per operation.
+* MEDIAN's stage-5 per-node extremes scan, :func:`median_extremes`
+  (``csrc/median_extremes.cu``), replaces the TPU kernel
+  ``src/repro/kernels/support_margin.py`` ``median_extremes_batched``;
+  both versions form the projection as ``(x0*v0) + (x1*v1)``.
+* MAXMARG's fused turn scan, :func:`maxmarg_turn_scan`
+  (``csrc/maxmarg_turn.cu``), replaces ``maxmarg_turn_scan_batched``;
+  both versions form every margin with
+  :func:`repro_torch.core.geometry.decide`, never with a matrix product.
+
+Each rounds once per operation, and each returns integers only, so kernel
+and plain version agree exactly.  The CUDA sources' notes give the bounds
+on an H100 and the designs.  A wrapper launches its kernel for CUDA tensors
+and takes the plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -16,11 +22,14 @@ import ctypes
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.geometry import project_each
+from repro_torch.core.geometry import decide, project_each
 from repro_torch.kernels import _build
 from repro_torch.kernels.median_cut import _require
+
+_MAX_TURN_D = 4096      # w sits in shared memory: 4 bytes a feature
 
 
 def median_extremes_plain(
@@ -76,3 +85,111 @@ def median_extremes(v, XW, yW) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 median_extremes.launches = 0
+
+
+def _topr_ranks(key: torch.Tensor, member: torch.Tensor, r: int):
+    """Along the last axis, the rank of the ``r`` smallest member entries
+    under ascending (key, index) order; every other entry gets the sentinel
+    (the axis length).  ``r`` rounds of a first-index argmin, as the JAX
+    package's ``ref._topr_ranks`` spells it; members with key +inf are
+    never ranked."""
+    n = key.shape[-1]
+    k2 = key.masked_fill(~member, math.inf)
+    out = torch.full(key.shape, n, dtype=torch.int32, device=key.device)
+    for t in range(r):
+        i = k2.argmin(dim=-1, keepdim=True)              # first minimum
+        hit = torch.isfinite(k2.gather(-1, i))
+        out.scatter_(-1, i, torch.where(hit, t, out.gather(-1, i)))
+        k2 = k2.scatter(-1, i, torch.where(hit, math.inf, k2.gather(-1, i)))
+    return out
+
+
+def maxmarg_turn_scan_plain(
+    w: torch.Tensor,    # (B, d) f32 per-instance refit separators
+    b: torch.Tensor,    # (B,) f32
+    K: torch.Tensor,    # (B, N, d) f32 own ∪ transcript fit sets
+    yK: torch.Tensor,   # (B, N) i32 ±1, 0 = padding
+    X: torch.Tensor,    # (B, k, n, d) f32 per-node shards
+    y: torch.Tensor,    # (B, k, n) i32 ±1, 0 = padding
+    *,
+    rtol: float = 0.15,
+    max_support: int = 4,
+    viol_ship: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One MAXMARG turn's fused margin scan, integer outputs only:
+
+    * ``sup_rank`` (B, N) i32 — the (margin, index) rank of the
+      ``max_support`` tightest fit-set rows within the active-margin band
+      (margin ≤ max(min margin, 1e-12)·(1+rtol)), sentinel N elsewhere;
+    * ``err_k`` (B, k) i32 — per-node error counts of the proposal;
+    * ``viol_rank`` (B, k, n) i32 — per node, the (margin, index) rank of
+      the ``viol_ship`` most-violated valid rows, sentinel n elsewhere.
+
+    The JAX package's ``ref.maxmarg_turn_batch_ref``, with every margin
+    formed by :func:`~repro_torch.core.geometry.decide`."""
+    valid_K = yK != 0
+    mK = yK.to(K.dtype) * decide(K, w, b)
+    mmin = mK.masked_fill(~valid_K, math.inf).amin(dim=1).clamp_min(1e-12)
+    scale = torch.tensor(1.0 + rtol, dtype=K.dtype)      # rounded to f32 once
+    band = valid_K & (mK <= (mmin * scale)[:, None])
+    sup_rank = _topr_ranks(mK, band, max_support)
+
+    dec = decide(X, w, b)                                # (B, k, n)
+    valid = y != 0
+    pred = torch.where(dec > 0, 1, -1)
+    err_k = ((pred != y) & valid).sum(dim=2, dtype=torch.int32)
+    viol_rank = _topr_ranks(y.to(X.dtype) * dec, valid, viol_ship)
+    return sup_rank, err_k, viol_rank
+
+
+def _bound_turn() -> ctypes.CDLL:
+    lib = _build.load("maxmarg_turn")
+    fn = lib.maxmarg_turn_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
+                      viol_ship=2):
+    """The turn scan of :func:`maxmarg_turn_scan_plain`.  CUDA tensors launch
+    the kernel of ``csrc/maxmarg_turn.cu`` (and count the launch in
+    ``maxmarg_turn_scan.launches``); CPU tensors take the plain version."""
+    opts = dict(rtol=rtol, max_support=max_support, viol_ship=viol_ship)
+    if K.device.type == "cpu":
+        return maxmarg_turn_scan_plain(w, b, K, yK, X, y, **opts)
+    if K.device.type != "cuda":
+        raise ValueError(f"maxmarg_turn_scan runs on cuda or cpu, "
+                         f"not {K.device}")
+    B, N, d = K.shape
+    k, n = y.shape[1], y.shape[2]
+    if not (B > 0 and N > 0 and k > 0 and n > 0 and 0 < d <= _MAX_TURN_D
+            and max_support >= 0 and viol_ship >= 0):
+        raise ValueError(f"maxmarg_turn_scan: unsupported shape B={B}, "
+                         f"N={N}, k={k}, n={n}, d={d}")
+    dev = K.device
+    _require(w, "w", torch.float32, (B, d), dev)
+    _require(b, "b", torch.float32, (B,), dev)
+    _require(K, "K", torch.float32, (B, N, d), dev)
+    _require(yK, "yK", torch.int32, (B, N), dev)
+    _require(X, "X", torch.float32, (B, k, n, d), dev)
+    _require(y, "y", torch.int32, (B, k, n), dev)
+    sup_rank = torch.empty((B, N), dtype=torch.int32, device=dev)
+    err_k = torch.empty((B, k), dtype=torch.int32, device=dev)
+    viol_rank = torch.empty((B, k, n), dtype=torch.int32, device=dev)
+    scratch = torch.empty((B, N + k * n), dtype=torch.float32, device=dev)
+    lib = _bound_turn()
+    with torch.cuda.device(dev):
+        err = lib.maxmarg_turn_launch(
+            w.data_ptr(), b.data_ptr(), K.data_ptr(), yK.data_ptr(),
+            X.data_ptr(), y.data_ptr(), sup_rank.data_ptr(),
+            err_k.data_ptr(), viol_rank.data_ptr(), scratch.data_ptr(),
+            B, N, k, n, d, float(np.float32(1.0 + rtol)), max_support,
+            viol_ship, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "maxmarg_turn", err)
+    maxmarg_turn_scan.launches += 1
+    return sup_rank, err_k, viol_rank
+
+
+maxmarg_turn_scan.launches = 0

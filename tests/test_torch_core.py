@@ -172,7 +172,9 @@ def test_port_source_imports_neither_jax_nor_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, chip_smoke, repro_torch, repro_torch.core, "
-        "repro_torch.engine, repro_torch.kernels, repro_torch.core.protocols;"
+        "repro_torch.engine, repro_torch.kernels, repro_torch.core.protocols, "
+        "repro_torch.core.classifiers, repro_torch.engine.maxmarg, "
+        "repro_torch.kernels.pegasos, repro_torch.kernels.support_margin;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ,
@@ -186,17 +188,30 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     """The default device is the card; with none the entry points raise
     rather than carry on on the CPU."""
     from repro_torch import engine
+    from repro_torch.core import classifiers
     from repro_torch.core.protocols import kparty, two_way
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shards = tdata.data1(n_per_node=20, k=2, seed=0)
     inst = [engine.ProtocolInstance(shards, 0.1)]
+    mm = [engine.ProtocolInstance(shards, 0.1, "maxmarg")]
+    X = np.concatenate([s[0] for s in shards])
+    y = np.concatenate([s[1] for s in shards])
     for call in (lambda: engine.run_sweep(inst),
+                 lambda: engine.run_sweep(mm),
                  lambda: engine.run_instances(inst),
+                 lambda: engine.maxmarg.run_instances(mm),
                  lambda: engine.pack_instances(inst, n_angles=8,
                                                max_epochs=2),
+                 lambda: engine.pack_instances_maxmarg(mm, max_epochs=2,
+                                                       max_support=4),
                  lambda: two_way.iterative_support_median(shards),
+                 lambda: two_way.iterative_support_maxmarg(shards),
                  lambda: kparty.iterative_support_kparty(shards),
+                 lambda: kparty.iterative_support_kparty(
+                     shards, selector="maxmarg"),
+                 lambda: classifiers.anneal_hard_margin(X, y),
+                 lambda: classifiers.fit_max_margin(X, y),
                  lambda: tgeo.direction_grid(8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -5,9 +5,19 @@ The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there.  Here every input is in general
 position (random normals, bounds drawn apart from the projections), so the
 twins' dot-product projections and the port's one-rounding-per-operation
-projections make the same decisions.  Tolerance: integer-exact.  The ties
-(bounds built from the scanned points) are held against JAX's inline path
-in tests/test_torch_median.py.
+projections make the same decisions.  Tolerances:
+
+* MEDIAN scans and the MAXMARG turn scan: integer-exact (the turn scan's
+  crafted ties too: there every margin is an exact copy of a coordinate,
+  so a dot and the port's sum agree).  MEDIAN's ties (bounds built from the
+  scanned points) are held against JAX's inline path in
+  tests/test_torch_median.py.
+* The Pegasos stage: ``found`` exact; w, b, mmin, w_best, b_best to
+  rtol 1e-5, atol 1e-6 — the tier the JAX package holds its own tiled
+  kernel to against the twin (tests/test_kernels_interpret.py), since the
+  twin's einsum and the port's ordered block sum add the hinge gradient in
+  different orders.  The port's block sum is held bit for bit to a scalar
+  replica of the CUDA kernel's reduction order.
 """
 
 import os
@@ -18,13 +28,17 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import jax
+import jax.numpy as jnp
+
 from repro.core import geometry as jgeo
 from repro.kernels import ref
 
 import torch
 
+import chip_smoke
 from repro_torch import kernels
-from repro_torch.kernels import _build, median_cut
+from repro_torch.kernels import _build, median_cut, pegasos
 
 
 def _cut_inputs(seed, B=5, m=128, n=48):
@@ -52,6 +66,205 @@ def _extremes_inputs(seed, B=4, k=3, nW=57):
     yW[0, 1] = np.where(yW[0, 1] == 1, -1, yW[0, 1])   # a node without +1
     yW[2, 2] = 0                                          # padding only
     return v, XW, yW
+
+
+def _turn_inputs(seed, B=4, N=50, k=3, n=30, d=3):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(B, d)).astype(np.float32)
+    b = rng.normal(size=B).astype(np.float32)
+    K = rng.normal(size=(B, N, d)).astype(np.float32)
+    yK = rng.choice([-1, 0, 1], size=(B, N), p=[0.4, 0.2, 0.4])
+    X = rng.normal(size=(B, k, n, d)).astype(np.float32)
+    y = rng.choice([-1, 0, 1], size=(B, k, n), p=[0.4, 0.2, 0.4])
+    return w, b, K, yK.astype(np.int32), X, y.astype(np.int32)
+
+
+def _stage_inputs(seed, B=4, N=40, d=3):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(B, N, d)).astype(np.float32)
+    y = rng.choice([-1.0, 0.0, 1.0], size=(B, N)).astype(np.float32)
+    nv = np.maximum((y != 0).sum(axis=1), 1).astype(np.float32)
+    w = rng.normal(size=(B, d)).astype(np.float32)
+    b = rng.normal(size=B).astype(np.float32)
+    lam = np.full(B, 1e-2, np.float32)
+    found = rng.random(B) < 0.5
+    return (X, y, nv, w, b, lam, found, rng.normal(size=(B, d)).astype(
+        np.float32), rng.normal(size=B).astype(np.float32))
+
+
+def _jax_turn_inputs(B, N, k, n, d):
+    """tests/test_kernels.py's turn-scan inputs (jax.random), as numpy."""
+    ks = jax.random.split(jax.random.PRNGKey(B * N + n), 8)
+    K = jax.random.normal(ks[0], (B, N, d))
+    yK = jnp.where(jax.random.bernoulli(ks[1], 0.5, (B, N)), 1, -1)
+    yK = yK * jax.random.bernoulli(ks[2], 0.8, (B, N))
+    X = jax.random.normal(ks[3], (B, k, n, d))
+    y = jnp.where(jax.random.bernoulli(ks[4], 0.5, (B, k, n)), 1, -1)
+    y = y * jax.random.bernoulli(ks[5], 0.8, (B, k, n))
+    w = jax.random.normal(ks[6], (B, d))
+    b = jax.random.normal(ks[7], (B,))
+    return tuple(np.array(a, dtype=np.int32 if a.dtype != jnp.float32
+                            else np.float32) for a in (w, b, K, yK, X, y))
+
+
+def _jax_stage_inputs(B, N, d, seed=3, found_frac=0.3):
+    """tests/test_kernels_interpret.py's Pegasos-stage inputs, as numpy."""
+    ks = jax.random.split(jax.random.PRNGKey(seed), 6)
+    X = jax.random.normal(ks[0], (B, N, d), jnp.float32)
+    y = jnp.where(jax.random.bernoulli(ks[1], 0.5, (B, N)), 1.0, -1.0)
+    y = y * jax.random.bernoulli(ks[2], 0.85, (B, N))
+    nv = jnp.maximum(jnp.sum(y != 0, axis=1), 1).astype(jnp.float32)
+    found = jax.random.bernoulli(ks[3], found_frac, (B,))
+    w_best = jax.random.normal(ks[4], (B, d), jnp.float32)
+    b_best = jax.random.normal(ks[5], (B,), jnp.float32)
+    return tuple(np.array(a) for a in (
+        X, y, nv, jnp.zeros((B, d)), jnp.zeros((B,)),
+        jnp.full((B,), 1e-2, jnp.float32), found, w_best, b_best))
+
+
+def _assert_stage_close(got, want):
+    names = ("w", "b", "mmin", "found", "w_best", "b_best")
+    for name, g, e in zip(names, got, want):
+        if name == "found":
+            np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("B,N,k,n,d", [(1, 64, 2, 48, 2), (5, 33, 3, 21, 2),
+                                       (4, 100, 2, 80, 5), (3, 24, 4, 16, 10)])
+def test_turn_scan_plain_matches_jnp_twin(B, N, k, n, d):
+    """tests/test_kernels.py's grid: label-0 padding rows, one-class fit
+    sets; sentinels N and n, as the JAX wrapper restores them."""
+    args = _jax_turn_inputs(B, N, k, n, d)
+    want = ref.maxmarg_turn_batch_ref(*args)
+    got = kernels.maxmarg_turn_scan_plain(*map(torch.from_numpy, args))
+    for g, e in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    assert int(got[0].max()) <= N and int(got[2].max()) <= n
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_turn_scan_plain_matches_jnp_twin_on_crafted_ties(seed):
+    """chip_smoke.py's crafted inputs: a row exactly on the band edge and
+    one a step beyond it, equal margins many times over (ties broken by
+    index), a node without valid rows, a padding-only instance, a fit set
+    the proposal misclassifies (the 1e-12 clamp)."""
+    args = chip_smoke.crafted_turn_inputs("cpu", seed)
+    want = ref.maxmarg_turn_batch_ref(*(a.numpy() for a in args))
+    got = kernels.maxmarg_turn_scan_plain(*args)
+    for g, e in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    sup, err, viol = got
+    assert sup[0, :4].tolist() == [0, 1, 64, 2]     # edge in, next out
+    assert (sup[3] == 64).all() and (err[3] == 0).all() and (viol[3] == 40).all()
+    assert (viol[2, 1] == 40).all() and int(err[2, 1]) == 0
+    assert int((sup[4] < 4).sum()) == 4             # ranks by the clamp
+
+
+@pytest.mark.parametrize("case", ["single_tile", "tiled_grid", "warm_latched"])
+def test_stage_plain_matches_jnp_twin(case):
+    """The cases of tests/test_kernels_interpret.py (lane-aligned d, an
+    unaligned d and N, and the warm offset with every instance latched)."""
+    B, N, d, seed, frac, nsteps, t0 = {
+        "single_tile": (6, 48, 8, 3, 0.3, 60, 0.0),
+        "tiled_grid": (5, 70, 12, 9, 0.3, 60, 0.0),
+        "warm_latched": (4, 32, 8, 5, 1.0, 40, 1024.0)}[case]
+    args = _jax_stage_inputs(B, N, d, seed, frac)
+    want = ref.pegasos_stage_batch_ref(*args, nsteps=nsteps, t0=t0)
+    got = kernels.pegasos_stage_plain(*map(torch.from_numpy, args),
+                                      nsteps=nsteps, t0=t0)
+    _assert_stage_close(got, want)
+    if case == "warm_latched":
+        np.testing.assert_array_equal(got[4].numpy(), args[7])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stage_plain_matches_jnp_twin_on_crafted_inputs(seed):
+    """chip_smoke.py's crafted stage: a padding-only instance (min margin
+    BIG, latched), one entering latched, duplicate rows, random labels."""
+    args = chip_smoke.crafted_pegasos_inputs("cpu", seed)
+    want = ref.pegasos_stage_batch_ref(*(a.numpy() for a in args),
+                                       nsteps=120)
+    got = kernels.pegasos_stage_plain(*args, nsteps=120)
+    _assert_stage_close(got, want)
+    assert float(got[2][2]) == np.float32(pegasos.BIG) and bool(got[3][2])
+    assert bool(got[3][1]) and not bool(got[3][4])
+
+
+def test_stage_skip_latched_keeps_entry_iterates():
+    """With ``skip_latched`` a latched instance leaves the stage at its
+    entry (w, b), its latched (w_best, b_best) untouched; the others step
+    exactly as without it."""
+    args = tuple(map(torch.from_numpy, _stage_inputs(5, B=6)))
+    found = args[6]
+    assert found.any() and not found.all()
+    plain = kernels.pegasos_stage_plain(*args, nsteps=25)
+    skip = kernels.pegasos_stage_plain(*args, nsteps=25, skip_latched=True)
+    assert torch.equal(skip[0][found], args[3][found])
+    assert torch.equal(skip[1][found], args[4][found])
+    for a, b in zip(plain, skip):
+        assert torch.equal(a[~found], b[~found])
+    assert torch.equal(skip[4][found], args[7][found])
+    assert skip[3][found].all()
+
+
+def _kernel_order_sum(c: np.ndarray) -> np.ndarray:
+    """Scalar replica of csrc/pegasos_stage.cu's reduction: thread t sums
+    rows t, t+256, ... onto 0.0f; lanes fold by shuffle-down; warp 0 adds
+    warps 1..7 in turn."""
+    f = np.float32
+    N, d = c.shape
+    out = np.zeros(d, np.float32)
+    for i in range(d):
+        part = [f(0.0)] * 256
+        for t in range(256):
+            for r in range(t, N, 256):
+                part[t] = f(part[t] + c[r, i])
+        warps = []
+        for w in range(8):
+            lanes = part[32 * w:32 * w + 32]
+            off = 16
+            while off:
+                lanes = [f(lanes[l] + lanes[l + off]) if l + off < 32
+                         else lanes[l] for l in range(32)]
+                off //= 2
+            warps.append(lanes[0])
+        acc = warps[0]
+        for v in warps[1:]:
+            acc = f(acc + v)
+        out[i] = acc
+    return out
+
+
+@pytest.mark.parametrize("N", [7, 256, 601])
+def test_block_sum_is_the_kernels_order(N):
+    rng = np.random.default_rng(N)
+    c = (rng.normal(size=(2, N, 3)) * 10.0 ** rng.integers(-3, 4, (2, N, 3))
+         ).astype(np.float32)
+    got = pegasos.block_sum(torch.from_numpy(c)).numpy()
+    for b in range(2):
+        np.testing.assert_array_equal(got[b], _kernel_order_sum(c[b]))
+    cu = (_build.CSRC / "pegasos_stage.cu").read_text()
+    assert f"kThreads = {pegasos.THREADS};" in cu
+
+
+def test_plain_sqrt_is_correctly_rounded():
+    """The plain stage's square root equals IEEE f32 sqrt (numpy's), as the
+    kernel's ``__fsqrt_rn`` does — also where torch's CPU sqrt is 1 ulp
+    off, and next to the midpoints between floats."""
+    rng = np.random.default_rng(0)
+    x = (rng.random(400_000) * 10.0 ** rng.integers(-30, 30, 400_000)
+         ).astype(np.float32)
+    k = np.arange(1, 4097, dtype=np.float32)
+    x[:4096] = np.nextafter(k * k, np.float32(np.inf))
+    x[4096:8192] = np.nextafter(k * k, np.float32(0))
+    x[8192:8196] = (0.0, 1.0, np.inf, 2.0 ** -126)
+    got = pegasos.sqrt_rn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+    assert "__fsqrt_rn" in (_build.CSRC / "pegasos_stage.cu").read_text()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -86,13 +299,23 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     kernels.reset_launches()
     cut = tuple(map(torch.from_numpy, _cut_inputs(4)))
     ext = tuple(map(torch.from_numpy, _extremes_inputs(4)))
+    turn = tuple(map(torch.from_numpy, _turn_inputs(4)))
+    stage = tuple(map(torch.from_numpy, _stage_inputs(4)))
     assert torch.equal(kernels.median_cut_scores(*cut),
                        kernels.median_cut_scores_plain(*cut))
     for a, b in zip(kernels.median_extremes(*ext),
                     kernels.median_extremes_plain(*ext)):
         assert torch.equal(a, b)
+    for a, b in zip(kernels.maxmarg_turn_scan(*turn),
+                    kernels.maxmarg_turn_scan_plain(*turn)):
+        assert torch.equal(a, b)
+    for a, b in zip(kernels.pegasos_stage(*stage, nsteps=7, t0=3.0),
+                    kernels.pegasos_stage_plain(*stage, nsteps=7, t0=3.0)):
+        assert torch.equal(a, b)
     assert kernels.launches() == {"median_cut_scores": 0,
-                                  "median_extremes": 0}
+                                  "median_extremes": 0,
+                                  "maxmarg_turn_scan": 0,
+                                  "pegasos_stage": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -102,6 +325,12 @@ def test_wrappers_refuse_other_devices():
     ext = [torch.from_numpy(a).to("meta") for a in _extremes_inputs(0)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernels.median_extremes(*ext)
+    turn = [torch.from_numpy(a).to("meta") for a in _turn_inputs(0)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.maxmarg_turn_scan(*turn)
+    stage = [torch.from_numpy(a).to("meta") for a in _stage_inputs(0)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.pegasos_stage(*stage, nsteps=3)
 
 
 def test_build_targets_hopper_without_fma():
@@ -110,9 +339,11 @@ def test_build_targets_hopper_without_fma():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["median_cut.cu", "median_extremes.cu"]
+    assert sources == ["maxmarg_turn.cu", "median_cut.cu",
+                       "median_extremes.cu", "pegasos_stage.cu"]
     for name in sources:
         text = (_build.CSRC / name).read_text()
         assert "__fmul_rn" in text and "__fadd_rn" in text
-    a, b = (_build.library_path(s) for s in ("median_cut", "median_extremes"))
-    assert a.parent == b.parent and a != b and a.suffix == ".so"
+    paths = [_build.library_path(p[:-3]) for p in sources]
+    assert len({p.parent for p in paths}) == 1
+    assert len(set(paths)) == 4 and all(p.suffix == ".so" for p in paths)

@@ -346,10 +346,10 @@ def test_kparty_three_nodes():
 
 
 def test_run_sweep_refuses_what_is_not_ported():
+    """What later slices port raises naming its ROADMAP item; a typo'd
+    option raises ``TypeError``, an unknown selector ``ValueError``.  The
+    MAXMARG selector is ported (tests/test_torch_maxmarg.py)."""
     inst = teng.ProtocolInstance(datasets.data1(n_per_node=20, k=2), 0.1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "maxmarg")],
-                       device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "voting")],
                        device="cpu")
@@ -357,11 +357,13 @@ def test_run_sweep_refuses_what_is_not_ported():
         teng.run_sweep([inst], unified_dispatch=True, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         teng.run_sweep([inst], mesh=None, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "maxmarg")],
+                       stats={}, device="cpu")
     with pytest.raises(TypeError, match="max_epoch"):
         teng.run_sweep([inst], max_epoch=4, device="cpu")
+    with pytest.raises(TypeError, match="steps"):
+        teng.run_sweep([inst], steps=4, device="cpu")   # MAXMARG's option
     with pytest.raises(ValueError, match="unknown selector"):
         teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "bogus")],
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="MAXMARG"):
-        tkparty.iterative_support_kparty(inst.shards, selector="maxmarg",
-                                         device="cpu")
