@@ -31,7 +31,26 @@ Phases (any failure exits non-zero; none is caught):
    share of the wall), and both kernels held at the widest tail turn;
 6. MAXMARG card against CPU on 56 instances of it, the same solver path on
    both: comm, rounds and convergence exact, separator directions to a
-   cosine of 1 - 1e-4.
+   cosine of 1 - 1e-4;
+7. the bulk scans' kernels (consistent-threshold ranges, set-of-uncertainty
+   membership) against their plain versions, exactly, batched and at B=1,
+   on crafted inputs (points on a band edge, an absent class, an
+   all-padding transcript, no direction allowed; d=2 and d=3); then the
+   SOU diagnostics path (``dataplane.ranges`` / ``dataplane.uncertain``) on
+   the MEDIAN smoke sweep's final state at the full batch, launch counts
+   read around it: every node's rescan equals the ranges the engine kept
+   at append time, and both kernels equal their plain versions there;
+8. the one-way sweep through ``run_sweep`` (launch counts read around it):
+   RANDOM / NAIVE / VOTING / MIXING over the JAX one-way benchmark's grid
+   and a k=4 RANDOM bucket; closed-form metering checked, the ε gate
+   counted;
+9. the mixed one-way-vs-two-way gap sweep (NAIVE, RANDOM, MEDIAN and
+   MAXMARG on the same shards in one ``run_sweep``), launch counts read
+   around it, the points each family ships printed per scenario;
+10. one-way card against CPU on 48 instances: comm, rounds and sample sizes
+   exact, the terminal fit set of RANDOM bit for bit, separators to the
+   cosine tier (the card runs the solver's kernel path, the CPU its classic
+   loop, as in the JAX package).
 
 MEDIAN smoke config: the shape of the JAX package's engine benchmark grid
 (``benchmarks/engine_sweep.py``: data1/2/3 × ε ∈ {0.2, 0.1, 0.05, 0.025},
@@ -47,6 +66,14 @@ n_per_node=1000 over seeds 0–127, every 24th instance with 10% label noise
 and ε=0.02), k=4 d=2 B=128 (``data_mixed_hardness(n_per_node=100, k=4)`` ×
 ε ∈ {0.05, 0.02} over seeds 0–63) and k=2 d=16 B=64
 (``data_highd(n_per_node=200, d=16, margin=0.2)`` at ε=0.05, seeds 0–63).
+
+One-way smoke config: ``benchmarks/baselines_sweep.py``'s grid (4 selectors
+× data1/2/3 × ε ∈ {0.1, 0.05}) at n_per_node=1000 over seeds 0–63 (B=1536)
+plus ``data_mixed_hardness(n_per_node=100, k=4)`` × ε ∈ {0.05, 0.02} over
+seeds 0–63 for RANDOM (B=128, three chain hops); default solver settings
+(steps=2000, stages=3, λ=1e-3).  Gap sweep: ``_gap_sweep``'s shape (NAIVE,
+RANDOM, MEDIAN, MAXMARG on the same shards; data1/2/3 × ε ∈ {0.1, 0.05};
+max_epochs=8) at n_per_node=1000 over seeds 0–15 (B=384).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` name and power limit, and before that
@@ -68,8 +95,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SMOKE = dict(B=3072, n_per_node=1000, n_angles=1024, max_epochs=32,
              noisy_every=24)
 SUBSET = 48            # card-against-CPU instances (two of them noisy)
+OW_SUBSET = (10, 8)    # one-way card against CPU: per k=2 selector, k=4
 MAXMARG = dict(max_epochs=8, max_support=4, steps=2000, stages=3, lam=1e-3)
 MM_SUBSET = (48, 8)    # MAXMARG card-against-CPU: bucket 1 and bucket 2
+ONEWAY = dict(steps=2000, stages=3, lam=1e-3)   # the one-way solver options
 COS_TOL = 1e-4         # the reference's own warm-vs-cold direction tier
 PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -245,6 +274,126 @@ def crafted_extremes_inputs(device, seed=0):
     return t(v), t(XW), t(yW)
 
 
+def crafted_scan_inputs(device, seed=0, d=2):
+    """Bulk-scan inputs on every edge the scans have, as ``(V, dir_ok, lo,
+    hi, X, y, Xw, yw)``: the transcript ``(Xw, yw)`` is made of rows of the
+    shard (and the shard holds copies of them), and ``(lo, hi)`` are the
+    plain ranges of that transcript, so points sit exactly on band edges;
+    instance 1's transcript has no positive class, instance 2's is padding
+    only, instance 3 allows no direction, instance 4's shard is padding
+    only; padding rows in every shard and transcript."""
+    import torch
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(seed)
+    B, m, n, nw = 6, 200, 70, 24
+    V = rng.normal(size=(m, d))
+    V = (V / np.linalg.norm(V, axis=1, keepdims=True)).astype(np.float32)
+    X = rng.normal(size=(B, n, d)).astype(np.float32)
+    y = np.where(rng.random((B, n)) < 0.5, 1, -1).astype(np.int32)
+    X[:, 40:50] = X[:, 0:10]                  # copies of transcript rows
+    y[:, 40:50] = y[:, 0:10]
+    y[:, -6:] = 0                             # padding rows in every shard
+    y[4] = 0                                  # a shard of padding only
+    Xw, yw = X[:, :nw].copy(), y[:, :nw].copy()
+    yw[:, 20:] = 0                            # the unfilled tail
+    yw[1] = np.where(yw[1] == 1, -1, yw[1])   # no positive class
+    yw[2] = 0                                 # padding only
+    dir_ok = rng.random((B, m)) < 0.8
+    dir_ok[3] = False                         # no direction allowed
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    Vt, Xwt, ywt = t(V), t(Xw), t(yw)
+    lo, hi = kernels.threshold_ranges_plain(Vt, Xwt, ywt)
+    return Vt, t(dir_ok), lo, hi, t(X), t(y), Xwt, ywt
+
+
+def oneway_buckets(datasets, engine):
+    """The one-way smoke sweep as ``(name, instances)``: the JAX one-way
+    benchmark's grid at n_per_node=1000 over seeds 0–63 (selector-major, as
+    ``build_instances`` orders it), then the k=4 RANDOM bucket."""
+    gens = (datasets.data1, datasets.data2, datasets.data3)
+    k2 = [engine.ProtocolInstance(gen(n_per_node=1000, k=2, seed=seed), eps,
+                                  sel, seed)
+          for sel in ("sampling", "naive", "voting", "mixing")
+          for gen in gens for eps in (0.1, 0.05) for seed in range(64)]
+    k4 = [engine.ProtocolInstance(
+        datasets.data_mixed_hardness(n_per_node=100, k=4, seed=i // 2),
+        (0.05, 0.02)[i % 2], "sampling", i // 2) for i in range(128)]
+    return [("oneway_k2", k2), ("sampling_k4", k4)]
+
+
+def gap_instances(datasets, engine, seeds=16):
+    """``benchmarks/baselines_sweep.py`` ``_gap_sweep``'s mixed grid at
+    n_per_node=1000 over ``seeds`` seeds: per (dataset, ε, seed) NAIVE,
+    RANDOM, MEDIAN and MAXMARG on the same shards.  Returns the scenario
+    names and the instances, four per (scenario, seed)."""
+    scenarios, insts = [], []
+    for name, gen in (("data1", datasets.data1), ("data2", datasets.data2),
+                      ("data3", datasets.data3)):
+        for eps in (0.1, 0.05):
+            scenarios.append((name, eps))
+            for seed in range(seeds):
+                shards = gen(n_per_node=1000, k=2, seed=seed)
+                insts += [engine.ProtocolInstance(shards, eps, sel, seed)
+                          for sel in ("naive", "sampling", "median",
+                                      "maxmarg")]
+    return scenarios, insts
+
+
+def _oneway_points(inst, sample_size):
+    """The points a one-way instance ships, in closed form from its shard
+    sizes (the host loops' message slots): RANDOM forwards min(seen, s_ε) at
+    each hop, NAIVE and VOTING every non-last shard, MIXING none."""
+    sizes = [len(s[1]) for s in inst.shards]
+    if inst.selector == "sampling":
+        return sum(min(sum(sizes[:i + 1]), sample_size)
+                   for i in range(len(sizes) - 1))
+    if inst.selector == "mixing":
+        return 0
+    return sum(sizes[:-1])
+
+
+def _uncertain_work(V, dir_ok, lo, hi, X, y):
+    """What the SOU scan must do for these inputs: ``(tests, bytes)``.
+    A point is projected only onto the directions that are allowed and
+    have lo < hi, in grid order up to and including its first risky one
+    (all of them for a point that none puts at risk).  Every direction's
+    flag and bounds are read, a point and its label only in an instance
+    with at least one such direction (elsewhere the answer is False
+    whatever the point), and one byte is written per point."""
+    import torch
+    from repro_torch.core.geometry import project
+    from repro_torch.kernels.median_cut import plain_chunks
+
+    m = V.shape[0]
+    nonempty = (lo < hi) & dir_ok
+    tests = 0
+    for ne, lc, hc, Xc, yc in plain_chunks(m * X.shape[1], nonempty, lo, hi,
+                                           X, y):
+        proj = project(V, Xc)
+        risk = torch.where((yc == 1)[:, None, :], proj > lc[:, :, None],
+                           proj < hc[:, :, None]) & ne[:, :, None]
+        idx = torch.arange(m, device=X.device)[None, :, None]
+        first = torch.where(risk, idx, m - 1).amin(dim=1)       # (b, n)
+        upto = torch.cumsum(ne.int(), dim=1)                     # (b, m)
+        tests += int(upto.gather(1, first).sum())
+    needed = nonempty.any(dim=1)
+    point_bytes = (X.shape[1] * (X.shape[2] * X.element_size()
+                                 + y.element_size()))
+    nbytes = (_nbytes(V, dir_ok, lo, hi) + int(needed.sum()) * point_bytes
+              + y.numel())
+    return tests, nbytes
+
+
+def _ranges_bytes(V, Xw, yw, B):
+    """Bytes the ranges scan must move: V and every label read once, the
+    point of each row of label ±1 (a label-0 row's point is never needed),
+    lo and hi written once."""
+    live = int((yw != 0).sum())
+    return (_nbytes(V, yw) + live * Xw.shape[-1] * Xw.element_size()
+            + 2 * B * V.shape[0] * 4)
+
+
 def _median_ms(fn, reps):
     import torch
     fn()
@@ -261,6 +410,21 @@ def _median_ms(fn, reps):
     return float(np.median(times))
 
 
+def _time_row(r, reps=(20, 3)):
+    """Time a kernel-table row's kernel and plain version with CUDA events
+    (medians of ``reps`` calls) beside its bound, and print the line."""
+    reps = r.get("reps", reps)
+    r["ms"] = _median_ms(r["fn"], reps[0])
+    r["plain_ms"] = _median_ms(r["plain"], reps[1])
+    by_bytes = r["bytes"] / PEAK_BYTES * 1e3
+    by_ops = r["ops"] / PEAK_F32 * 1e3
+    r["bound_ms"] = max(by_bytes, by_ops)
+    r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms "
+          f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -274,6 +438,22 @@ def _exact(a, b, what):
                              f"{int((diff > 0).sum())} of {a.numel()} "
                              f"entries (max |diff| {err})")
     return err
+
+
+def _same_floats(a, b, what):
+    """0.0 if the two float tensors are equal entry for entry (infinities
+    included); raises otherwise."""
+    bad = ~((a == b) | (a.isnan() & b.isnan()))
+    if bool(bad.any()):
+        diff = (a.double() - b.double()).abs()[bad]
+        raise AssertionError(f"{what}: kernel and plain version disagree on "
+                             f"{int(bad.sum())} of {a.numel()} entries (max "
+                             f"|diff| {float(diff.max())})")
+    return 0.0
+
+
+def _cosine(va, vb):
+    return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
 
 
 def _card_line():
@@ -379,16 +559,7 @@ def main() -> int:
              shape=f"B={B} k={k} nW={ext_args[1].shape[2]}"),
     ]
     for r in rows:
-        r["ms"] = _median_ms(r["fn"], 20)
-        r["plain_ms"] = _median_ms(r["plain"], 3)
-        by_bytes = r["bytes"] / PEAK_BYTES * 1e3
-        by_ops = r["ops"] / PEAK_F32 * 1e3
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
-
+        _time_row(r)
 
     # -- 2b. MAXMARG's kernels against plain versions ------------------------
     from repro_torch.core import classifiers
@@ -408,15 +579,16 @@ def main() -> int:
                      viol_ship=maxmarg.VIOL_SHIP)
     lam0 = classifiers.lam_schedule(mm["lam"], 1)[0]
 
-    def stage_args(K, yK, w=None, b=None):
-        """One λ-0 stage's inputs on a fit set, as the solver forms them."""
+    def stage_args(K, yK, w=None, b=None, lam=lam0):
+        """One cold stage's inputs on a fit set, as the solver forms them
+        (at its first λ unless ``lam`` is given)."""
         B, _, d = K.shape
         z_w = torch.zeros((B, d), device=dev)
         z_b = torch.zeros((B,), device=dev)
         K, yK = K.contiguous(), yK.contiguous()
         return (K, yK.float(), (yK != 0).sum(1).clamp_min(1).float(),
                 z_w if w is None else w, z_b if b is None else b,
-                torch.full((B,), lam0, device=dev),
+                torch.full((B,), lam, device=dev),
                 torch.zeros((B,), dtype=torch.bool, device=dev), z_w, z_b)
 
     # turn 1's fit set exactly as step gathers it: node 1's shard and its
@@ -449,7 +621,8 @@ def main() -> int:
                                             _exact(got, want, what))
 
     def hold_stage(args, what, **kw):
-        """Bit for bit: the plain version sums in the kernel's order."""
+        """Bit for bit: the plain version sums in the kernel's order.
+        Returns the kernel's outputs."""
         got = kernels.pegasos_stage(*args, **kw)
         want = kernels.pegasos_stage_plain(*args, **kw)
         for name, g, e in zip(("w", "b", "mmin", "found", "w_best",
@@ -464,6 +637,7 @@ def main() -> int:
                     f"{what}: {name} differs from the plain version on "
                     f"{int((g != e).sum())} of {g.numel()} entries (max "
                     f"|diff| {err})")
+        return got
 
     hold_turn(turn1, "turn scan, full batch")
     hold_stage(peg1, "pegasos stage, full batch", nsteps=mm["steps"])
@@ -514,15 +688,7 @@ def main() -> int:
              reps=(5, 2)),
     ]
     for r in mm_rows:
-        r["ms"] = _median_ms(r["fn"], r["reps"][0])
-        r["plain_ms"] = _median_ms(r["plain"], r["reps"][1])
-        by_bytes = r["bytes"] / PEAK_BYTES * 1e3
-        by_ops = r["ops"] / PEAK_F32 * 1e3
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
+        _time_row(r)
     print(f"time pegasos_stage at d=16 (B={peg16[0].shape[0]} "
           f"N={peg16[0].shape[1]}): kernel "
           f"{_median_ms(lambda: kernels.pegasos_stage(*peg16, nsteps=mm['steps']), 5):.4f} ms")
@@ -738,15 +904,324 @@ def main() -> int:
           + (f", apart: {'; '.join(apart)}" if apart else "")
           + f" (cpu run {cpu_s:.2f} s)")
 
-    launches = dict(counts, maxmarg_turn_scan=mm_counts["maxmarg_turn_scan"],
-                    pegasos_stage=mm_counts["pegasos_stage"])
+    # -- 7. the bulk scans: kernels against plain versions, then SOU ---------
+    from repro_torch.core.sampling import epsilon_net_size
+    from repro_torch.engine import oneway
+
+    errs["threshold_ranges"] = 0.0
+    errs["uncertain_mask"] = 0
+
+    def hold_ranges(args, what):
+        for g, e in zip(kernels.threshold_ranges(*args),
+                        kernels.threshold_ranges_plain(*args)):
+            errs["threshold_ranges"] = max(errs["threshold_ranges"],
+                                           _same_floats(g, e, what))
+
+    def hold_uncertain(args, what):
+        errs["uncertain_mask"] = max(errs["uncertain_mask"], _exact(
+            kernels.uncertain_mask(*args),
+            kernels.uncertain_mask_plain(*args), what))
+
+    for dd in (2, 3):
+        for seed in range(2):
+            Vc, okc, loc, hic, Xc, yc, Xwc, ywc = crafted_scan_inputs(
+                dev, seed, dd)
+            what = f"d={dd}, crafted {seed}"
+            hold_ranges((Vc, Xwc, ywc), f"ranges of the transcript, {what}")
+            hold_ranges((Vc, Xc, yc), f"ranges of the shard, {what}")
+            hold_uncertain((Vc, okc, loc, hic, Xc, yc), f"uncertain, {what}")
+            lo_b, hi_b = kernels.threshold_ranges_plain(Vc, Xwc, ywc)
+            mask_b = kernels.uncertain_mask_plain(Vc, okc, loc, hic, Xc, yc)
+            for b in range(Xc.shape[0]):
+                lo1, hi1 = kernels.threshold_ranges_one(Vc, Xwc[b], ywc[b])
+                _same_floats(lo1, lo_b[b], f"ranges B=1, {what}, {b}")
+                _same_floats(hi1, hi_b[b], f"ranges B=1, {what}, {b}")
+                _exact(kernels.uncertain_mask_one(Vc, okc[b], loc[b], hic[b],
+                                                  Xc[b], yc[b]),
+                       mask_b[b], f"uncertain B=1, {what}, {b}")
+    print("kernels: ranges and uncertainty scans exactly equal to the plain "
+          "versions on crafted edges (d=2, d=3), batched and at B=1")
+
+    t0 = time.perf_counter()
+    final = median.run_hot(data, V, s0, k=k, max_turns=k * cfg["max_epochs"],
+                           cut_kernel=True, extremes_kernel=True)
+    torch.cuda.synchronize()
+    print(f"median final state for the SOU scans: {cfg['B']} instances in "
+          f"{time.perf_counter() - t0:.3f} s, "
+          f"{int(final.converged.sum())} converged")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sou = []
+    for j in range(k):
+        lo_j, hi_j = dataplane.ranges(V, final.wx[:, j], final.wy[:, j])
+        for got, kept, side in ((lo_j, final.lo_w[:, j], "lo"),
+                                (hi_j, final.hi_w[:, j], "hi")):
+            if not torch.equal(got, kept):
+                raise AssertionError(
+                    f"node {j}: the rescan's {side} differs from the "
+                    f"incremental one on {int((got != kept).sum())} entries")
+        sou.append(dataplane.uncertain(V, final.dir_ok, lo_j, hi_j,
+                                       data.X[:, j], data.y[:, j]))
+    torch.cuda.synchronize()
+    sou_s = time.perf_counter() - t0
+    sou_counts = kernels.launches()
+    for name in ("threshold_ranges", "uncertain_mask"):
+        if sou_counts[name] <= 0:
+            raise AssertionError(f"the SOU scans never launched {name}")
+    conv = final.converged
+    print(f"sou scans: {k} nodes × {cfg['B']} instances in {sou_s:.4f} s, "
+          f"every rescan equal to the incremental ranges, launches "
+          f"{sou_counts}")
+    scan_args = []
+    for j, mask in enumerate(sou):
+        live = data.y[:, j] != 0
+        size = mask.sum(dim=1).double()
+        print(f"sou node {j}: {int(size.sum())} of {int(live.sum())} live "
+              f"points uncertain; per instance mean {float(size.mean()):.3f},"
+              f" converged {float(size[conv].mean()):.3f}, not converged "
+              f"{float(size[~conv].mean()) if (~conv).any() else 0.0:.3f}, "
+              f"max {int(size.max())}")
+        ra = (V, final.wx[:, j].contiguous(), final.wy[:, j].contiguous())
+        lo_p, hi_p = kernels.threshold_ranges_plain(*ra)
+        ua = (V, final.dir_ok, lo_p, hi_p, data.X[:, j].contiguous(),
+              data.y[:, j].contiguous())
+        hold_ranges(ra, f"ranges, final state, node {j}")
+        hold_uncertain(ua, f"uncertain, final state, node {j}")
+        if not torch.equal(mask, kernels.uncertain_mask_plain(*ua) & live):
+            raise AssertionError(f"node {j}: SOU mask differs from the "
+                                 f"plain version's")
+        scan_args.append((ra, ua))
+    print("kernels: ranges and uncertainty scans exactly equal to the plain "
+          "versions on the full-batch final state")
+
+    ra, ua = scan_args[0]
+    m, d2, B = V.shape[0], V.shape[1], cfg["B"]
+    ua_work = _uncertain_work(*ua)
+    scan_rows = [
+        dict(name="threshold_ranges", route="cuda",
+             source="src/repro_torch/kernels/csrc/threshold_ranges.cu",
+             replaces="src/repro/kernels/support_margin.py:131",
+             fn=lambda: kernels.threshold_ranges(*ra),
+             plain=lambda: kernels.threshold_ranges_plain(*ra),
+             bytes=_ranges_bytes(*ra, B),
+             # 2d-1 operations of projection and one compare per live
+             # transcript row and direction
+             ops=2 * d2 * int((ra[2] != 0).sum()) * m,
+             shape=f"B={B} m={m} cap={ra[1].shape[1]} d={d2}"),
+        dict(name="uncertain_mask", route="cuda",
+             source="src/repro_torch/kernels/csrc/uncertain_mask.cu",
+             replaces="src/repro/kernels/support_margin.py:449",
+             fn=lambda: kernels.uncertain_mask(*ua),
+             plain=lambda: kernels.uncertain_mask_plain(*ua),
+             bytes=ua_work[1],
+             # 2d-1 operations of projection and one compare per nonempty
+             # allowed direction, each point up to its first hit
+             ops=2 * d2 * ua_work[0],
+             shape=f"B={B} m={m} n={ua[4].shape[1]} d={d2}"),
+    ]
+    for r in scan_rows:
+        _time_row(r)
+    # the single-instance TPU kernels are B=1 calls of the same wrappers;
+    # instance 0 is noisy: the widest transcript and no point ever hits
+    ra1 = (V, ra[1][0], ra[2][0])
+    ua1 = tuple(a[0] for a in ua[1:])
+    ua1_work = _uncertain_work(V, *(a[None] for a in ua1))
+    for r in (
+            dict(name="threshold_ranges_one",
+                 fn=lambda: kernels.threshold_ranges_one(*ra1),
+                 plain=lambda: kernels.threshold_ranges_plain(
+                     V, ra1[1][None], ra1[2][None]),
+                 bytes=_ranges_bytes(*ra1, 1),
+                 ops=2 * d2 * int((ra1[2] != 0).sum()) * m,
+                 shape=f"m={m} cap={ra1[1].shape[0]} d={d2}"),
+            dict(name="uncertain_mask_one",
+                 fn=lambda: kernels.uncertain_mask_one(V, *ua1),
+                 plain=lambda: kernels.uncertain_mask_plain(
+                     V, *(a[None] for a in ua1)),
+                 bytes=ua1_work[1],
+                 ops=2 * d2 * ua1_work[0],
+                 shape=f"m={m} n={ua1[3].shape[0]} d={d2}")):
+        _time_row(r)
+
+    # -- 8. the one-way sweep on the card ------------------------------------
+    t0 = time.perf_counter()
+    ow = oneway_buckets(datasets, engine)
+    all_ow = [inst for _, b in ow for inst in b]
+    print(f"setup: {len(all_ow)} one-way instances built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # the Pegasos stage at every one-way bucket's fit set, as oneway forms
+    # it, bit for bit against its plain version: stage 0 from zeros, then
+    # stage 1 from stage 0's iterate with its latched instances skipped
+    ow_lams = classifiers.lam_schedule(ONEWAY["lam"], 2)
+    per_sel = len(ow[0][1]) // 4
+    fit_buckets = [(sel, ow[0][1][i * per_sel:(i + 1) * per_sel])
+                   for i, sel in enumerate(("sampling", "naive", "voting",
+                                            "mixing"))]
+    fit_buckets.append(("sampling k=4", ow[1][1]))
+    latched = []
+    for what, bucket in fit_buckets:
+        Kx, Ky = oneway.fit_set(bucket, device=dev)
+        s0 = stage_args(Kx, Ky, lam=ow_lams[0])
+        w, b, _mm, found, wb, bb = hold_stage(
+            s0, f"pegasos stage 0, {what} fit set", nsteps=ONEWAY["steps"],
+            skip_latched=True)
+        s1 = s0[:3] + (w, b, torch.full_like(b, ow_lams[1]), found, wb, bb)
+        hold_stage(s1, f"pegasos stage 1, {what} fit set",
+                   nsteps=ONEWAY["steps"], skip_latched=True)
+        latched.append(f"{what} B={Kx.shape[0]} N={Kx.shape[1]} "
+                       f"{int(found.sum())} latched")
+    print(f"kernels: Pegasos stages 0 and 1 bit for bit against the plain "
+          f"version at the one-way fit sets ({'; '.join(latched)} after "
+          f"stage 0)")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ores = engine.run_sweep(all_ow, **ONEWAY, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ow_counts = kernels.launches()
+    if ow_counts["pegasos_stage"] <= 0:
+        raise AssertionError("the one-way sweep never launched pegasos_stage")
+    stray = {n: c for n, c in ow_counts.items() if c and n != "pegasos_stage"}
+    if stray:
+        raise AssertionError(f"the one-way sweep launched {stray}")
+    gate = {"sampling": [0, 0], "naive": [0, 0]}
+    for i, (inst, r) in enumerate(zip(all_ow, ores)):
+        sel, kk = inst.selector, len(inst.shards)
+        d = inst.shards[0][0].shape[1]
+        s_eps = epsilon_net_size(inst.eps, d + 1) if sel == "sampling" else 0
+        want = dict(points=_oneway_points(inst, s_eps),
+                    scalars=(kk - 1) * (d + 1) if sel == "mixing" else 0,
+                    messages=kk - 1, rounds=kk - 1 if sel == "sampling" else 1)
+        got = {f: r.comm[f] for f in want}
+        if (r.extra["selector"], r.rounds, r.converged, got) != \
+                (sel, want["rounds"], True, want):
+            raise AssertionError(f"one-way {i} ({sel}): {r.extra}, rounds "
+                                 f"{r.rounds}, comm {r.comm}, want {want}")
+        if sel == "sampling" and r.extra["sample_size"] != s_eps:
+            raise AssertionError(f"one-way {i}: sample size "
+                                 f"{r.extra['sample_size']} != {s_eps}")
+        parts = getattr(r.classifier, "parts", [r.classifier])
+        if len(parts) != (kk if sel == "voting" else 1) or not all(
+                p.w.shape == (d,) and np.isfinite(p.w).all()
+                and np.isfinite(p.b) for p in parts):
+            raise AssertionError(f"one-way {i} ({sel}): separator "
+                                 f"{[(p.w, p.b) for p in parts]}")
+        if sel in gate:
+            X = np.concatenate([sh[0] for sh in inst.shards])
+            y = np.concatenate([sh[1] for sh in inst.shards])
+            gate[sel][0] += r.error_on(X, y) <= inst.eps
+            gate[sel][1] += 1
+    print(f"oneway sweep: {len(all_ow)} instances "
+          f"({', '.join(f'{n} B={len(b)}' for n, b in ow)}) in {wall:.3f} s, "
+          f"metering exact in closed form, launches {ow_counts}; global "
+          f"error <= ε: sampling {gate['sampling'][0]}/{gate['sampling'][1]}"
+          f", naive {gate['naive'][0]}/{gate['naive'][1]}")
+    spans["pegasos_stage"].clear()
+    pegasos_module.pegasos_stage = timed("pegasos_stage", originals[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_sweep(all_ow, **ONEWAY, device=dev)
+        torch.cuda.synchronize()
+        timed_wall = time.perf_counter() - t0
+    finally:
+        pegasos_module.pegasos_stage = originals[1]
+    peg_s = sum(a.elapsed_time(b) for a, b in spans["pegasos_stage"]) / 1e3
+    print(f"oneway sweep again with events: {timed_wall:.3f} s wall, "
+          f"pegasos_stage {len(spans['pegasos_stage'])} calls {peg_s:.4f} s: "
+          f"{peg_s / timed_wall:.1%} of the wall")
+
+    # -- 9. the mixed one-way-vs-two-way gap sweep ----------------------------
+    scenarios, gap = gap_instances(datasets, engine)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    gres = engine.run_sweep(gap, max_epochs=8, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gap_counts = kernels.launches()
+    for name in ("median_cut_scores", "median_extremes", "maxmarg_turn_scan",
+                 "pegasos_stage"):
+        if gap_counts[name] <= 0:
+            raise AssertionError(f"the gap sweep never launched {name}")
+    for i, (inst, r) in enumerate(zip(gap, gres)):
+        if r.extra["selector"] != inst.selector or not (
+                np.isfinite(r.classifier.w).all()
+                and np.isfinite(r.classifier.b)):
+            raise AssertionError(f"gap {i}: {inst.selector} got {r.extra} "
+                                 f"{r.classifier}")
+    print(f"gap sweep: {len(gap)} instances in {wall:.3f} s, results in "
+          f"input order, launches {gap_counts}")
+    per = len(gap) // len(scenarios)
+    fams = ("naive", "sampling", "median", "maxmarg")
+    for si, (name, eps) in enumerate(scenarios):
+        block = gres[si * per:(si + 1) * per]
+        pts = {f: float(np.mean([r.comm["points"] for r in block[j::4]]))
+               for j, f in enumerate(fams)}
+        conv = {f: sum(r.converged for r in block[j::4])
+                for j, f in enumerate(fams)}
+        print(f"gap {name} ε={eps}: mean points "
+              + ", ".join(f"{f} {pts[f]:.2f}" for f in fams)
+              + f"; naive/median {pts['naive'] / max(pts['median'], 1):.2f}, "
+              f"naive/maxmarg {pts['naive'] / max(pts['maxmarg'], 1):.2f}; "
+              f"converged median {conv['median']}/{per // 4}, maxmarg "
+              f"{conv['maxmarg']}/{per // 4}")
+
+    # -- 10. one-way card against CPU ------------------------------------------
+    k2 = ow[0][1]
+    per_sel = len(k2) // 4
+    step_i = per_sel // OW_SUBSET[0]
+    sub = ([k2[s * per_sel + i * step_i] for s in range(4)
+            for i in range(OW_SUBSET[0])] + ow[1][1][:OW_SUBSET[1]])
+    on_card = engine.run_sweep(sub, device=dev)
+    t0 = time.perf_counter()
+    on_cpu = engine.run_sweep(sub, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    bitwise, worst = 0, 1.0
+    for i, (a, b) in enumerate(zip(on_card, on_cpu)):
+        if (a.comm, a.rounds, a.converged, a.extra.get("sample_size")) != \
+                (b.comm, b.rounds, b.converged, b.extra.get("sample_size")):
+            raise AssertionError(f"one-way instance {i}: card {a.comm} "
+                                 f"{a.extra}, cpu {b.comm} {b.extra}")
+        for pa, pb in zip(getattr(a.classifier, "parts", [a.classifier]),
+                          getattr(b.classifier, "parts", [b.classifier])):
+            va, vb = np.append(pa.w, pa.b), np.append(pb.w, pb.b)
+            cos = _cosine(va, vb)
+            worst = min(worst, cos)
+            if not cos > 1.0 - COS_TOL:
+                raise AssertionError(f"one-way instance {i}: separator "
+                                     f"cosine {cos} (card {va}, cpu {vb})")
+            bitwise += bool(np.array_equal(va, vb))
+    fits = 0
+    for group in ([x for x in sub if x.selector == "sampling"
+                   and len(x.shards) == 2], ow[1][1][:OW_SUBSET[1]]):
+        card_set = oneway.fit_set(group, device=dev)
+        cpu_set = oneway.fit_set(group, device="cpu")
+        for got, want, what in zip(card_set, cpu_set, ("Kx", "Ky")):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"RANDOM fit set {what} differs between "
+                                     f"card and cpu")
+        fits += len(group)
+    n_sep = sum(len(getattr(r.classifier, "parts", [0])) for r in on_card)
+    print(f"oneway card vs cpu: {len(sub)} instances ({OW_SUBSET[0]} per k=2 "
+          f"selector, {OW_SUBSET[1]} k=4 sampling), comm/rounds/sample sizes "
+          f"exact, {fits} RANDOM fit sets bit for bit, min cosine {worst!r}, "
+          f"{bitwise}/{n_sep} separators bitwise equal (card: kernel path, "
+          f"cpu: classic loop; cpu run {cpu_s:.2f} s)")
+
+    paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
+             "oneway": ow_counts, "gap": gap_counts}
+    print(f"launches per path: {paths}")
+    launches = {n: sum(c[n] for c in paths.values()) for n in counts}
 
     print(json.dumps({"kernels": [
         dict(name=r["name"], route=r["route"], source=r["source"],
              replaces=r["replaces"], launches=launches[r["name"]],
              max_abs_err=errs[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
-        for r in rows + mm_rows]}))
+        for r in rows + mm_rows + scan_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,9 @@ Ported so far: the two-way protocol sweep for both support selectors,
 ``engine.run_sweep`` → ``engine.median.run_instances`` /
 ``engine.maxmarg.run_instances`` → ``run_hot`` → ``hotloop.run_hot`` → the
 selector's ``step``, with the batched max-margin solver
-(``core.classifiers``) and the B=1 public delegations
-(``core.protocols.two_way`` / ``kparty``).
+(``core.classifiers``); the one-way family (``engine.oneway``: RANDOM
+ε-net sampling with JAX's Threefry draws, ``core.prng``, and the §7
+baselines); the bulk scans over sweep state (``engine.dataplane.ranges`` /
+``uncertain``); and the B=1 public delegations (``core.protocols.two_way``
+/ ``kparty`` / ``one_way`` / ``baselines``).
 """

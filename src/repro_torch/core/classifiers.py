@@ -1,5 +1,9 @@
-"""Linear separators and the batched max-margin solver (counterpart of
+"""Hypothesis classes and the batched max-margin solver (counterpart of
 ``repro.core.classifiers``).
+
+Thresholds (R^1), intervals (R^1) and axis-aligned rectangles (R^d) are the
+JAX package's numpy classes, copied; each has ``fit`` (the 0-error learner
+under the noiseless assumption), ``predict`` and ``error``.
 
 The solver is hard-margin-annealed Pegasos, batched over B independent fit
 sets: ``stages`` λ stages (λ0, λ0/10, …), each warm-started from the last,
@@ -24,6 +28,124 @@ import torch
 from repro_torch import _device
 from repro_torch.core.geometry import decide
 
+
+# ---------------------------------------------------------------------------
+# Thresholds (predict +1 iff x < t)  — paper Lemma 3.1
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Threshold:
+    t: float
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        x = np.asarray(X).reshape(-1)
+        return np.where(x < self.t, 1, -1)
+
+    def error(self, X: np.ndarray, y: np.ndarray) -> float:
+        return float(np.mean(self.predict(X) != y)) if len(y) else 0.0
+
+    @staticmethod
+    def fit(X: np.ndarray, y: np.ndarray) -> "Threshold":
+        """Any 0-error threshold on (X, y); assumes separability."""
+        x = np.asarray(X).reshape(-1)
+        pos = x[y == 1]
+        neg = x[y == -1]
+        lo = pos.max() if len(pos) else -np.inf  # t must exceed all positives
+        hi = neg.min() if len(neg) else np.inf   # and be below all negatives
+        if not lo < hi:
+            raise ValueError("not separable by a threshold")
+        if np.isinf(lo) and np.isinf(hi):
+            t = 0.0
+        elif np.isinf(lo):
+            t = hi - 1.0
+        elif np.isinf(hi):
+            t = lo + 1.0
+        else:
+            t = 0.5 * (lo + hi)
+        return Threshold(float(t))
+
+
+# ---------------------------------------------------------------------------
+# Intervals (predict +1 iff a <= x <= b) — paper Lemma 3.2
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Interval:
+    a: float
+    b: float
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        x = np.asarray(X).reshape(-1)
+        return np.where((x >= self.a) & (x <= self.b), 1, -1)
+
+    def error(self, X: np.ndarray, y: np.ndarray) -> float:
+        return float(np.mean(self.predict(X) != y)) if len(y) else 0.0
+
+    @staticmethod
+    def fit(X: np.ndarray, y: np.ndarray) -> "Interval":
+        """Minimal enclosing interval of the positives (paper's choice: 'as
+        small as possible'); assumes noiseless separability."""
+        x = np.asarray(X).reshape(-1)
+        pos = x[y == 1]
+        if len(pos) == 0:
+            return Interval(0.0, -1.0)  # empty interval
+        a, b = float(pos.min()), float(pos.max())
+        neg = x[y == -1]
+        if len(neg) and np.any((neg >= a) & (neg <= b)):
+            raise ValueError("not separable by an interval")
+        return Interval(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Axis-aligned rectangles in R^d — paper Theorem 3.2
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AxisAlignedRectangle:
+    lo: np.ndarray  # (d,)
+    hi: np.ndarray  # (d,)
+    positive_inside: bool = True
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        X = np.atleast_2d(X)
+        inside = np.all((X >= self.lo) & (X <= self.hi), axis=1)
+        lab = np.where(inside, 1, -1)
+        return lab if self.positive_inside else -lab
+
+    def error(self, X: np.ndarray, y: np.ndarray) -> float:
+        return float(np.mean(self.predict(X) != y)) if len(y) else 0.0
+
+    @staticmethod
+    def minimal(X: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Minimum enclosing rectangle (the 2d values A ships, Thm 3.2);
+        None plays the paper's ∅ sentinel."""
+        X = np.atleast_2d(X)
+        if X.shape[0] == 0:
+            return None
+        return X.min(axis=0), X.max(axis=0)
+
+    @staticmethod
+    def merge(
+        r1: Optional[Tuple[np.ndarray, np.ndarray]],
+        r2: Optional[Tuple[np.ndarray, np.ndarray]],
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Coordinate-wise merge: R^+_{A∪B} from R^+_A and R^+_B."""
+        if r1 is None:
+            return r2
+        if r2 is None:
+            return r1
+        return np.minimum(r1[0], r2[0]), np.maximum(r1[1], r2[1])
+
+    @staticmethod
+    def from_bounds(
+        rect: Tuple[np.ndarray, np.ndarray], positive_inside: bool = True
+    ) -> "AxisAlignedRectangle":
+        return AxisAlignedRectangle(np.asarray(rect[0]), np.asarray(rect[1]), positive_inside)
+
+
+# ---------------------------------------------------------------------------
+# Linear separators — the batched max-margin solver
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class LinearSeparator:

@@ -10,7 +10,6 @@ with a bound built from that same point.
 from __future__ import annotations
 
 import math
-from typing import Tuple
 
 import torch
 
@@ -75,41 +74,3 @@ def direction_grid(n_angles: int, device="cuda") -> torch.Tensor:
                            dtype=torch.float32)[:-1].double()
     V = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
     return V.float().to(dev)
-
-
-def consistent_threshold_ranges(
-    V: torch.Tensor, Xw: torch.Tensor, yw: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-direction interval of thresholds consistent with transcript W.
-
-    Classifier convention: predict +1 iff v·x < t.  For direction v the
-    consistent thresholds are ( max_{+} v·x , min_{-} v·x ); the interval is
-    empty (lo >= hi) iff W is not separable along v.  Returns (lo, hi),
-    each (m,); an empty transcript gives lo=-inf, hi=+inf.
-    """
-    if Xw.shape[0] == 0:
-        return (torch.full((V.shape[0],), -math.inf, device=V.device),
-                torch.full((V.shape[0],), math.inf, device=V.device))
-    proj = project(V, Xw)                                   # (m, n)
-    lo = proj.masked_fill(~(yw == 1)[None, :], -math.inf).amax(dim=1)
-    hi = proj.masked_fill(~(yw == -1)[None, :], math.inf).amin(dim=1)
-    return lo, hi
-
-
-def uncertain_mask(
-    V: torch.Tensor,
-    dir_ok: torch.Tensor,
-    Xw: torch.Tensor,
-    yw: torch.Tensor,
-    X: torch.Tensor,
-    y: torch.Tensor,
-) -> torch.Tensor:
-    """Set of uncertainty (paper §4.1): which of (X, y) can a
-    transcript-consistent classifier with an allowed direction still
-    misclassify?  Boolean (n,)."""
-    lo, hi = consistent_threshold_ranges(V, Xw, yw)
-    nonempty = (lo < hi) & dir_ok
-    proj = project(V, X)
-    at_risk = torch.where((y == 1)[None, :], proj > lo[:, None],
-                          proj < hi[:, None])
-    return (at_risk & nonempty[:, None]).any(dim=0)

@@ -1,1 +1,6 @@
-from repro_torch.core.protocols import kparty, one_way, two_way  # noqa: F401
+from repro_torch.core.protocols import (  # noqa: F401
+    baselines,
+    kparty,
+    one_way,
+    two_way,
+)

@@ -5,11 +5,15 @@ and every instance is independent, so the data plane batches them: a state
 record with a leading instance axis, one selector ``step`` driven by the
 host-side hot loop, and on-device communication accounting
 (:class:`BatchCommLog`) lowered to ``CommLog.summary`` dicts at the end.
-The per-turn scans and the MAXMARG refit solver run as hand-written CUDA
-kernels on the card (:mod:`repro_torch.kernels`).
+The per-turn scans, the bulk scans over sweep state (:mod:`.dataplane`)
+and the refit solver run as hand-written CUDA kernels on the card
+(:mod:`repro_torch.kernels`).
 
-Ported so far: the MEDIAN / k-party selector (:mod:`.median`) and the
-MAXMARG selector (:mod:`.maxmarg`).  The other selectors raise
+Three execution paths share the conventions: MEDIAN / k-party
+(:mod:`.median`), MAXMARG (:mod:`.maxmarg`), and the one-way chain
+protocols with the §7 baselines (:mod:`.oneway`: reservoir chain plus
+batched terminal fits).  ``run_sweep`` buckets a mixed grid across all of
+them.  The unified mixed-selector dispatch and the sharded options raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
@@ -26,24 +30,23 @@ from repro_torch.engine.state import (
     transcript_capacity,
 )
 from repro_torch.engine.median import run_compiled, run_instances, step
-from repro_torch.engine import dataplane, hotloop, maxmarg, median
+from repro_torch.engine import dataplane, hotloop, maxmarg, median, oneway
 
-# selectors of the JAX engine that later slices port (ROADMAP Queue 1)
-_NOT_PORTED = {
-    "sampling": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
-    "naive": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
-    "voting": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
-    "mixing": "ROADMAP Queue 1 item 8 (one-way sampling + §7 baselines)",
-}
-# each ported selector's options, as the JAX package's ``_ALLOWED``
+_FIT = ("steps", "stages", "lam", "device")
+# each selector's options, as the JAX package's ``_ALLOWED``
 _ALLOWED = {
     "median": ("eps", "n_angles", "max_epochs", "cut_kernel",
                "extremes_kernel", "compact", "overlap", "device"),
     "maxmarg": ("eps", "max_epochs", "max_support", "warm", "per_node",
-                "compact", "fused_kernel", "solver_kernel", "overlap",
-                "steps", "stages", "lam", "device"),
+                "compact", "fused_kernel", "solver_kernel", "overlap")
+    + _FIT,
+    "sampling": ("eps", "vc_dim", "c") + _FIT,
+    "naive": _FIT,
+    "voting": _FIT,
+    "mixing": _FIT,
 }
-_RUNNERS = {"median": run_instances, "maxmarg": maxmarg.run_instances}
+_RUNNERS = {"median": run_instances, "maxmarg": maxmarg.run_instances,
+            **{sel: oneway.run_instances for sel in oneway.ONEWAY_SELECTORS}}
 # options of the JAX engine that belong to the sharded slice
 _SHARDED_OPTS = ("mesh", "donate", "stats")
 
@@ -52,18 +55,19 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
     """Dispatch a sweep and return results in input order.
 
     Instances bucket by (selector, k, d), one engine dispatch per bucket, as
-    in the JAX package; each bucket's runner gets only the options its
-    selector accepts.  The "median" and "maxmarg" selectors are ported:
-    another selector, ``unified_dispatch=True`` or a sharded option raises
+    in the JAX package: the full paper grid (two-way MEDIAN/MAXMARG,
+    one-way sampling and the §7 baselines) is one call.  Each bucket's
+    runner gets only the options its selector accepts.
+    ``unified_dispatch=True`` or a sharded option raises
     ``NotImplementedError`` naming its ROADMAP item; an option no selector
     in the sweep accepts raises ``TypeError``; an unknown selector
     ``ValueError``.
 
-    Launch-shape contract: each bucket's per-turn shapes key on the static
-    scenario shape (k, d, n_max and cap rounded to multiples of 8, the
-    selector's static options) and the hot loop's quantized
-    ``(n_pad, width, use_warm)`` buckets, never on ε, seeds or shard
-    contents.
+    Launch-shape contract: each bucket's shapes key on the static scenario
+    shape (k, d, n_max and cap rounded to multiples of 8, the selector's
+    static options) and, for the two-way selectors, the hot loop's
+    quantized ``(n_pad, width, use_warm)`` buckets, never on ε, seeds or
+    shard contents.
     """
     if unified_dispatch:
         raise NotImplementedError(
@@ -71,10 +75,6 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
             "(unified mixed-selector state)")
     buckets = {}
     for i, inst in enumerate(instances):
-        if inst.selector in _NOT_PORTED:
-            raise NotImplementedError(
-                f"selector {inst.selector!r} is not ported yet: "
-                f"{_NOT_PORTED[inst.selector]}")
         if inst.selector not in _ALLOWED:
             raise ValueError(f"unknown selector {inst.selector!r}")
         key = (inst.selector, len(inst.shards), inst.shards[0][0].shape[1])
@@ -110,6 +110,7 @@ __all__ = [
     "maxmarg",
     "maxmarg_transcript_capacity",
     "median",
+    "oneway",
     "pack_instances",
     "pack_instances_maxmarg",
     "run_compiled",

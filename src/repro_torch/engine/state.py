@@ -131,9 +131,9 @@ class EngineData(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ProtocolInstance:
-    """One protocol problem: k shards plus an error budget ε and a selector.
-    The "median" and "maxmarg" selectors are ported so far; ``seed`` keys
-    per-instance randomness of the one-way "sampling" selector."""
+    """One protocol problem: k shards plus an error budget ε and a selector;
+    ``seed`` keys per-instance randomness of the one-way "sampling"
+    selector."""
 
     shards: Sequence[Tuple[np.ndarray, np.ndarray]]
     eps: float = 0.05

@@ -8,7 +8,15 @@ wrapper                   CUDA source                  replaces (TPU kernel)
 ``median_extremes``       ``csrc/median_extremes.cu``  ``median_extremes_batched``
 ``maxmarg_turn_scan``     ``csrc/maxmarg_turn.cu``     ``maxmarg_turn_scan_batched``
 ``pegasos_stage``         ``csrc/pegasos_stage.cu``    ``pegasos_stage_batched``
+``threshold_ranges``      ``csrc/threshold_ranges.cu`` ``threshold_ranges_batched``
+                                                       (and ``threshold_ranges``)
+``uncertain_mask``        ``csrc/uncertain_mask.cu``   ``uncertain_mask_batched``
+                                                       (and ``uncertain_mask``)
 ========================  ===========================  =============================
+
+The single-instance TPU kernels are B=1 calls of the batched wrappers
+(``threshold_ranges_one``, ``uncertain_mask_one``) and count as their
+launches.
 
 Sources build with ``nvcc`` at first launch (:mod:`._build`); importing this
 package builds nothing.
@@ -29,10 +37,16 @@ from repro_torch.kernels.support_margin import (  # noqa: F401
     maxmarg_turn_scan_plain,
     median_extremes,
     median_extremes_plain,
+    threshold_ranges,
+    threshold_ranges_one,
+    threshold_ranges_plain,
+    uncertain_mask,
+    uncertain_mask_one,
+    uncertain_mask_plain,
 )
 
 WRAPPERS = (median_cut_scores, median_extremes, maxmarg_turn_scan,
-            pegasos_stage)
+            pegasos_stage, threshold_ranges, uncertain_mask)
 
 
 def reset_launches() -> None:

@@ -66,13 +66,19 @@ def median_cut_scores_plain(
     at-risk arc lies on each side of it.  The histogram formulation of the
     JAX engine's inline path (``repro.engine.median.step``, stage 2), taken
     in chunks of instances so the (B, m, n) temporaries stay bounded."""
-    B, m = dir_ok.shape
-    per = max(1, _PLAIN_CHUNK // max(1, m * X.shape[1]))
-    if B <= per:
-        return _cut_chunk(V, dir_ok, lo, hi, X, y)
-    return torch.cat([_cut_chunk(V, dir_ok[s:s + per], lo[s:s + per],
-                                 hi[s:s + per], X[s:s + per], y[s:s + per])
-                      for s in range(0, B, per)])
+    per_instance = dir_ok.shape[1] * X.shape[1]
+    return torch.cat([_cut_chunk(V, *a) for a in plain_chunks(
+        per_instance, dir_ok, lo, hi, X, y)])
+
+
+def plain_chunks(per_instance: int, *arrays):
+    """Slice batch-leading ``arrays`` into chunks of instances whose
+    (instance, direction, point) temporaries stay near ``_PLAIN_CHUNK``
+    elements; ``per_instance`` is one instance's count.  Yields tuples."""
+    B = arrays[0].shape[0]
+    per = max(1, _PLAIN_CHUNK // max(1, per_instance))
+    for s in range(0, max(B, 1), per):      # one (empty) chunk at B=0
+        yield tuple(a[s:s + per] for a in arrays)
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:

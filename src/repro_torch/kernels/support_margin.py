@@ -9,9 +9,18 @@ plain PyTorch versions.
   (``csrc/maxmarg_turn.cu``), replaces ``maxmarg_turn_scan_batched``;
   both versions form every margin with
   :func:`repro_torch.core.geometry.decide`, never with a matrix product.
+* The bulk scans over a sweep's state: the consistent-threshold ranges
+  :func:`threshold_ranges` (``csrc/threshold_ranges.cu``) and the
+  set-of-uncertainty membership :func:`uncertain_mask`
+  (``csrc/uncertain_mask.cu``) replace ``threshold_ranges_batched`` and
+  ``uncertain_mask_batched``, and as B=1 calls
+  (:func:`threshold_ranges_one`, :func:`uncertain_mask_one`) the
+  single-instance ``threshold_ranges`` and ``uncertain_mask``; both
+  versions project with :func:`repro_torch.core.geometry.project`.
 
-Each rounds once per operation, and each returns integers only, so kernel
-and plain version agree exactly.  The CUDA sources' notes give the bounds
+Each rounds once per operation, and each returns integers, booleans or
+maxima and minima of projections only, so kernel and plain version agree
+exactly.  The CUDA sources' notes give the bounds
 on an H100 and the designs.  A wrapper launches its kernel for CUDA tensors
 and takes the plain version only for tensors on the CPU.
 """
@@ -25,11 +34,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.geometry import decide, project_each
+from repro_torch.core.geometry import decide, project, project_each
 from repro_torch.kernels import _build
-from repro_torch.kernels.median_cut import _require
+from repro_torch.kernels.median_cut import _require, plain_chunks
 
 _MAX_TURN_D = 4096      # w sits in shared memory: 4 bytes a feature
+_MAX_SCAN_D = 64        # the bulk scans stage d floats per thread
 
 
 def median_extremes_plain(
@@ -193,3 +203,156 @@ def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
 
 
 maxmarg_turn_scan.launches = 0
+
+
+def threshold_ranges_plain(
+    V: torch.Tensor,    # (m, d) f32 shared directions
+    Xw: torch.Tensor,   # (B, n, d) f32 transcripts
+    yw: torch.Tensor,   # (B, n) i32 ±1, 0 = empty/padding
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per instance and direction, the consistent-threshold interval
+    ``(lo, hi)`` = (max over +1 rows of v·x, min over -1 rows), each (B, m)
+    f32; -inf / +inf where the class is absent, label-0 rows inert.  The
+    JAX package's ``ref.threshold_ranges_batch_ref``, projected by
+    :func:`~repro_torch.core.geometry.project`, in chunks of instances."""
+    B, m = Xw.shape[0], V.shape[0]
+    if Xw.shape[1] == 0:
+        return (torch.full((B, m), -math.inf, device=Xw.device),
+                torch.full((B, m), math.inf, device=Xw.device))
+
+    def chunk(Xc, yc):
+        proj = project(V, Xc)                                # (b, m, n)
+        lo = proj.masked_fill(~(yc == 1)[:, None, :], -math.inf).amax(dim=2)
+        hi = proj.masked_fill(~(yc == -1)[:, None, :], math.inf).amin(dim=2)
+        return lo, hi
+
+    parts = [chunk(*a) for a in plain_chunks(m * Xw.shape[1], Xw, yw)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _bound_ranges() -> ctypes.CDLL:
+    lib = _build.load("threshold_ranges")
+    fn = lib.threshold_ranges_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    return lib
+
+
+def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranges of :func:`threshold_ranges_plain`.  CUDA tensors launch
+    the kernel of ``csrc/threshold_ranges.cu`` (and count the launch in
+    ``threshold_ranges.launches``); CPU tensors take the plain version."""
+    if Xw.device.type == "cpu":
+        return threshold_ranges_plain(V, Xw, yw)
+    if Xw.device.type != "cuda":
+        raise ValueError(f"threshold_ranges runs on cuda or cpu, "
+                         f"not {Xw.device}")
+    (m, d), (B, n) = V.shape, yw.shape
+    if not (B > 0 and m > 0 and 0 < d <= _MAX_SCAN_D):
+        raise ValueError(f"threshold_ranges: unsupported shape B={B}, "
+                         f"m={m}, n={n}, d={d}")
+    dev = Xw.device
+    _require(V, "V", torch.float32, (m, d), dev)
+    _require(Xw, "Xw", torch.float32, (B, n, d), dev)
+    _require(yw, "yw", torch.int32, (B, n), dev)
+    lo = torch.empty((B, m), dtype=torch.float32, device=dev)
+    hi = torch.empty((B, m), dtype=torch.float32, device=dev)
+    lib = _bound_ranges()
+    with torch.cuda.device(dev):
+        err = lib.threshold_ranges_launch(
+            V.data_ptr(), Xw.data_ptr(), yw.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), B, m, n, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "threshold_ranges", err)
+    threshold_ranges.launches += 1
+    return lo, hi
+
+
+threshold_ranges.launches = 0
+
+
+def threshold_ranges_one(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The single-instance ranges, (m, d) × (n, d) × (n,) -> (m,) ×2: a B=1
+    call of :func:`threshold_ranges`."""
+    lo, hi = threshold_ranges(V, Xw[None], yw[None])
+    return lo[0], hi[0]
+
+
+def uncertain_mask_plain(
+    V: torch.Tensor,        # (m, d) f32 shared directions
+    dir_ok: torch.Tensor,   # (B, m) bool
+    lo: torch.Tensor,       # (B, m) f32
+    hi: torch.Tensor,       # (B, m) f32
+    X: torch.Tensor,        # (B, n, d) f32
+    y: torch.Tensor,        # (B, n) i32 ±1 (label-0 rows take the -1 test)
+) -> torch.Tensor:
+    """(B, n) bool set-of-uncertainty membership: whether some allowed
+    direction with lo < hi puts the point at risk (+1: v·x > lo; else
+    v·x < hi).  The JAX package's ``ref.uncertain_mask_batch_ref``,
+    projected by :func:`~repro_torch.core.geometry.project`, in chunks of
+    instances."""
+    nonempty = (lo < hi) & dir_ok
+
+    def chunk(ne, lo_c, hi_c, Xc, yc):
+        proj = project(V, Xc)                                # (b, m, n)
+        risk = torch.where((yc == 1)[:, None, :], proj > lo_c[:, :, None],
+                           proj < hi_c[:, :, None])
+        return (risk & ne[:, :, None]).any(dim=1)
+
+    return torch.cat([chunk(*a) for a in plain_chunks(
+        V.shape[0] * X.shape[1], nonempty, lo, hi, X, y)])
+
+
+def _bound_uncertain() -> ctypes.CDLL:
+    lib = _build.load("uncertain_mask")
+    fn = lib.uncertain_mask_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    return lib
+
+
+def uncertain_mask(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
+    """The membership of :func:`uncertain_mask_plain`.  CUDA tensors launch
+    the kernel of ``csrc/uncertain_mask.cu`` (and count the launch in
+    ``uncertain_mask.launches``); CPU tensors take the plain version."""
+    if X.device.type == "cpu":
+        return uncertain_mask_plain(V, dir_ok, lo, hi, X, y)
+    if X.device.type != "cuda":
+        raise ValueError(f"uncertain_mask runs on cuda or cpu, "
+                         f"not {X.device}")
+    (m, d), (B, n) = V.shape, y.shape
+    if not (B > 0 and m > 0 and 0 < d <= _MAX_SCAN_D):
+        raise ValueError(f"uncertain_mask: unsupported shape B={B}, m={m}, "
+                         f"n={n}, d={d}")
+    dev = X.device
+    _require(V, "V", torch.float32, (m, d), dev)
+    _require(dir_ok, "dir_ok", torch.bool, (B, m), dev)
+    _require(lo, "lo", torch.float32, (B, m), dev)
+    _require(hi, "hi", torch.float32, (B, m), dev)
+    _require(X, "X", torch.float32, (B, n, d), dev)
+    _require(y, "y", torch.int32, (B, n), dev)
+    out = torch.empty((B, n), dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    lib = _bound_uncertain()
+    with torch.cuda.device(dev):
+        err = lib.uncertain_mask_launch(
+            V.data_ptr(), dir_ok.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            X.data_ptr(), y.data_ptr(), out.data_ptr(), B, m, n, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "uncertain_mask", err)
+    uncertain_mask.launches += 1
+    return out
+
+
+uncertain_mask.launches = 0
+
+
+def uncertain_mask_one(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
+    """The single-instance membership, (m,) bounds and (n, d) points ->
+    (n,) bool: a B=1 call of :func:`uncertain_mask`."""
+    return uncertain_mask(V, dir_ok[None], lo[None], hi[None], X[None],
+                          y[None])[0]

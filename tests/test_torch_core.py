@@ -3,8 +3,8 @@ and the port's import hygiene.
 
 Tolerances: the numpy copies (datasets, comm) must be bit-identical; the
 direction grid within 1 ulp of XLA's f32 cos/sin, with the count of
-differing entries printed and bounded; geometry helpers exact on integer
-and boolean outputs, 1e-6 on floats (the JAX helpers project with a dot,
+differing entries printed and bounded; geometry helpers and the
+single-instance scans exact on integer and boolean outputs, 1e-6 on floats (the JAX helpers project with a dot,
 the port with one rounding per operation).
 """
 
@@ -22,11 +22,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 from repro.core import comm as jcomm, datasets as jdata, geometry as jgeo
+from repro.core import sampling as jsamp
 
 import torch
 
 from repro_torch.core import comm as tcomm, datasets as tdata
+from repro_torch.core import sampling as tsamp
 from repro_torch.core import geometry as tgeo
+from repro_torch import kernels as tkern
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -34,7 +37,7 @@ PORT = ROOT / "src" / "repro_torch"
 
 # -- (a) numpy copies and the direction grid --------------------------------
 
-@pytest.mark.parametrize("module", ["datasets.py", "comm.py"])
+@pytest.mark.parametrize("module", ["datasets.py", "comm.py", "sampling.py"])
 def test_numpy_modules_are_verbatim_copies(module):
     assert ((PORT / "core" / module).read_bytes()
             == (ROOT / "src" / "repro" / "core" / module).read_bytes())
@@ -68,6 +71,32 @@ def test_label_noise_bit_identical():
         np.testing.assert_array_equal(ya, yb)
 
 
+@pytest.mark.parametrize("eps", [0.3, 0.1, 0.05, 0.02, 0.005])
+def test_sampling_sizes_and_reservoir_identical(eps):
+    """ε-net and ε-sample sizes, and a reservoir fed shard by shard from
+    the same numpy generator, equal the JAX package's."""
+    for vc in (1, 2, 3, 11):
+        for c in (jsamp.EPSILON_NET_C, 0.35):
+            assert (tsamp.epsilon_net_size(eps, vc, c=c)
+                    == jsamp.epsilon_net_size(eps, vc, c=c))
+        assert (tsamp.epsilon_sample_size(eps, vc)
+                == jsamp.epsilon_sample_size(eps, vc))
+    assert tsamp.EPSILON_NET_C == jsamp.EPSILON_NET_C
+    cap = tsamp.epsilon_net_size(eps, 3)
+    res = [mod.Reservoir(cap, 2, np.random.default_rng(7))
+           for mod in (jsamp, tsamp)]
+    for shard in tdata.data2(n_per_node=120, k=3, seed=1):
+        for r in res:
+            r.add_batch(*shard)
+            r.add(shard[0][0], int(shard[1][0]))
+    for a, b in zip(res[0].sample(), res[1].sample()):
+        np.testing.assert_array_equal(a, b)
+    assert (res[0].seen, res[0].filled) == (res[1].seen, res[1].filled)
+    for a, b in zip(res[0].sample_padded(cap + 5),
+                    res[1].sample_padded(cap + 5)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_comm_wire_accounting_identical():
     for p in range(0, 9, 3):
         for s in range(0, 7, 2):
@@ -95,7 +124,7 @@ def test_direction_grid_within_one_ulp(m):
     assert differ <= (2 * m) // 25
 
 
-# -- geometry helpers -------------------------------------------------------
+# -- geometry helpers and the single-instance scans (B=1 kernel calls) -----
 
 def _geom_inputs(seed, m=128, n=40, nw=12):
     rng = np.random.default_rng(seed)
@@ -112,19 +141,19 @@ def _geom_inputs(seed, m=128, n=40, nw=12):
 def test_threshold_ranges_and_uncertain_mask(seed):
     V, dir_ok, Xw, yw, X, y = _geom_inputs(seed)
     lo_j, hi_j = jgeo.consistent_threshold_ranges(V, Xw, yw)
-    lo_t, hi_t = tgeo.consistent_threshold_ranges(
+    lo_t, hi_t = tkern.threshold_ranges_one(
         *map(torch.from_numpy, (V, Xw, yw)))
     np.testing.assert_allclose(lo_t.numpy(), np.asarray(lo_j), atol=1e-6)
     np.testing.assert_allclose(hi_t.numpy(), np.asarray(hi_j), atol=1e-6)
     want = jgeo.uncertain_mask(V, dir_ok, Xw, yw, X, y)
-    got = tgeo.uncertain_mask(*map(torch.from_numpy,
-                                   (V, dir_ok, Xw, yw, X, y)))
+    tV, tok, tX, ty = map(torch.from_numpy, (V, dir_ok, X, y))
+    got = tkern.uncertain_mask_one(tV, tok, lo_t, hi_t, tX, ty)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_threshold_ranges_empty_transcript():
     V = tgeo.direction_grid(16, device="cpu")
-    lo, hi = tgeo.consistent_threshold_ranges(
+    lo, hi = tkern.threshold_ranges_one(
         V, torch.zeros((0, 2)), torch.zeros((0,), dtype=torch.int32))
     assert torch.isneginf(lo).all() and torch.isposinf(hi).all()
 
@@ -174,7 +203,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys, chip_smoke, repro_torch, repro_torch.core, "
         "repro_torch.engine, repro_torch.kernels, repro_torch.core.protocols, "
         "repro_torch.core.classifiers, repro_torch.engine.maxmarg, "
-        "repro_torch.kernels.pegasos, repro_torch.kernels.support_margin;"
+        "repro_torch.kernels.pegasos, repro_torch.kernels.support_margin, "
+        "repro_torch.engine.oneway, repro_torch.core.prng, "
+        "repro_torch.core.sampling, repro_torch.core.protocols.baselines;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ,
@@ -189,12 +220,15 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     rather than carry on on the CPU."""
     from repro_torch import engine
     from repro_torch.core import classifiers
-    from repro_torch.core.protocols import kparty, two_way
+    from repro_torch.core.protocols import baselines, kparty, one_way
+    from repro_torch.core.protocols import two_way
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shards = tdata.data1(n_per_node=20, k=2, seed=0)
     inst = [engine.ProtocolInstance(shards, 0.1)]
     mm = [engine.ProtocolInstance(shards, 0.1, "maxmarg")]
+    ow = [engine.ProtocolInstance(shards, 0.1, sel)
+          for sel in ("sampling", "naive")]
     X = np.concatenate([s[0] for s in shards])
     y = np.concatenate([s[1] for s in shards])
     for call in (lambda: engine.run_sweep(inst),
@@ -212,6 +246,14 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                      shards, selector="maxmarg"),
                  lambda: classifiers.anneal_hard_margin(X, y),
                  lambda: classifiers.fit_max_margin(X, y),
-                 lambda: tgeo.direction_grid(8)):
+                 lambda: tgeo.direction_grid(8),
+                 lambda: engine.run_sweep(ow[:1]),
+                 lambda: engine.oneway.run_instances(ow[1:2]),
+                 lambda: one_way.random_sampling(shards, eps=0.1),
+                 lambda: one_way.local_only(shards),
+                 lambda: baselines.naive(shards),
+                 lambda: baselines.voting(shards),
+                 lambda: baselines.random(shards),
+                 lambda: baselines.mixing(shards)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

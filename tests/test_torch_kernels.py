@@ -312,10 +312,18 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     for a, b in zip(kernels.pegasos_stage(*stage, nsteps=7, t0=3.0),
                     kernels.pegasos_stage_plain(*stage, nsteps=7, t0=3.0)):
         assert torch.equal(a, b)
+    V, ok, lo, hi, X, y = cut
+    for a, b in zip(kernels.threshold_ranges(V, X, y),
+                    kernels.threshold_ranges_plain(V, X, y)):
+        assert torch.equal(a, b)
+    assert torch.equal(kernels.uncertain_mask(*cut),
+                       kernels.uncertain_mask_plain(*cut))
     assert kernels.launches() == {"median_cut_scores": 0,
                                   "median_extremes": 0,
                                   "maxmarg_turn_scan": 0,
-                                  "pegasos_stage": 0}
+                                  "pegasos_stage": 0,
+                                  "threshold_ranges": 0,
+                                  "uncertain_mask": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -331,6 +339,11 @@ def test_wrappers_refuse_other_devices():
     stage = [torch.from_numpy(a).to("meta") for a in _stage_inputs(0)]
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernels.pegasos_stage(*stage, nsteps=3)
+    V, ok, lo, hi, X, y = cut
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.threshold_ranges(V, X, y)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.uncertain_mask(*cut)
 
 
 def test_build_targets_hopper_without_fma():
@@ -340,10 +353,11 @@ def test_build_targets_hopper_without_fma():
     assert "--fmad=false" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sources == ["maxmarg_turn.cu", "median_cut.cu",
-                       "median_extremes.cu", "pegasos_stage.cu"]
+                       "median_extremes.cu", "pegasos_stage.cu",
+                       "threshold_ranges.cu", "uncertain_mask.cu"]
     for name in sources:
         text = (_build.CSRC / name).read_text()
         assert "__fmul_rn" in text and "__fadd_rn" in text
     paths = [_build.library_path(p[:-3]) for p in sources]
     assert len({p.parent for p in paths}) == 1
-    assert len(set(paths)) == 4 and all(p.suffix == ".so" for p in paths)
+    assert len(set(paths)) == 6 and all(p.suffix == ".so" for p in paths)
