@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's MEDIAN and MAXMARG sweeps on one NVIDIA GPU and
-check them.
+"""Run the PyTorch port's protocol sweeps and its token models on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,26 @@ Phases (any failure exits non-zero; none is caught):
 10. one-way card against CPU on 48 instances: comm, rounds and sample sizes
    exact, the terminal fit set of RANDOM bit for bit, separators to the
    cosine tier (the card runs the solver's kernel path, the CPU its classic
-   loop, as in the JAX package).
+   loop, as in the JAX package);
+11. the flash-attention kernel against its plain version at the token
+   paths' shapes (smollm-135m scoring in bf16 and f32, whisper-medium's
+   encoder and its cross-attention at prefill and decode, qwen2.5-14b's
+   heads) and on crafted cases (windows of 128 and wider than the
+   sequence, kv_valid under one tile, MQA, ragged Sq and Skv, hd 32 and
+   256): f32 to atol 1e-5, bf16 to rtol = atol = 2e-2 in f32; timed at the
+   scoring shape beside its plain version and
+   ``scaled_dot_product_attention`` (the library figure);
+12. path A, smollm-135m at full width under the kernel backend:
+   ``forward_train`` over a ``synthetic_stream`` batch (B=8, S=2048, bf16),
+   exactly 30 kernel launches, the loss within 2e-2 of the plain pass,
+   tokens/s and the kernel's share; then its ``TokenServingEngine`` (B=8,
+   prompt 512, cache 1024, 64 greedy tokens), where no kernel runs;
+13. path B, whisper-medium at full width served (B=8, 1500 encoder frames,
+   prompt 4, cache 448, 64 greedy tokens, bf16): exactly 48 + 24 x 64
+   launches, prefill ms and ms per token, beside the plain backend; then
+   card against CPU in f32 with the same weights (smollm-135m B=1 S=128:
+   loss to 1e-5 and 8 greedy tokens; whisper-medium with 256 frames: 8
+   tokens), tokens equal unless the CPU's top two logits lie within 1e-4.
 
 MEDIAN smoke config: the shape of the JAX package's engine benchmark grid
 (``benchmarks/engine_sweep.py``: data1/2/3 × ε ∈ {0.2, 0.1, 0.05, 0.025},
@@ -78,6 +97,10 @@ max_epochs=8) at n_per_node=1000 over seeds 0–15 (B=384).
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` name and power limit, and before that
 one JSON line with every kernel's launches, error and times.
+
+Token models: smollm-135m (``configs/smollm_135m.py``, 134.5 M parameters)
+and whisper-medium (``configs/whisper_medium.py``, 811.0 M), full width
+and depth, random weights from a seeded generator on the card.
 """
 
 from __future__ import annotations
@@ -101,7 +124,14 @@ MM_SUBSET = (48, 8)    # MAXMARG card-against-CPU: bucket 1 and bucket 2
 ONEWAY = dict(steps=2000, stages=3, lam=1e-3)   # the one-way solver options
 COS_TOL = 1e-4         # the reference's own warm-vs-cold direction tier
 PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+SCORING = dict(arch="smollm-135m", B=8, S=2048)          # path A
+SERVE_SMOLLM = dict(B=8, prompt=512, cache_len=1024, tokens=64)
+# whisper-medium serving: 1500 encoder frames (Whisper's 30 s window,
+# arXiv:2212.04356), a 4-token decoder prompt, the decoder's 448 positions
+SERVE_WHISPER = dict(B=8, enc_len=1500, prompt=4, cache_len=448, tokens=64)
+ATTN_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 
 
 def smoke_instances(B, n_per_node, noisy_every, engine, datasets):
@@ -416,13 +446,18 @@ def _time_row(r, reps=(20, 3)):
     reps = r.get("reps", reps)
     r["ms"] = _median_ms(r["fn"], reps[0])
     r["plain_ms"] = _median_ms(r["plain"], reps[1])
+    r["library_ms"] = (_median_ms(r["library"], reps[0]) if "library" in r
+                       else None)
     by_bytes = r["bytes"] / PEAK_BYTES * 1e3
-    by_ops = r["ops"] / PEAK_F32 * 1e3
+    by_ops = r["ops"] / r.get("peak", PEAK_F32) * 1e3
     r["bound_ms"] = max(by_bytes, by_ops)
     r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    library = ("" if r["library_ms"] is None
+               else f", library {r['library_ms']:.4f} ms")
     print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms "
-          f"({r['bound_by']}: {r['bytes']} bytes, {r['ops']} f32 ops)")
+          f"plain {r['plain_ms']:.4f} ms{library}, bound "
+          f"{r['bound_ms']:.4g} ms ({r['bound_by']}: {r['bytes']} bytes, "
+          f"{r['ops']} ops at {r.get('peak', PEAK_F32):.3g} /s)")
 
 
 def _nbytes(*tensors):
@@ -454,6 +489,46 @@ def _same_floats(a, b, what):
 
 def _cosine(va, vb):
     return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
+
+
+def _attention_work(q, k, v, causal):
+    """Bytes a call must move (q, k, v read once, the output written once)
+    and its operations: 4 hd per kept (query, key) pair."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    pairs = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    return _nbytes(q, k, v, q), 4 * hd * B * H * pairs
+
+
+def _greedy(eng, first, n):
+    """``TokenServingEngine.generate``'s loop, keeping each step's gap
+    between the two largest logits.  Returns (tokens (B, n), gaps (n, B))."""
+    import torch
+    tok = torch.as_tensor(first, device=eng.device).reshape(-1, 1).to(
+        torch.int32)
+    toks, gaps = [], []
+    for _ in range(n):
+        logits, eng.caches = eng.step(eng.params, eng.caches, tok, eng.pos)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+        tok = logits[:, -1, :].argmax(-1).to(torch.int32).reshape(-1, 1)
+        toks.append(tok.cpu().numpy())
+        eng.pos += 1
+    return np.concatenate(toks, axis=1), np.stack(gaps)
+
+
+def _same_tokens(got, want, gaps, what, tie=1e-4):
+    """Greedy tokens equal, row by row, up to a first difference at a step
+    where the reference's two largest logits lie within ``tie``."""
+    for r in range(want.shape[0]):
+        diff = np.flatnonzero(got[r] != want[r])
+        if diff.size:
+            t = diff[0]
+            print(f"{what} row {r}: token {t} differs (card {got[r, t]}, "
+                  f"cpu {want[r, t]}); cpu's top-2 gap {gaps[t][r]!r}")
+            if not gaps[t][r] <= tie:
+                raise AssertionError(f"{what}: row {r} token {t} differs "
+                                     f"with a top-2 gap of {gaps[t][r]}")
 
 
 def _card_line():
@@ -1211,17 +1286,326 @@ def main() -> int:
           f"{bitwise}/{n_sep} separators bitwise equal (card: kernel path, "
           f"cpu: classic loop; cpu run {cpu_s:.2f} s)")
 
+    # -- 11. the flash-attention kernel against its plain version ------------
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.kernels import flash_attention as fa_module
+    from repro_torch.models import layers, model as lm_model
+    from repro_torch.serve import ServeConfig, TokenServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def qkv(shapes, dtype):
+        qs, ks = shapes
+        return tuple(torch.randn(sh, generator=gen, device=dev).to(dtype)
+                     for sh in (qs, ks, ks))
+
+    errs["attention"] = 0.0
+
+    def hold_attention(what, args, **kw):
+        got = kernels.attention(*args, **kw)
+        want = kernels.attention_plain(*args, **kw)
+        rtol, atol = ATTN_TOL[str(args[0].dtype).split(".")[1]]
+        diff = (got.float() - want.float()).abs()
+        if not (torch.isfinite(got.float()).all()
+                and bool((diff <= atol + rtol * want.float().abs()).all())):
+            raise AssertionError(f"flash attention, {what}: kernel and plain "
+                                 f"version differ by up to "
+                                 f"{float(diff.max())}")
+        errs["attention"] = max(errs["attention"], float(diff.max()))
+        print(f"flash attention, {what}: max |kernel - plain| "
+              f"{float(diff.max())!r}")
+        return got
+
+    S_sc, B_sc = SCORING["S"], SCORING["B"]
+    scoring = ((B_sc, S_sc, 9, 64), (B_sc, S_sc, 3, 64))
+    encoder = ((8, 1500, 16, 64), (8, 1500, 16, 64))
+    for what, shapes, dtype, kw in [
+            ("smollm-135m scoring, bf16", scoring, bf16, dict(causal=True)),
+            ("smollm-135m scoring, f32", scoring, f32, dict(causal=True)),
+            ("whisper-medium encoder, bf16", encoder, bf16,
+             dict(causal=False)),
+            ("whisper-medium cross-attention at prefill, bf16",
+             ((8, 4, 16, 64), encoder[1]), bf16, dict(causal=False)),
+            ("whisper-medium cross-attention at decode, bf16",
+             ((8, 1, 16, 64), encoder[1]), bf16, dict(causal=False)),
+            ("qwen2.5-14b heads (H 40, KV 8, hd 128), bf16",
+             ((2, 1024, 40, 128), (2, 1024, 8, 128)), bf16,
+             dict(causal=True)),
+            ("window 128, f32", ((2, 1024, 9, 64), (2, 1024, 3, 64)), f32,
+             dict(causal=True, window=128)),
+            ("kv_valid 40 (less than a tile), f32",
+             ((2, 100, 4, 64), (2, 300, 4, 64)), f32,
+             dict(causal=False, kv_valid=40)),
+            ("MQA, f32", ((2, 512, 8, 64), (2, 512, 1, 64)), f32,
+             dict(causal=True)),
+            ("ragged Sq 100 against Skv 1500, f32",
+             ((3, 100, 16, 64), (3, 1500, 16, 64)), f32, dict(causal=False)),
+            ("ragged causal S 1000, hd 32, bf16",
+             ((2, 1000, 6, 32), (2, 1000, 3, 32)), bf16, dict(causal=True)),
+            ("hd 256, Sq 300 against Skv 333, f32",
+             ((1, 300, 4, 256), (1, 333, 2, 256)), f32, dict(causal=True)),
+            ("window 16, hd 32, f32", ((2, 200, 4, 32), (2, 200, 4, 32)),
+             f32, dict(causal=True, window=16))]:
+        hold_attention(what, qkv(shapes, dtype), **kw)
+    # a window wider than the sequence is no window: the same function
+    args = qkv(scoring, bf16)
+    wide = hold_attention("window 16384 > S, bf16", args, causal=True,
+                          window=16384)
+    if not torch.equal(wide, kernels.attention(*args, causal=True)):
+        raise AssertionError("window 16384 changed the kernel's output at "
+                             f"S={S_sc}")
+    aq, ak, av = args
+    sdpa = F.scaled_dot_product_attention(
+        aq.transpose(1, 2), ak.transpose(1, 2), av.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+    print(f"library check: scaled_dot_product_attention against the plain "
+          f"version, max |diff| "
+          f"{float((sdpa.float() - wide.float()).abs().max())!r}")
+    score_bytes, score_ops = _attention_work(aq, ak, av, causal=True)
+    attn_rows = [dict(
+        name="flash_attention", wrapper="attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:81",
+        fn=lambda: kernels.attention(aq, ak, av, causal=True),
+        plain=lambda: kernels.attention_plain(aq, ak, av, causal=True),
+        library=lambda: F.scaled_dot_product_attention(
+            aq.transpose(1, 2), ak.transpose(1, 2), av.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        bytes=score_bytes, ops=score_ops, peak=PEAK_BF16, reps=(20, 20),
+        shape=f"smollm-135m scoring q {tuple(aq.shape)} kv "
+              f"{tuple(ak.shape)} causal bf16")]
+    _time_row(attn_rows[0])
+    # the same shape in f32, and the decode-time cross-attention (bf16)
+    for what, (qq, kk, vv), causal, peak in [
+            ("f32 scoring", qkv(scoring, f32), True, PEAK_F32),
+            ("whisper cross-attention at decode",
+             qkv(((8, 1, 16, 64), encoder[1]), bf16), False, PEAK_BF16)]:
+        nb, ops = _attention_work(qq, kk, vv, causal)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+        print(f"time attention, {what} q {tuple(qq.shape)} kv "
+              f"{tuple(kk.shape)}: kernel "
+              f"{_median_ms(lambda: kernels.attention(qq, kk, vv, causal=causal), 20):.4f} ms, "
+              f"plain "
+              f"{_median_ms(lambda: kernels.attention_plain(qq, kk, vv, causal=causal), 3):.4f} ms, "
+              f"library {_median_ms(lib, 20):.4f} ms, bound "
+              f"{max(nb / PEAK_BYTES, ops / peak) * 1e3:.4g} ms "
+              f"({nb} bytes, {ops} ops)")
+    del args, aq, ak, av, wide, sdpa, qq, kk, vv
+
+    # -- 12. path A: smollm-135m scoring, then smollm-135m serving -----------
+    scfg = get_config(SCORING["arch"])
+    t0 = time.perf_counter()
+    smollm = lm_model.init_lm(scfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"smollm-135m: {sum(t.numel() for t in smollm.parameters())} "
+          f"parameters (param_count {scfg.param_count()}), drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s")
+    sbatch = next(synthetic_stream(scfg, DataConfig(seq_len=S_sc,
+                                                    global_batch=B_sc)))
+    layers.set_attention_impl("kernel")
+    lm_model.forward_train(smollm, scfg, sbatch)        # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    loss_k, met = lm_model.forward_train(smollm, scfg, sbatch)
+    torch.cuda.synchronize()
+    score_counts = kernels.launches()
+    expect = dict({n: 0 for n in counts}, attention=scfg.n_layers)
+    if score_counts != expect:
+        raise AssertionError(f"smollm-135m scoring launched {score_counts}; "
+                             f"expected {scfg.n_layers} attention launches")
+    if not torch.isfinite(loss_k):
+        raise AssertionError(f"smollm-135m scoring loss {loss_k}")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_model.forward_train(smollm, scfg, sbatch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    score_wall = float(np.median(walls))
+    attn_spans = []
+    original = fa_module.attention
+
+    def timed_attention(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = original(*a, **kw)
+        ev[1].record()
+        attn_spans.append(ev)
+        return out
+
+    # the wrapper counts its launches through its module-level name, which
+    # is this shim during the pass (the counts were read above)
+    timed_attention.launches = 0
+    fa_module.attention = timed_attention
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_model.forward_train(smollm, scfg, sbatch)
+        torch.cuda.synchronize()
+        events_wall = time.perf_counter() - t0
+    finally:
+        fa_module.attention = original
+    attn_s = sum(a.elapsed_time(b) for a, b in attn_spans) / 1e3
+    layers.set_attention_impl("plain")
+    loss_p, _ = lm_model.forward_train(smollm, scfg, sbatch)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= 2e-2:
+        raise AssertionError(f"smollm-135m scoring loss {float(loss_k)} "
+                             f"under the kernel, {float(loss_p)} plain")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_model.forward_train(smollm, scfg, sbatch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"path A, smollm-135m scoring B={B_sc} S={S_sc} bf16: loss "
+          f"{float(loss_k)!r} (plain attention {float(loss_p)!r}, relative "
+          f"{rel:.3g}), acc {float(met['acc']):.4f}, "
+          f"{score_counts['attention']} attention launches; "
+          f"{score_wall * 1e3:.2f} ms a pass (median of 5), "
+          f"{B_sc * S_sc / score_wall:.0f} tokens/s; with plain attention "
+          f"{float(np.median(walls)) * 1e3:.2f} ms, "
+          f"{B_sc * S_sc / float(np.median(walls)):.0f} tokens/s; the kernel's "
+          f"{len(attn_spans)} launches take {attn_s * 1e3:.2f} ms of a "
+          f"{events_wall * 1e3:.2f} ms pass ({attn_s / events_wall:.1%})")
+
+    def serve(cfg, params, sc, prompt, n, impl):
+        """Warm up, then prefill and decode ``n`` tokens with the launch
+        counts set to 0 just before; returns (tokens, counts, prefill ms,
+        ms per token)."""
+        layers.set_attention_impl(impl)
+        warm = TokenServingEngine(cfg, params, sc, device=dev)
+        warm.generate(warm.prefill_prompt(prompt)[:, -1].argmax(-1), 2)
+        del warm
+        eng = TokenServingEngine(cfg, params, sc, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        first = eng.prefill_prompt(prompt)[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = eng.generate(first, n)
+        t2 = time.perf_counter()
+        got = kernels.launches()
+        if not (toks.shape == (sc.batch, n)
+                and ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{cfg.name} served tokens {toks}")
+        return toks, got, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / n
+
+    ss = SERVE_SMOLLM
+    sprompt = {"tokens": sbatch["tokens"][:, :ss["prompt"]]}
+    ssc = ServeConfig(batch=ss["B"], cache_len=ss["cache_len"])
+    _, smollm_counts, pre_ms, tok_ms = serve(scfg, smollm, ssc, sprompt,
+                                             ss["tokens"], "kernel")
+    if any(smollm_counts.values()):
+        raise AssertionError(f"smollm-135m serving launched {smollm_counts}; "
+                             f"the JAX package routes none of it to a kernel")
+    print(f"path B, smollm-135m serving B={ss['B']} prompt {ss['prompt']} "
+          f"cache {ss['cache_len']} bf16: prefill {pre_ms:.2f} ms, "
+          f"{tok_ms:.3f} ms per decoded token ({ss['tokens']} tokens, "
+          f"{ss['B'] * 1e3 / tok_ms:.0f} tokens/s), launches {smollm_counts}")
+
+    # -- 13. path B: whisper-medium serving ----------------------------------
+    wcfg = get_config("whisper-medium")
+    sw = SERVE_WHISPER
+    whisper = lm_model.init_lm(wcfg, seed=0, device=dev)
+    print(f"whisper-medium: {sum(t.numel() for t in whisper.parameters())} "
+          f"parameters (param_count {wcfg.param_count()})")
+    wbatch = next(synthetic_stream(wcfg, DataConfig(seq_len=sw["enc_len"],
+                                                    global_batch=sw["B"])))
+    wprompt = {"tokens": wbatch["tokens"][:, :sw["prompt"]],
+               "audio_embed": wbatch["audio_embed"]}
+    wsc = ServeConfig(batch=sw["B"], cache_len=sw["cache_len"],
+                      enc_len=sw["enc_len"])
+    wtoks, whisper_counts, wpre_ms, wtok_ms = serve(
+        wcfg, whisper, wsc, wprompt, sw["tokens"], "kernel")
+    want_launches = (wcfg.n_enc_layers + wcfg.n_layers
+                     + wcfg.n_layers * sw["tokens"])
+    expect = dict({n: 0 for n in counts}, attention=want_launches)
+    if whisper_counts != expect:
+        raise AssertionError(f"whisper-medium serving launched "
+                             f"{whisper_counts}; expected {want_launches} "
+                             f"attention launches")
+    # the plain pass takes query blocks that divide Sq (the JAX package's
+    # "xla" backend asserts the same); one block of 1500 encoder rows
+    psc = ServeConfig(batch=sw["B"], cache_len=sw["cache_len"],
+                      enc_len=sw["enc_len"],
+                      flags=lm_model.RunFlags(block_q=sw["enc_len"]))
+    ptoks, _, ppre_ms, ptok_ms = serve(wcfg, whisper, psc, wprompt,
+                                       sw["tokens"], "plain")
+    print(f"path B, whisper-medium serving B={sw['B']} enc {sw['enc_len']} "
+          f"prompt {sw['prompt']} cache {sw['cache_len']} bf16: prefill "
+          f"{wpre_ms:.2f} ms, {wtok_ms:.3f} ms per decoded token "
+          f"({sw['tokens']} tokens), {whisper_counts['attention']} attention "
+          f"launches; with plain attention prefill {ppre_ms:.2f} ms, "
+          f"{ptok_ms:.3f} ms per token, {int((ptoks == wtoks).sum())} of "
+          f"{wtoks.size} tokens the same")
+
+    # card against CPU, f32, the same weights
+    layers.set_attention_impl("kernel")
+    for name, mcfg, params, dc, prompt_len in [
+            ("smollm-135m", scfg, smollm, DataConfig(seq_len=128,
+                                                     global_batch=1, seed=1),
+             128),
+            ("whisper-medium", wcfg, whisper,
+             DataConfig(seq_len=256, global_batch=1, seed=1), 4)]:
+        b1 = next(synthetic_stream(mcfg, dc))
+        on_cpu = lm_model.cast_params(params, f32, device="cpu")
+        if not mcfg.enc_dec:
+            lc, _ = lm_model.forward_train(params, mcfg, b1, dtype=f32)
+            lh, _ = lm_model.forward_train(on_cpu, mcfg, b1, dtype=f32)
+            if not abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh)):
+                raise AssertionError(f"{name} loss card {float(lc)!r}, cpu "
+                                     f"{float(lh)!r}")
+            print(f"{name} card vs cpu, B=1 S=128 f32: loss {float(lc)!r} "
+                  f"and {float(lh)!r}")
+        prompt = {"tokens": b1["tokens"][:, :prompt_len]}
+        enc_len = 0
+        if mcfg.enc_dec:
+            prompt["audio_embed"] = b1["audio_embed"]
+            enc_len = b1["audio_embed"].shape[1]
+        sc = ServeConfig(batch=1, cache_len=prompt_len + 8, dtype=f32,
+                         enc_len=enc_len)
+        card_eng = TokenServingEngine(mcfg, params, sc, device=dev)
+        cpu_eng = TokenServingEngine(mcfg, on_cpu, sc, device="cpu")
+        lc = card_eng.prefill_prompt(prompt)
+        lh = cpu_eng.prefill_prompt(prompt)
+        first = lh[:, -1].argmax(-1)
+        want, gaps = _greedy(cpu_eng, first, 8)
+        got = card_eng.generate(first, 8)
+        _same_tokens(got, want, gaps, f"{name} card vs cpu")
+        print(f"{name} card vs cpu, f32: prefill logits max |diff| "
+              f"{float((lc.cpu() - lh).abs().max())!r}, 8 greedy tokens "
+              f"card {got.tolist()} cpu {want.tolist()}")
+        del on_cpu, card_eng, cpu_eng
+    layers.set_attention_impl("plain")
+
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
-             "oneway": ow_counts, "gap": gap_counts}
+             "oneway": ow_counts, "gap": gap_counts,
+             "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
+             "whisper_serving": whisper_counts}
     print(f"launches per path: {paths}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}
 
     print(json.dumps({"kernels": [
         dict(name=r["name"], route=r["route"], source=r["source"],
-             replaces=r["replaces"], launches=launches[r["name"]],
-             max_abs_err=errs[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
-        for r in rows + mm_rows + scan_rows]}))
+             replaces=r["replaces"],
+             launches=launches[r.get("wrapper", r["name"])],
+             max_abs_err=errs[r.get("wrapper", r["name"])], ms=r["ms"],
+             plain_ms=r["plain_ms"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             library_ms=r["library_ms"])
+        for r in rows + mm_rows + scan_rows + attn_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,10 @@ selector's ``step``, with the batched max-margin solver
 (``core.classifiers``); the one-way family (``engine.oneway``: RANDOM
 ε-net sampling with JAX's Threefry draws, ``core.prng``, and the §7
 baselines); the bulk scans over sweep state (``engine.dataplane.ranges`` /
-``uncertain``); and the B=1 public delegations (``core.protocols.two_way``
-/ ``kparty`` / ``one_way`` / ``baselines``).
+``uncertain``); the B=1 public delegations (``core.protocols.two_way``
+/ ``kparty`` / ``one_way`` / ``baselines``); and the token-model stack's
+dense and encoder-decoder families (``models``, ``configs``,
+``data.pipeline``, ``serve.TokenServingEngine``), whose cache-less
+attention calls run the flash-attention kernel under
+``models.layers.set_attention_impl("kernel")``.
 """

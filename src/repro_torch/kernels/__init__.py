@@ -1,18 +1,19 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (the CPU path and the kernel's oracle) and a launch counter.
 
-========================  ===========================  =============================
-wrapper                   CUDA source                  replaces (TPU kernel)
-========================  ===========================  =============================
-``median_cut_scores``     ``csrc/median_cut.cu``       ``median_cut_scores_batched``
-``median_extremes``       ``csrc/median_extremes.cu``  ``median_extremes_batched``
-``maxmarg_turn_scan``     ``csrc/maxmarg_turn.cu``     ``maxmarg_turn_scan_batched``
-``pegasos_stage``         ``csrc/pegasos_stage.cu``    ``pegasos_stage_batched``
-``threshold_ranges``      ``csrc/threshold_ranges.cu`` ``threshold_ranges_batched``
-                                                       (and ``threshold_ranges``)
-``uncertain_mask``        ``csrc/uncertain_mask.cu``   ``uncertain_mask_batched``
-                                                       (and ``uncertain_mask``)
-========================  ===========================  =============================
+========================  ============================  =============================
+wrapper                   CUDA source                   replaces (TPU kernel)
+========================  ============================  =============================
+``median_cut_scores``     ``csrc/median_cut.cu``        ``median_cut_scores_batched``
+``median_extremes``       ``csrc/median_extremes.cu``   ``median_extremes_batched``
+``maxmarg_turn_scan``     ``csrc/maxmarg_turn.cu``      ``maxmarg_turn_scan_batched``
+``pegasos_stage``         ``csrc/pegasos_stage.cu``     ``pegasos_stage_batched``
+``threshold_ranges``      ``csrc/threshold_ranges.cu``  ``threshold_ranges_batched``
+                                                        (and ``threshold_ranges``)
+``uncertain_mask``        ``csrc/uncertain_mask.cu``    ``uncertain_mask_batched``
+                                                        (and ``uncertain_mask``)
+``attention``             ``csrc/flash_attention.cu``   ``flash_attention``
+========================  ============================  =============================
 
 The single-instance TPU kernels are B=1 calls of the batched wrappers
 (``threshold_ranges_one``, ``uncertain_mask_one``) and count as their
@@ -24,6 +25,10 @@ package builds nothing.
 
 from typing import Dict
 
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    attention,
+    attention_plain,
+)
 from repro_torch.kernels.median_cut import (  # noqa: F401
     median_cut_scores,
     median_cut_scores_plain,
@@ -46,7 +51,7 @@ from repro_torch.kernels.support_margin import (  # noqa: F401
 )
 
 WRAPPERS = (median_cut_scores, median_extremes, maxmarg_turn_scan,
-            pegasos_stage, threshold_ranges, uncertain_mask)
+            pegasos_stage, threshold_ranges, uncertain_mask, attention)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,289 @@
+"""Shared neural layers: norms, RoPE / M-RoPE, GQA attention, MLPs.
+
+Counterpart of ``repro.models.layers`` for the dense and encoder-decoder
+families.  Functional, as there: ``init_*`` builds a dict of tensors from an
+explicit ``torch.Generator`` (on the generator's device), ``apply_*``
+consumes one.  Attention takes a query-block pass in plain PyTorch that
+never holds more than (block_q, Skv) scores per head, or, on the calls the
+JAX package routes to its Pallas kernel, the hand-written flash kernel
+(:func:`set_attention_impl`).  MLA waits for the MLA part of ROADMAP
+Queue 1 item 14.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: Optional[float] = None):
+    """(d_in, d_out) weights drawn N(0, 1) from ``gen`` on its device, times
+    ``scale`` (default 1/sqrt(d_in)), in ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd_rot: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for a rotary block of ``hd_rot`` dims."""
+    dims = torch.arange(0, hd_rot, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (dims / hd_rot))
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """Rotate ``x`` (..., S, H, hd) by position-dependent angles.
+
+    positions: (B, S) for standard RoPE, (3, B, S) for M-RoPE where the three
+    planes are (temporal, height, width) ids and the frequency dims are split
+    into ``mrope_sections`` groups (Qwen2-VL §2.1).
+    """
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)               # (hd/2,)
+    pos = positions.float()
+    if mrope_sections is None:
+        ang = pos[..., None] * inv                      # (B, S, hd/2)
+    else:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, S) position ids")
+        if sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover hd/2 = {hd // 2}")
+        ang_full = pos[..., None] * inv                 # (3, B, S, hd/2)
+        parts, start = [], 0
+        for i, s in enumerate(mrope_sections):
+            parts.append(ang_full[i, :, :, start:start + s])
+            start += s
+        ang = torch.cat(parts, dim=-1)                  # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]                 # (B, S, 1, hd/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core: query-block pass or the flash kernel
+# ---------------------------------------------------------------------------
+
+_ATTN_IMPL = "plain"   # "plain" (query-block pass) | "kernel" (flash kernel)
+
+
+def set_attention_impl(impl: str) -> None:
+    """Select the attention backend for cache-less (scoring, encoder,
+    cross-attention) calls: ``"plain"`` (the default) or ``"kernel"``, the
+    counterparts of the JAX package's ``"xla"`` (its default) and
+    ``"pallas"``.
+
+    ``"kernel"`` routes through :func:`repro_torch.kernels.attention`: the
+    CUDA flash kernel for tensors on the card, its plain version on the
+    CPU.  Calls with a cache (cache writes, ragged validity, a query
+    offset), an explicit scale or hd != hdv always take the plain pass, as
+    in the JAX package.
+    """
+    global _ATTN_IMPL
+    if impl not in ("plain", "kernel"):
+        raise ValueError(f"attention impl must be 'plain' or 'kernel', "
+                         f"not {impl!r}")
+    _ATTN_IMPL = impl
+
+
+def attention_core(
+    q: torch.Tensor,           # (B, Sq, H, hd)
+    k: torch.Tensor,           # (B, Skv, KV, hd)
+    v: torch.Tensor,           # (B, Skv, KV, hdv)
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    window: Optional[int] = None,
+    kv_valid_len: Optional[int] = None,
+    block_q: int = 1024,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact attention, O(block_q · Skv) live scores per head.
+
+    ``q_offset``: absolute position of q[0] (decode: the cache index).
+    ``window``: sliding-window width (None = full).
+    ``kv_valid_len``: mask out cache slots >= this length (decode).
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if (_ATTN_IMPL == "kernel" and kv_valid_len is None and scale is None
+            and q_offset == 0 and q.shape[-1] == v.shape[-1]):
+        return _fa.attention(q, k, v, causal=causal, window=window)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    kv_idx = torch.arange(Skv, device=q.device)
+    k32 = k.float()
+
+    def one_block(qb, row0):
+        bq = qb.shape[1]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qb.float() * scale, k32)
+        rows = row0 + torch.arange(bq, device=q.device) + q_offset
+        mask = torch.ones((bq, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_idx[None, :] <= rows[:, None]
+        if window is not None:
+            mask &= kv_idx[None, :] > rows[:, None] - window
+        if kv_valid_len is not None:
+            mask &= kv_idx[None, :] < kv_valid_len
+        s = s.masked_fill(~mask, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(torch.isnan(p), 0.0, p)          # fully-masked rows
+        o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+        return o.reshape(B, bq, H, -1)
+
+    if Sq <= block_q:
+        return one_block(qg, 0)
+    if Sq % block_q:
+        raise ValueError(f"Sq={Sq} is not a multiple of block_q={block_q}")
+    return torch.cat([one_block(qg[:, r:r + block_q], r)
+                      for r in range(0, Sq, block_q)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype=torch.float32) -> Params:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    p = {
+        "wq": dense_init(gen, d, H * hd, dtype),
+        "wk": dense_init(gen, d, KV * hd, dtype),
+        "wv": dense_init(gen, d, KV * hd, dtype),
+        "wo": dense_init(gen, H * hd, d, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+    return p
+
+
+def apply_attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, S, d)
+    positions: torch.Tensor,             # (B, S) or (3, B, S)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    cache: Optional[Params] = None,      # {"k": (B,Sc,KV,hd), "v": ...} decode
+    cache_index: Optional[int] = None,
+    cross_y: Optional[torch.Tensor] = None,          # encoder output (prefill)
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    block_q: int = 1024,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA attention.  With a ``cache`` the new keys and values are written
+    into it in place (slice assignment at ``cache_index``, a ring buffer
+    under ``window``) and the returned cache is the same dict; the JAX
+    package returns new arrays instead."""
+    B, S, d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    q = q.reshape(B, S, H, hd)
+
+    if cross_y is not None:
+        # cross-attention: keys/values from the encoder sequence, no RoPE
+        Se = cross_y.shape[1]
+        k = (cross_y @ p["wk"]).reshape(B, Se, KV, hd)
+        v = (cross_y @ p["wv"]).reshape(B, Se, KV, hd)
+        out = attention_core(q, k, v, causal=False, block_q=block_q)
+        out = out.reshape(B, S, H * hd) @ p["wo"]
+        return out, {"k": k, "v": v}  # static cross cache for decode
+    if kv_override is not None:
+        k, v = kv_override
+        out = attention_core(q, k, v, causal=False, block_q=block_q)
+        out = out.reshape(B, S, H * hd) @ p["wo"]
+        return out, None
+    # self-attention path
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.rope != "none":
+        sec = cfg.mrope_sections if cfg.rope == "mrope" else None
+        q = rope_apply(q, positions, cfg.rope_theta, sec)
+        k = rope_apply(k, positions, cfg.rope_theta, sec)
+
+    new_cache = None
+    if cache is not None:
+        # decode: write new k/v at cache_index, attend over the cache
+        ck, cv = cache["k"], cache["v"]
+        Sc = ck.shape[1]
+        slot = cache_index % Sc if window is not None else cache_index
+        slot = min(max(slot, 0), Sc - S)   # clamped as dynamic_update_slice
+        ck[:, slot:slot + S] = k.to(ck.dtype)
+        cv[:, slot:slot + S] = v.to(cv.dtype)
+        new_cache = cache
+        kv_valid = min(cache_index + S, Sc)
+        # Ring buffer: it holds exactly the last `window` positions, so all
+        # filled slots are attendable and absolute-position masks don't apply.
+        causal_here = False if window is not None else causal
+        out = attention_core(q, ck, cv, causal=causal_here,
+                             q_offset=cache_index, window=None,
+                             kv_valid_len=kv_valid, block_q=block_q)
+    else:
+        out = attention_core(q, k, v, causal=causal, window=window,
+                             block_q=block_q)
+
+    out = out.reshape(B, S, H * hd) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str = "mlp",
+             dtype=torch.float32) -> Params:
+    if kind == "mlp":
+        # SwiGLU with separate gate/up weights, as the JAX package keeps them
+        return {"wgate": dense_init(gen, d, d_ff, dtype),
+                "wup": dense_init(gen, d, d_ff, dtype),
+                "wo": dense_init(gen, d_ff, d, dtype)}
+    return {"wi": dense_init(gen, d, d_ff, dtype),
+            "wo": dense_init(gen, d_ff, d, dtype)}
+
+
+def apply_mlp(p: Params, x: torch.Tensor, kind: str = "mlp") -> torch.Tensor:
+    if kind == "mlp":
+        return (F.silu(x @ p["wgate"]) * (x @ p["wup"])) @ p["wo"]
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]

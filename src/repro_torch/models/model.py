@@ -1,0 +1,342 @@
+"""Top-level language model: embedding → layer stack → norm → head.
+
+Counterpart of ``repro.models.model`` for the dense and audio
+(encoder-decoder) families:
+
+* ``init_lm``            — an :class:`LM` with seeded random weights
+* ``from_reference``     — an :class:`LM` holding the JAX package's weights
+* ``forward_train``      — tokens → loss and accuracy (chunked vocab
+  cross-entropy), forward only
+* ``prefill``            — tokens → (last-position logits, filled caches)
+* ``decode_step``        — one token with caches (serve_step's core)
+* ``make_caches``        — per-layer decode state for (cfg, batch, cache_len)
+
+Audio (whisper): precomputed frame embeddings feed a bidirectional encoder;
+the decoder cross-attends (the frontend is stubbed, as in the JAX package).
+The VLM family's patch splice, activation checkpointing and MLA's absorbed
+decode raise ``NotImplementedError`` naming their ROADMAP item.  The model
+runs forward only: its parameters hold no gradients, and training waits
+for the training part of ROADMAP Queue 1 item 14.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch._device import resolve
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.transformer import (
+    apply_stack,
+    check_ported,
+    init_stack,
+    stack_cache_init,
+)
+
+Params = Dict[str, Any]
+
+ENC_PERIOD = (("attn", "gelu_mlp"),)  # whisper encoder layers
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Execution knobs (not architecture): set by launcher / perf configs."""
+    window: Optional[int] = None       # sliding-window attention (long_500k)
+    mla_absorb: bool = False           # MLA latent-space decode
+    block_q: int = 1024                # q-block size of the plain attention
+    remat: bool = False                # activation checkpointing over periods
+    loss_chunk: int = 512              # seq chunk for vocab cross-entropy
+
+
+def _check(cfg: ModelConfig, flags: RunFlags) -> None:
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: the vision patch splice is not ported yet; it "
+            f"waits for the VLM part of ROADMAP Queue 1 item 14")
+    check_ported(cfg)
+    if flags.remat:
+        raise NotImplementedError(
+            "RunFlags(remat=True): activation checkpointing waits for the "
+            "training part of ROADMAP Queue 1 item 14")
+    if flags.mla_absorb:
+        raise NotImplementedError(
+            "RunFlags(mla_absorb=True): MLA waits for the MLA part of "
+            "ROADMAP Queue 1 item 14")
+
+
+class ParamTree(nn.Module):
+    """A nested dict (and list) of tensors held as parameters without
+    gradients, each named by its path (``blocks.3.mixer.wq``)."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                self.add_module(name, ParamTree(leaf))
+            elif isinstance(leaf, list):
+                self.add_module(name, nn.ModuleList(ParamTree(t) for t in leaf))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(leaf, requires_grad=False))
+
+    def tree(self) -> Params:
+        """The parameters as the nested dicts and lists they came from."""
+        out: Params = {name: t for name, t in self._parameters.items()}
+        for name, mod in self._modules.items():
+            out[name] = ([m.tree() for m in mod]
+                         if isinstance(mod, nn.ModuleList) else mod.tree())
+        return out
+
+
+class LM(ParamTree):
+    """A language model's weights: ``embed``, ``final_norm``, ``blocks`` (one
+    entry per decoder layer), ``lm_head`` unless tied, and for
+    encoder-decoder models ``enc_blocks`` and ``enc_norm``.  The functions of
+    this module take it (or :func:`cast_params` of it) as ``p``."""
+
+    def __init__(self, cfg: ModelConfig, tree: Params):
+        super().__init__(tree)
+        self.cfg = cfg
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def cast_params(p: Union[ParamTree, Params], dtype, device=None) -> Params:
+    """Mixed precision: the weights as nested dicts of tensors in ``dtype``
+    (float leaves only), on ``device`` if given.  A leaf already in that
+    dtype and on that device is returned as it is, not copied."""
+    if isinstance(p, ParamTree):
+        p = p.tree()
+    floats = (torch.float32, torch.bfloat16)
+    return _map(lambda a: a.to(device=device,
+                               dtype=dtype if a.dtype in floats else a.dtype),
+                p)
+
+
+def sinusoid_pos(S: int, d: int, dtype, device=None) -> torch.Tensor:
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, dtype=torch.float32,
+            device="cuda") -> LM:
+    """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (the card unless ``device="cpu"``).  The draws are not the
+    JAX package's; :func:`from_reference` carries those across."""
+    _check(cfg, RunFlags())
+    dev = resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
+    p: Params = {
+        "embed": (torch.randn((cfg.vocab, d), generator=gen, device=dev)
+                  * 0.02).to(dtype),
+        "final_norm": torch.ones((d,), dtype=dtype, device=dev),
+        "blocks": init_stack(gen, cfg, dtype, with_cross=cfg.enc_dec),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, d, cfg.vocab, dtype, scale=0.02)
+    if cfg.enc_dec:
+        p["enc_blocks"] = init_stack(gen, cfg, dtype, period=ENC_PERIOD,
+                                     n_periods=cfg.n_enc_layers)
+        p["enc_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+    return LM(cfg, p)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
+    """An :class:`LM` holding the JAX package's ``init_lm`` weights, given as
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+    The JAX stacks (``blocks`` / ``enc_blocks``, ``pos{j}`` leaves with a
+    leading ``n_periods`` axis) are unstacked into one entry per layer,
+    period ``i``'s position ``j`` at ``i * len(period) + j``."""
+    _check(cfg, RunFlags())
+    dev = resolve(device)
+
+    def unstack(stacked, period, n_periods) -> List[Params]:
+        return [_map(lambda a: _tensor(a[i], dev), stacked[f"pos{j}"])
+                for i in range(n_periods) for j in range(len(period))]
+
+    p: Params = {name: _tensor(params[name], dev)
+                 for name in ("embed", "final_norm", "lm_head", "enc_norm")
+                 if name in params}
+    p["blocks"] = unstack(params["blocks"], cfg.period, cfg.n_periods)
+    if cfg.enc_dec:
+        p["enc_blocks"] = unstack(params["enc_blocks"], ENC_PERIOD,
+                                  cfg.n_enc_layers)
+    return LM(cfg, p)
+
+
+def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           vision_embed: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    if vision_embed is not None:
+        raise NotImplementedError(
+            "vision_embed: the patch splice waits for the VLM part of "
+            "ROADMAP Queue 1 item 14")
+    return p["embed"][tokens.long()].to(dtype)
+
+
+def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return x @ w.to(x.dtype)
+
+
+def _encode(p: Params, cfg: ModelConfig, audio_embed: torch.Tensor,
+            flags: RunFlags) -> torch.Tensor:
+    B, Se, d = audio_embed.shape
+    x = audio_embed + sinusoid_pos(Se, d, audio_embed.dtype,
+                                   audio_embed.device)
+    pos = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    x, _, _ = apply_stack(p["enc_blocks"], cfg, x, pos, period=ENC_PERIOD,
+                          causal=False, block_q=flags.block_q)
+    return rmsnorm(x, p["enc_norm"], cfg.norm_eps)
+
+
+def _positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor], B: int,
+               S: int, device):
+    if cfg.rope == "mrope":
+        if "rope_pos" in batch:
+            return batch["rope_pos"]
+        return torch.arange(S, device=device)[None, None].expand(3, B, S)
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _front(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+           flags: RunFlags, dtype):
+    """Embedded decoder input, encoder output (or None) and positions."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(p, cfg, tokens, batch.get("vision_embed"), dtype)
+    cross_y = None
+    if cfg.enc_dec:
+        cross_y = _encode(p, cfg, batch["audio_embed"].to(dtype), flags)
+        x = x + sinusoid_pos(S, cfg.d_model, x.dtype, x.device)
+    return x, cross_y, _positions(cfg, batch, B, S, x.device)
+
+
+def forward_train(
+    p: Union[LM, Params],
+    cfg: ModelConfig,
+    batch: Dict[str, Any],
+    flags: RunFlags = RunFlags(),
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Returns (loss, metrics), forward only, on the device the weights lie
+    on.  batch: tokens, targets [, audio_embed], numpy arrays or tensors."""
+    _check(cfg, flags)
+    p = cast_params(p, dtype)
+    batch = _on(batch, p["embed"].device)
+    x, cross_y, positions = _front(p, cfg, batch, flags, dtype)
+    x, _, aux = apply_stack(p["blocks"], cfg, x, positions, causal=True,
+                            cross_y=cross_y, block_q=flags.block_q)
+    loss, metrics = chunked_ce_loss(p, cfg, x, batch["targets"], flags)
+    loss = loss + aux
+    metrics["aux_loss"] = aux
+    return loss, metrics
+
+
+def chunked_ce_loss(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    targets: torch.Tensor, flags: RunFlags):
+    """Cross-entropy without materializing (B, S, vocab) at once: a loop
+    over sequence chunks keeps live logits at (B, chunk, vocab)."""
+    B, S, d = x.shape
+    chunk = min(flags.loss_chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of loss_chunk={chunk}")
+    losses, hits = [], []
+    for c0 in range(0, S, chunk):
+        logits = _head(p, cfg, x[:, c0:c0 + chunk]).float()  # (B, chunk, V)
+        tc = targets[:, c0:c0 + chunk].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc[..., None])[..., 0]
+        losses.append((lse - tgt).sum())
+        hits.append((logits.argmax(-1) == tc).sum())
+    n = B * S
+    return torch.stack(losses).sum() / n, {"acc": torch.stack(hits).sum() / n}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def make_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, enc_len: int = 0,
+                device=None) -> List[Params]:
+    return stack_cache_init(cfg, batch, cache_len, dtype,
+                            with_cross=cfg.enc_dec, enc_len=enc_len,
+                            device=device)
+
+
+def prefill(
+    p: Union[LM, Params],
+    cfg: ModelConfig,
+    batch: Dict[str, Any],
+    caches: List[Params],
+    flags: RunFlags = RunFlags(),
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, List[Params]]:
+    """Run the prompt through the model, filling ``caches`` in place from
+    index 0.  Returns (logits at last position, caches)."""
+    _check(cfg, flags)
+    p = cast_params(p, dtype)
+    batch = _on(batch, p["embed"].device)
+    x, cross_y, positions = _front(p, cfg, batch, flags, dtype)
+    x, caches, _ = apply_stack(
+        p["blocks"], cfg, x, positions, causal=True, window=flags.window,
+        caches=caches, cache_index=0, cross_y=cross_y, block_q=flags.block_q)
+    return _head(p, cfg, x[:, -1:, :]), caches
+
+
+def decode_step(
+    p: Union[LM, Params],
+    cfg: ModelConfig,
+    caches: List[Params],
+    tokens: torch.Tensor,       # (B, 1)
+    pos: int,                   # absolute position
+    flags: RunFlags = RunFlags(),
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, List[Params]]:
+    """One decode step: logits for the new token; caches updated in place."""
+    _check(cfg, flags)
+    p = cast_params(p, dtype)
+    dev = p["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    B = tokens.shape[0]
+    x = _embed(p, cfg, tokens, None, dtype)
+    if cfg.enc_dec:
+        # the sinusoid at the absolute position
+        dim = torch.arange(0, cfg.d_model, 2, dtype=torch.float32,
+                           device=dev)[None, :]
+        ang = (torch.tensor(float(pos), dtype=torch.float32, device=dev)
+               / torch.pow(10000.0, dim / cfg.d_model))
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        x = x + pe[None].to(x.dtype)
+    if cfg.rope == "mrope":
+        positions = torch.full((3, B, 1), pos, device=dev)
+    else:
+        positions = torch.full((B, 1), pos, device=dev)
+    x, caches, _ = apply_stack(
+        p["blocks"], cfg, x, positions, causal=True, window=flags.window,
+        caches=caches, cache_index=pos, block_q=flags.block_q)
+    return _head(p, cfg, x), caches

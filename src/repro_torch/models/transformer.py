@@ -1,0 +1,188 @@
+"""Block assembly and the layer stack.
+
+Counterpart of ``repro.models.transformer``.  A *period* is a tuple of
+(mixer, ffn) descriptors (len 1 for homogeneous models).  The JAX package
+stacks every period's parameters on a leading ``n_periods`` axis for
+``lax.scan``; here the stack is a list of per-layer parameter dicts, layer
+``i * len(period) + j`` holding period ``i``'s position ``j``, and a Python
+loop walks it.  Caches are one dict per layer, preallocated and written in
+place.  The JAX package pins the residual stream's batch axis to the data
+mesh axes between layers (``constrain_batch_dim``, the identity without a
+mesh); sharding waits for ROADMAP Queue 1 item 11, so nothing stands in
+for it here.
+
+Only attention mixers and the SwiGLU / GELU FFNs are ported; MLA, Mamba,
+RWKV and MoE layers raise ``NotImplementedError`` naming the part of
+ROADMAP Queue 1 item 14 that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_attention,
+    apply_mlp,
+    init_attention,
+    init_mlp,
+    rmsnorm,
+)
+
+Params = Dict[str, Any]
+
+_WAITS = {
+    "mla": "the MLA part of ROADMAP Queue 1 item 14",
+    "mamba": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
+    "rwkv": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
+    "rwkv_cmix": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
+    "moe": "the MoE part of ROADMAP Queue 1 item 14 (models/moe.py)",
+}
+
+
+def check_ported(cfg: ModelConfig, period=None) -> None:
+    """Raise ``NotImplementedError`` if a layer of ``period`` (default the
+    config's) is of a kind this package does not run yet."""
+    for mixer, ffn in (period if period is not None else cfg.period):
+        for kind in (mixer, ffn):
+            if kind in _WAITS:
+                raise NotImplementedError(
+                    f"{cfg.name}: {kind!r} layers are not ported yet; they "
+                    f"wait for {_WAITS[kind]}")
+        if mixer != "attn" or ffn not in ("mlp", "gelu_mlp"):
+            raise ValueError(f"{cfg.name}: unknown layer ({mixer}, {ffn})")
+
+
+# ---------------------------------------------------------------------------
+# single layer
+# ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
+               dtype, with_cross: bool = False) -> Params:
+    check_ported(cfg, ((mixer, ffn),))
+    d = cfg.d_model
+    ones = lambda: torch.ones((d,), dtype=dtype, device=gen.device)  # noqa: E731
+    p: Params = {"mixer_norm": ones(), "ffn_norm": ones(),
+                 "mixer": init_attention(gen, cfg, dtype),
+                 "ffn": init_mlp(gen, d, cfg.d_ff, ffn, dtype)}
+    if with_cross:
+        p["cross"] = init_attention(gen, cfg, dtype)
+        p["cross_norm"] = ones()
+    return p
+
+
+def layer_cache_init(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
+                     cache_len: int, dtype, with_cross: bool = False,
+                     enc_len: int = 0, device=None) -> Params:
+    """Decode-time state for one layer (zeros, written in place later)."""
+    check_ported(cfg, ((mixer, ffn),))
+    shape = (batch, cache_len, cfg.n_kv, cfg.hd)
+    c: Params = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if with_cross:
+        cross = (batch, enc_len, cfg.n_kv, cfg.hd)
+        c["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
+    return c
+
+
+def apply_layer(
+    p: Params,
+    cfg: ModelConfig,
+    mixer: str,
+    ffn: str,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    cache: Optional[Params] = None,
+    cache_index: Optional[int] = None,
+    cross_y: Optional[torch.Tensor] = None,
+    block_q: int = 1024,
+) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Pre-norm residual layer.  Returns (x, cache, aux_loss); the cache is
+    the one given, written in place (None without one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
+    h, _ = apply_attention(p["mixer"], cfg, h, positions, causal=causal,
+                           window=window, cache=cache,
+                           cache_index=cache_index, block_q=block_q)
+    x = x + h
+
+    if "cross" in p:
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        if cache is not None and "cross_k" in cache and cross_y is None:
+            h, _ = apply_attention(
+                p["cross"], cfg, h, positions,
+                kv_override=(cache["cross_k"], cache["cross_v"]),
+                block_q=block_q)
+        else:
+            h, cc = apply_attention(p["cross"], cfg, h, positions,
+                                    cross_y=cross_y, block_q=block_q)
+            if cache is not None:
+                for name, t in (("cross_k", cc["k"]), ("cross_v", cc["v"])):
+                    if cache[name].shape == t.shape:
+                        cache[name].copy_(t)
+                    else:   # another encoder length: replaced, as in JAX
+                        cache[name] = t.to(cache[name].dtype)
+        x = x + h
+
+    h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+    x = x + apply_mlp(p["ffn"], h, ffn)
+    return x, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig, dtype, *, period=None,
+               n_periods=None, with_cross: bool = False) -> List[Params]:
+    """Per-layer params, layer ``i * len(period) + j`` = period i, pos j."""
+    period = period if period is not None else cfg.period
+    n_periods = n_periods if n_periods is not None else cfg.n_layers // len(period)
+    return [init_layer(gen, cfg, mixer, ffn, dtype, with_cross=with_cross)
+            for _ in range(n_periods) for mixer, ffn in period]
+
+
+def stack_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype, *,
+                     period=None, n_periods=None, with_cross=False,
+                     enc_len=0, device=None) -> List[Params]:
+    period = period if period is not None else cfg.period
+    n_periods = n_periods if n_periods is not None else cfg.n_layers // len(period)
+    return [layer_cache_init(cfg, mixer, ffn, batch, cache_len, dtype,
+                             with_cross=with_cross, enc_len=enc_len,
+                             device=device)
+            for _ in range(n_periods) for mixer, ffn in period]
+
+
+def apply_stack(
+    params: List[Params],
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    period=None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    caches: Optional[List[Params]] = None,
+    cache_index: Optional[int] = None,
+    cross_y: Optional[torch.Tensor] = None,
+    block_q: int = 1024,
+) -> Tuple[torch.Tensor, Optional[List[Params]], torch.Tensor]:
+    """Run every layer in order.  Returns (x, caches, aux); the caches are
+    the ones given, written in place."""
+    period = period if period is not None else cfg.period
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer_p in enumerate(params):
+        mixer, ffn = period[i % len(period)]
+        x, _, a = apply_layer(
+            layer_p, cfg, mixer, ffn, x, positions, causal=causal,
+            window=window, cache=caches[i] if caches is not None else None,
+            cache_index=cache_index, cross_y=cross_y, block_q=block_q)
+        aux = aux + a
+    return x, caches, aux

@@ -205,7 +205,12 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.classifiers, repro_torch.engine.maxmarg, "
         "repro_torch.kernels.pegasos, repro_torch.kernels.support_margin, "
         "repro_torch.engine.oneway, repro_torch.core.prng, "
-        "repro_torch.core.sampling, repro_torch.core.protocols.baselines;"
+        "repro_torch.core.sampling, repro_torch.core.protocols.baselines, "
+        "repro_torch.kernels.flash_attention, repro_torch.models, "
+        "repro_torch.models.config, repro_torch.models.layers, "
+        "repro_torch.models.transformer, repro_torch.models.model, "
+        "repro_torch.configs, repro_torch.data.pipeline, "
+        "repro_torch.serve, repro_torch.serve.engine;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ,
@@ -222,6 +227,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from repro_torch.core import classifiers
     from repro_torch.core.protocols import baselines, kparty, one_way
     from repro_torch.core.protocols import two_way
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serve import ServeConfig, TokenServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shards = tdata.data1(n_per_node=20, k=2, seed=0)
@@ -231,6 +239,8 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
           for sel in ("sampling", "naive")]
     X = np.concatenate([s[0] for s in shards])
     y = np.concatenate([s[1] for s in shards])
+    lm_cfg = get_config("smollm-135m").reduced()
+    lm = model.init_lm(lm_cfg, device="cpu")
     for call in (lambda: engine.run_sweep(inst),
                  lambda: engine.run_sweep(mm),
                  lambda: engine.run_instances(inst),
@@ -254,6 +264,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                  lambda: baselines.naive(shards),
                  lambda: baselines.voting(shards),
                  lambda: baselines.random(shards),
-                 lambda: baselines.mixing(shards)):
+                 lambda: baselines.mixing(shards),
+                 lambda: model.init_lm(lm_cfg),
+                 lambda: model.from_reference({}, lm_cfg),
+                 lambda: TokenServingEngine(lm_cfg, lm, ServeConfig(1, 8))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -318,12 +318,16 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
         assert torch.equal(a, b)
     assert torch.equal(kernels.uncertain_mask(*cut),
                        kernels.uncertain_mask_plain(*cut))
+    q, kv = torch.ones((1, 5, 4, 32)), torch.ones((1, 7, 2, 32))
+    assert torch.equal(kernels.attention(q, kv, kv, causal=True),
+                       kernels.attention_plain(q, kv, kv, causal=True))
     assert kernels.launches() == {"median_cut_scores": 0,
                                   "median_extremes": 0,
                                   "maxmarg_turn_scan": 0,
                                   "pegasos_stage": 0,
                                   "threshold_ranges": 0,
-                                  "uncertain_mask": 0}
+                                  "uncertain_mask": 0,
+                                  "attention": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -344,6 +348,9 @@ def test_wrappers_refuse_other_devices():
         kernels.threshold_ranges(V, X, y)
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernels.uncertain_mask(*cut)
+    q = torch.ones((1, 5, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.attention(q, q, q, causal=True)
 
 
 def test_build_targets_hopper_without_fma():
@@ -352,12 +359,13 @@ def test_build_targets_hopper_without_fma():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["maxmarg_turn.cu", "median_cut.cu",
-                       "median_extremes.cu", "pegasos_stage.cu",
-                       "threshold_ranges.cu", "uncertain_mask.cu"]
+    assert sources == ["flash_attention.cu", "maxmarg_turn.cu",
+                       "median_cut.cu", "median_extremes.cu",
+                       "pegasos_stage.cu", "threshold_ranges.cu",
+                       "uncertain_mask.cu"]
     for name in sources:
         text = (_build.CSRC / name).read_text()
         assert "__fmul_rn" in text and "__fadd_rn" in text
     paths = [_build.library_path(p[:-3]) for p in sources]
     assert len({p.parent for p in paths}) == 1
-    assert len(set(paths)) == 6 and all(p.suffix == ".so" for p in paths)
+    assert len(set(paths)) == 7 and all(p.suffix == ".so" for p in paths)
