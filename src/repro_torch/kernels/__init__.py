@@ -13,6 +13,8 @@ wrapper                   CUDA source                   replaces (TPU kernel)
 ``uncertain_mask``        ``csrc/uncertain_mask.cu``    ``uncertain_mask_batched``
                                                         (and ``uncertain_mask``)
 ``attention``             ``csrc/flash_attention.cu``   ``flash_attention``
+``rwkv6``                 ``csrc/rwkv6.cu``             ``rwkv6_chunked``
+``mamba_scan``            ``csrc/mamba_scan.cu``        ``mamba_scan``
 ========================  ============================  =============================
 
 The single-instance TPU kernels are B=1 calls of the batched wrappers
@@ -28,6 +30,10 @@ from typing import Dict
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     attention,
     attention_plain,
+)
+from repro_torch.kernels.mamba import (  # noqa: F401
+    mamba_scan,
+    mamba_scan_plain,
 )
 from repro_torch.kernels.median_cut import (  # noqa: F401
     median_cut_scores,
@@ -49,9 +55,14 @@ from repro_torch.kernels.support_margin import (  # noqa: F401
     uncertain_mask_one,
     uncertain_mask_plain,
 )
+from repro_torch.kernels.rwkv6 import (  # noqa: F401
+    rwkv6,
+    rwkv6_plain,
+)
 
 WRAPPERS = (median_cut_scores, median_extremes, maxmarg_turn_scan,
-            pegasos_stage, threshold_ranges, uncertain_mask, attention)
+            pegasos_stage, threshold_ranges, uncertain_mask, attention,
+            rwkv6, mamba_scan)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,116 @@
+"""The RWKV-6 (Finch) WKV recurrence: CUDA kernel, wrapper and plain
+PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/rwkv6.py`` (``rwkv6_chunked``,
+reached through ``ops.rwkv6``), which the JAX package's model does not
+call: its time mix runs the same recurrence as a ``lax.scan``
+(``models/ssm.py`` ``apply_rwkv_tmix``).  The port's time mix calls
+:func:`rwkv6` instead of a loop.  The CUDA source is ``csrc/rwkv6.cu``;
+its note gives the bound on an H100 and the design (one step per token,
+the TPU kernel's chunked closed form is a later redesign).
+
+Unlike the TPU kernel, both versions take an initial state, as the oracle
+``ref.rwkv6_ref(S0=)`` does: the serving path carries one.  With a zero
+state they compute the TPU kernel's function.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.median_cut import _require
+
+HEAD_DIMS = (32, 64)     # the kernel's compiled head widths
+
+
+def rwkv6_plain(
+    r: torch.Tensor,                 # (B, S, H, hd)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,                 # decay in (0, 1)
+    u: torch.Tensor,                 # (H, hd) bonus
+    S0: Optional[torch.Tensor] = None,   # (B, H, hd, hd)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential WKV recurrence in f32, step by step:
+
+      y_t = r_t · (S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
+
+    Returns y (B, S, H, hd) and the final state (B, H, hd, hd), both f32.
+    The twin of the JAX package's ``ref.rwkv6_ref``; the state update
+    rounds as the kernel's does."""
+    B, S, H, hd = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    u = u.float()[..., None]
+    state = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device)
+             if S0 is None else S0.float())
+    y = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # (B,H,hd,hd)
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", r[:, t], state + u * kv)
+        state = w[:, t, :, :, None] * state + kv
+    return y, state
+
+
+def _bound() -> ctypes.CDLL:
+    lib = _build.load("rwkv6")
+    fn = lib.rwkv6_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    return lib
+
+
+def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence of :func:`rwkv6_plain`.  CUDA tensors launch the
+    kernel of ``csrc/rwkv6.cu`` (and count the launch in
+    ``rwkv6.launches``); CPU tensors take the plain version.  ``state``
+    (B, H, hd, hd), f32, is the initial state (zeros when None); when given,
+    the final state is written back into it and it is returned as the
+    final state.  The kernel takes f32 r, k, v, w (B, S, H, hd) and u
+    (H, hd), contiguous, with hd in :data:`HEAD_DIMS`; anything else
+    raises."""
+    if r.device.type == "cpu":
+        y, final = rwkv6_plain(r, k, v, w, u, S0=state)
+        if state is None:
+            return y, final
+        state.copy_(final)
+        return y, state
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6 runs on cuda or cpu, not {r.device}")
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6: r must be (B, S, H, hd), got "
+                         f"{tuple(r.shape)}")
+    B, S, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6: head width {hd} not in {HEAD_DIMS}")
+    if not (0 < B <= 65535 and S > 0 and H > 0):
+        raise ValueError(f"rwkv6: unsupported shape {tuple(r.shape)}")
+    dev, f32 = r.device, torch.float32
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _require(t, name, f32, (B, S, H, hd), dev)
+    _require(u, "u", f32, (H, hd), dev)
+    if state is None:
+        final = torch.empty((B, H, hd, hd), dtype=f32, device=dev)
+    else:
+        _require(state, "state", f32, (B, H, hd, hd), dev)
+        final = state
+    y = torch.empty((B, S, H, hd), dtype=f32, device=dev)
+    lib = _bound()
+    with torch.cuda.device(dev):
+        err = lib.rwkv6_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state is None else state.data_ptr(),
+            y.data_ptr(), final.data_ptr(), B, S, H, hd,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "rwkv6", err)
+    rwkv6.launches += 1
+    return y, final
+
+
+rwkv6.launches = 0

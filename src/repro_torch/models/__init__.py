@@ -1,5 +1,11 @@
-# Counterpart of repro.models for the dense and encoder-decoder families:
-# config is a verbatim copy (data only); layers, transformer and model are
-# torch.  MoE, MLA, the SSM mixers and the VLM front end raise
+# Counterpart of repro.models for the dense, encoder-decoder, SSM and
+# hybrid families: config is a verbatim copy (data only); layers, ssm,
+# transformer and model are torch.  MoE, MLA and the VLM front end raise
 # NotImplementedError naming the ROADMAP item that ports them.
-from repro_torch.models import config, layers, model, transformer  # noqa: F401
+from repro_torch.models import (  # noqa: F401
+    config,
+    layers,
+    model,
+    ssm,
+    transformer,
+)

@@ -1,7 +1,8 @@
 """Top-level language model: embedding → layer stack → norm → head.
 
-Counterpart of ``repro.models.model`` for the dense and audio
-(encoder-decoder) families:
+Counterpart of ``repro.models.model`` for the dense, audio
+(encoder-decoder), SSM (RWKV-6) and hybrid (Mamba + attention, dense FFNs)
+families:
 
 * ``init_lm``            — an :class:`LM` with seeded random weights
 * ``from_reference``     — an :class:`LM` holding the JAX package's weights
@@ -9,14 +10,16 @@ Counterpart of ``repro.models.model`` for the dense and audio
   cross-entropy), forward only
 * ``prefill``            — tokens → (last-position logits, filled caches)
 * ``decode_step``        — one token with caches (serve_step's core)
-* ``make_caches``        — per-layer decode state for (cfg, batch, cache_len)
+* ``make_caches``        — per-layer decode state for (cfg, batch,
+  cache_len): attention keys and values, the SSM mixers' states
 
 Audio (whisper): precomputed frame embeddings feed a bidirectional encoder;
 the decoder cross-attends (the frontend is stubbed, as in the JAX package).
-The VLM family's patch splice, activation checkpointing and MLA's absorbed
-decode raise ``NotImplementedError`` naming their ROADMAP item.  The model
-runs forward only: its parameters hold no gradients, and training waits
-for the training part of ROADMAP Queue 1 item 14.
+The VLM family's patch splice, MoE and MLA layers, activation checkpointing
+and MLA's absorbed decode raise ``NotImplementedError`` naming their
+ROADMAP item.  The model runs forward only: its parameters hold no
+gradients, and training waits for the training part of ROADMAP Queue 1
+item 14.
 """
 
 from __future__ import annotations
@@ -161,7 +164,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
     """An :class:`LM` holding the JAX package's ``init_lm`` weights, given as
-    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
+    every leaf carried across (the SSM mixers' ``mu_*``, ``w0``, ``wA``,
+    ``wB``, ``u``, ``ln_scale``, ``conv_*``, ``x_proj``, ``dt_*``,
+    ``A_log`` and ``D`` as the attention weights).
     The JAX stacks (``blocks`` / ``enc_blocks``, ``pos{j}`` leaves with a
     leading ``n_periods`` axis) are unstacked into one entry per layer,
     period ``i``'s position ``j`` at ``i * len(period) + j``."""

@@ -11,9 +11,11 @@ mesh axes between layers (``constrain_batch_dim``, the identity without a
 mesh); sharding waits for ROADMAP Queue 1 item 11, so nothing stands in
 for it here.
 
-Only attention mixers and the SwiGLU / GELU FFNs are ported; MLA, Mamba,
-RWKV and MoE layers raise ``NotImplementedError`` naming the part of
-ROADMAP Queue 1 item 14 that ports them.
+Attention, Mamba and RWKV-6 mixers and the SwiGLU, GELU and RWKV
+channel-mix FFNs are ported (the SSM states are caches like the attention
+keys and values, written in place); MLA and MoE layers raise
+``NotImplementedError`` naming the part of ROADMAP Queue 1 item 14 that
+ports them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_attention,
@@ -35,11 +38,10 @@ Params = Dict[str, Any]
 
 _WAITS = {
     "mla": "the MLA part of ROADMAP Queue 1 item 14",
-    "mamba": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
-    "rwkv": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
-    "rwkv_cmix": "the SSM slice of ROADMAP Queue 1 item 14 (models/ssm.py)",
     "moe": "the MoE part of ROADMAP Queue 1 item 14 (models/moe.py)",
 }
+_MIXERS = ("attn", "mamba", "rwkv")
+_FFNS = ("mlp", "gelu_mlp", "rwkv_cmix")
 
 
 def check_ported(cfg: ModelConfig, period=None) -> None:
@@ -51,7 +53,7 @@ def check_ported(cfg: ModelConfig, period=None) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: {kind!r} layers are not ported yet; they "
                     f"wait for {_WAITS[kind]}")
-        if mixer != "attn" or ffn not in ("mlp", "gelu_mlp"):
+        if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer ({mixer}, {ffn})")
 
 
@@ -64,9 +66,17 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
     check_ported(cfg, ((mixer, ffn),))
     d = cfg.d_model
     ones = lambda: torch.ones((d,), dtype=dtype, device=gen.device)  # noqa: E731
-    p: Params = {"mixer_norm": ones(), "ffn_norm": ones(),
-                 "mixer": init_attention(gen, cfg, dtype),
-                 "ffn": init_mlp(gen, d, cfg.d_ff, ffn, dtype)}
+    p: Params = {"mixer_norm": ones(), "ffn_norm": ones()}
+    if mixer == "attn":
+        p["mixer"] = init_attention(gen, cfg, dtype)
+    elif mixer == "mamba":
+        p["mixer"] = ssm.init_mamba(gen, cfg, dtype)
+    else:
+        p["mixer"] = ssm.init_rwkv_tmix(gen, cfg, dtype)
+    if ffn == "rwkv_cmix":
+        p["ffn"] = ssm.init_rwkv_cmix(gen, cfg, dtype)
+    else:
+        p["ffn"] = init_mlp(gen, d, cfg.d_ff, ffn, dtype)
     if with_cross:
         p["cross"] = init_attention(gen, cfg, dtype)
         p["cross_norm"] = ones()
@@ -76,11 +86,25 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
 def layer_cache_init(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
                      cache_len: int, dtype, with_cross: bool = False,
                      enc_len: int = 0, device=None) -> Params:
-    """Decode-time state for one layer (zeros, written in place later)."""
+    """Decode-time state for one layer (zeros, written in place later):
+    keys and values for attention, ``conv`` / ``h`` for Mamba,
+    ``tmix_shift`` / ``tmix_wkv`` for the RWKV time mix and ``cmix_shift``
+    for its channel mix; the recurrent states ``h`` and ``tmix_wkv`` in
+    f32, the rest in ``dtype``."""
     check_ported(cfg, ((mixer, ffn),))
-    shape = (batch, cache_len, cfg.n_kv, cfg.hd)
-    c: Params = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    c: Params = {}
+    if mixer == "attn":
+        shape = (batch, cache_len, cfg.n_kv, cfg.hd)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    elif mixer == "mamba":
+        c.update(ssm.mamba_state_init(cfg, batch, dtype, device))
+    else:
+        c.update({"tmix_" + k: v for k, v in ssm.rwkv_tmix_state_init(
+            cfg, batch, dtype, device).items()})
+    if ffn == "rwkv_cmix":
+        c["cmix_shift"] = ssm.rwkv_cmix_state_init(cfg, batch, dtype,
+                                                   device)["shift"]
     if with_cross:
         cross = (batch, enc_len, cfg.n_kv, cfg.hd)
         c["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
@@ -108,9 +132,18 @@ def apply_layer(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
-    h, _ = apply_attention(p["mixer"], cfg, h, positions, causal=causal,
-                           window=window, cache=cache,
-                           cache_index=cache_index, block_q=block_q)
+    if mixer == "attn":
+        h, _ = apply_attention(p["mixer"], cfg, h, positions, causal=causal,
+                               window=window, cache=cache,
+                               cache_index=cache_index, block_q=block_q)
+    elif mixer == "mamba":
+        st = None if cache is None else {"conv": cache["conv"],
+                                         "h": cache["h"]}
+        h, _ = ssm.apply_mamba(p["mixer"], cfg, h, st)
+    else:
+        st = None if cache is None else {"shift": cache["tmix_shift"],
+                                         "wkv": cache["tmix_wkv"]}
+        h, _ = ssm.apply_rwkv_tmix(p["mixer"], cfg, h, st)
     x = x + h
 
     if "cross" in p:
@@ -132,7 +165,12 @@ def apply_layer(
         x = x + h
 
     h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    x = x + apply_mlp(p["ffn"], h, ffn)
+    if ffn == "rwkv_cmix":
+        st = None if cache is None else {"shift": cache["cmix_shift"]}
+        h, _ = ssm.apply_rwkv_cmix(p["ffn"], cfg, h, st)
+    else:
+        h = apply_mlp(p["ffn"], h, ffn)
+    x = x + h
     return x, cache, aux
 
 

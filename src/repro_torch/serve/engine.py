@@ -50,10 +50,11 @@ class TokenServingEngine:
 
     Runs on ``device`` (the card unless ``device="cpu"``).  The weights are
     cast to ``sc.dtype`` and moved there once, at construction; the caches
-    are preallocated per layer and written in place by every prefill and
-    decode step (the JAX package's engine returns new arrays and donates
-    the old).  ``generate`` keeps the decoded tokens on the device and reads
-    them back once, at the end.
+    (attention keys and values, the SSM mixers' states) are preallocated
+    per layer and written in place by every prefill and decode step (the
+    JAX package's engine returns new arrays and donates the old).
+    ``generate`` keeps the decoded tokens on the device and reads them
+    back once, at the end.
     """
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,

@@ -206,7 +206,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels.pegasos, repro_torch.kernels.support_margin, "
         "repro_torch.engine.oneway, repro_torch.core.prng, "
         "repro_torch.core.sampling, repro_torch.core.protocols.baselines, "
-        "repro_torch.kernels.flash_attention, repro_torch.models, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.mamba, "
+        "repro_torch.kernels.rwkv6, repro_torch.models.ssm, "
+        "repro_torch.models, "
         "repro_torch.models.config, repro_torch.models.layers, "
         "repro_torch.models.transformer, repro_torch.models.model, "
         "repro_torch.configs, repro_torch.data.pipeline, "

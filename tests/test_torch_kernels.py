@@ -327,7 +327,9 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
                                   "pegasos_stage": 0,
                                   "threshold_ranges": 0,
                                   "uncertain_mask": 0,
-                                  "attention": 0}
+                                  "attention": 0,
+                                  "rwkv6": 0,
+                                  "mamba_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -359,13 +361,14 @@ def test_build_targets_hopper_without_fma():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["flash_attention.cu", "maxmarg_turn.cu",
-                       "median_cut.cu", "median_extremes.cu",
-                       "pegasos_stage.cu", "threshold_ranges.cu",
+    assert sources == ["flash_attention.cu", "mamba_scan.cu",
+                       "maxmarg_turn.cu", "median_cut.cu",
+                       "median_extremes.cu", "pegasos_stage.cu",
+                       "rwkv6.cu", "threshold_ranges.cu",
                        "uncertain_mask.cu"]
     for name in sources:
         text = (_build.CSRC / name).read_text()
         assert "__fmul_rn" in text and "__fadd_rn" in text
     paths = [_build.library_path(p[:-3]) for p in sources]
     assert len({p.parent for p in paths}) == 1
-    assert len(set(paths)) == 7 and all(p.suffix == ".so" for p in paths)
+    assert len(set(paths)) == 9 and all(p.suffix == ".so" for p in paths)

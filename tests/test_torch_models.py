@@ -1,6 +1,8 @@
 """The port's token-model stack (``repro_torch.models``, ``configs``,
 ``data``, ``serve``) against the JAX package's, on the CPU, at the reduced
-variants (two periods, d_model 256, vocab 1024).
+variants (two periods, d_model 256, vocab 1024; Jamba without experts one
+period of 8 layers), the SSM families (rwkv6-7b, Jamba's Mamba layers)
+included.
 
 Tolerances: configs and ``synthetic_stream`` exact; norms, RoPE and MLPs
 rtol 1e-5 / atol 1e-6 of the output's scale in f32 (sums over d_model
@@ -9,8 +11,9 @@ both backends (port ``"plain"`` against JAX ``"xla"``, port ``"kernel"``
 against JAX ``"pallas"`` in interpret mode) and 2e-2 in bf16; prefill and
 decode logits atol 1e-4; greedy tokens equal, except where JAX's top two
 logits at that step lie within 1e-4 of each other.  JAX's weights are
-carried across with ``from_reference``, with norms and biases drawn away
-from their 1 / 0 initial values so that they count.
+carried across with ``from_reference``, with norms, biases and the SSM
+mixers' constant leaves drawn away from their initial values so that they
+count.
 """
 
 import dataclasses
@@ -31,35 +34,56 @@ from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
 from repro.serve import engine as jserve  # noqa: E402
 
-from repro_torch import configs as TC  # noqa: E402
+from chip_smoke import jamba_dense  # noqa: E402
+from repro_torch import configs as TC, kernels  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import layers as L, model as M  # noqa: E402
 from repro_torch.serve import ServeConfig, TokenServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ["smollm-135m", "qwen2.5-14b", "whisper-medium"]
-UNPORTED = ["deepseek-v2-236b", "rwkv6-7b", "jamba-1.5-large-398b",
-            "qwen2-vl-2b", "grok-1-314b"]
+# Jamba without experts: the published config cut to one period with every
+# FFN a dense SwiGLU (chip_smoke.py's path D), here at its reduced variant
+JAMBA_DENSE = "jamba-1.5-large-398b/dense"
+PORTED = ["smollm-135m", "qwen2.5-14b", "whisper-medium", "rwkv6-7b",
+          JAMBA_DENSE]
+UNPORTED = ["deepseek-v2-236b", "jamba-1.5-large-398b", "qwen2-vl-2b",
+            "grok-1-314b"]
 _MODELS = {}
 
 
 def _perturb(tree, rng, path=""):
     """Norm scales 1 + N(0, 0.1) and biases N(0, 0.1) in place of the
-    initial ones and zeros."""
+    initial ones and zeros; the SSM mixers' other constant leaves drawn
+    away from their constants too (token-shift mixes U(0, 1), the rest
+    plus N(0, 0.1), w0 plus N(0, 0.5)), so that a swapped ``mu_r`` and
+    ``mu_k`` would not pass."""
     if isinstance(tree, dict):
         return {k: _perturb(v, rng, k) for k, v in tree.items()}
-    if path.endswith("norm"):
+    if path.endswith("norm") or path == "ln_scale":
         return (1 + rng.normal(0, 0.1, tree.shape)).astype(tree.dtype)
-    if path in ("bq", "bk", "bv"):
+    if path in ("bq", "bk", "bv", "conv_b"):
         return rng.normal(0, 0.1, tree.shape).astype(tree.dtype)
+    if path.startswith("mu_"):
+        return rng.uniform(0, 1, tree.shape).astype(tree.dtype)
+    if path in ("w0", "dt_bias", "D", "A_log"):
+        scale = 0.5 if path == "w0" else 0.1
+        return (tree + rng.normal(0, scale, tree.shape)).astype(tree.dtype)
     return tree
+
+
+def _configs(arch):
+    """The port's and JAX's reduced configs of ``arch``."""
+    if arch == JAMBA_DENSE:
+        return tuple(jamba_dense(pkg.get_config("jamba-1.5-large-398b"))
+                     .reduced() for pkg in (TC, JC))
+    return TC.get_config(arch).reduced(), JC.get_config(arch).reduced()
 
 
 def _models(arch):
     """(cfg, jcfg, JAX params, numpy params, port LM), built once per arch."""
     if arch not in _MODELS:
-        cfg, jcfg = TC.get_config(arch).reduced(), JC.get_config(arch).reduced()
+        cfg, jcfg = _configs(arch)
         npp = _perturb(jax.tree.map(
             np.asarray, JM.init_lm(jax.random.PRNGKey(0), jcfg)),
             np.random.default_rng(1))
@@ -194,6 +218,19 @@ def test_forward_train_bf16_matches():
     np.testing.assert_allclose(float(tl), float(jl), rtol=2e-2)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", JAMBA_DENSE])
+def test_ssm_forward_train_bf16_matches(arch):
+    """bf16 at smollm's tier.  JAX's Mamba step rounds Δ·x·B in bf16
+    before its f32 scan, the port (as the TPU kernel) converts first."""
+    cfg, jcfg, jp, _, lm = _models(arch)
+    batch = _batch(cfg, seed=1)
+    jl, _ = JM.forward_train(jp, jcfg, _jnp(batch), dtype=jnp.bfloat16)
+    tl, _ = M.forward_train(lm, cfg, batch, dtype=torch.bfloat16)
+    print(f"{arch} bf16: loss jax {float(jl)!r} port {float(tl)!r}, "
+          f"relative {abs(float(tl) - float(jl)) / abs(float(jl))!r}")
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-2)
+
+
 def _prompt(cfg, batch, S):
     out = {"tokens": batch["tokens"][:, :S]}
     if cfg.enc_dec:
@@ -315,7 +352,9 @@ def test_kernel_backend_routes_the_jax_calls(monkeypatch, impls):
     for impl in ("plain", "kernel"):
         impls("xla", impl)
         for arch, (fwd, pre, dec) in (("smollm-135m", (2, 0, 0)),
-                                      ("whisper-medium", (6, 4, 2))):
+                                      ("whisper-medium", (6, 4, 2)),
+                                      ("rwkv6-7b", (0, 0, 0)),
+                                      (JAMBA_DENSE, (1, 0, 0))):
             cfg, _, _, _, lm = _models(arch)
             batch = _batch(cfg)
             Se = batch["audio_embed"].shape[1] if cfg.enc_dec else 0
@@ -335,6 +374,48 @@ def test_kernel_backend_routes_the_jax_calls(monkeypatch, impls):
             counts.append(len(calls) // 3)
             want = [fwd, pre, dec] if impl == "kernel" else [0, 0, 0]
             assert counts == want, (arch, impl, counts)
+
+
+def test_ssm_kernels_run_every_recurrence(monkeypatch):
+    """``kernels.rwkv6`` is called once per RWKV layer and ``kernels.
+    mamba_scan`` once per Mamba layer, at scoring, at prefill and at every
+    decoded token (the scan has no other path), on contiguous tensors."""
+    calls = {"rwkv6": 0, "mamba_scan": 0}
+    for name in calls:
+        real = getattr(kernels, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            # the kernel takes contiguous tensors only
+            assert all(t.is_contiguous() for t in a), _name
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(kernels, name, counted)
+    for arch, name, layers_per_pass in (("rwkv6-7b", "rwkv6", 2),
+                                        (JAMBA_DENSE, "mamba_scan", 7)):
+        cfg, _, _, _, lm = _models(arch)
+        batch = _batch(cfg)
+        eng = TokenServingEngine(
+            cfg, lm, ServeConfig(batch=2, cache_len=24, dtype=torch.float32),
+            device="cpu")
+        counts = []
+        for run in (lambda: M.forward_train(lm, cfg, batch,
+                                            dtype=torch.float32),
+                    lambda: eng.prefill_prompt(_prompt(cfg, batch, 8)),
+                    lambda: eng.generate(np.zeros(2, np.int32), 3)):
+            calls.update(rwkv6=0, mamba_scan=0)
+            run()
+            counts.append(dict(calls))
+        other = "mamba_scan" if name == "rwkv6" else "rwkv6"
+        assert [c[name] for c in counts] == [layers_per_pass,
+                                             layers_per_pass,
+                                             3 * layers_per_pass], arch
+        assert all(c[other] == 0 for c in counts), arch
+
+
+def test_jamba_with_experts_still_raises_naming_moe():
+    cfg = TC.get_config("jamba-1.5-large-398b").reduced()
+    with pytest.raises(NotImplementedError, match="'moe' layers"):
+        M.init_lm(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", UNPORTED)
