@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; none is caught):
    shape, t0=1024), the stage at d=16, both at the widest tail turn, and
    crafted inputs (duplicate rows, a row exactly on the band edge, a node
    without valid rows, an all-padding instance, instances that enter
-   latched); each kernel timed beside its plain version;
+   latched; the stage also at d=40, its wide path); each kernel timed
+   beside its plain version, the stage also at d=16;
 3. the MEDIAN sweep through ``repro_torch.engine.run_sweep`` on the card,
    with every kernel's launch count set to 0 before it and read after;
 4. MEDIAN card against CPU on a 48-instance subset with noisy tail
@@ -51,25 +52,33 @@ Phases (any failure exits non-zero; none is caught):
    exact, the terminal fit set of RANDOM bit for bit, separators to the
    cosine tier (the card runs the solver's kernel path, the CPU its classic
    loop, as in the JAX package);
-11. the flash-attention kernel against its plain version at the token
-   paths' shapes (smollm-135m scoring in bf16 and f32, whisper-medium's
-   encoder and its cross-attention at prefill and decode, qwen2.5-14b's
-   heads) and on crafted cases (windows of 128 and wider than the
-   sequence, kv_valid under one tile, MQA, ragged Sq and Skv, hd 32 and
-   256): f32 to atol 1e-5, bf16 to rtol = atol = 2e-2 in f32; timed at the
-   scoring shape beside its plain version and
-   ``scaled_dot_product_attention`` (the library figure);
+11. the flash-attention kernels against their plain version, each call
+   through the route ``attention_route`` names (checked by the per-route
+   count): ``tc`` at smollm-135m's scoring shape, whisper-medium's encoder,
+   qwen2.5-14b's heads and the crafted cases in bf16 (window 128, kv_valid
+   under one tile, MQA, ragged Sq 100 against Skv 1500, kv_valid 0);
+   ``splitkv`` at Sq 1 and 4 in f32 and bf16 (whisper's cross-attention,
+   GQA G 8 with kv_valid, Skv 1500 and 1, hd 32 and 256, a window);
+   ``simt`` at the scoring shape and the crafted cases in f32 and bf16 at
+   hd 32 and 256: f32 to atol 1e-5, bf16 to rtol = atol = 2e-2 in f32;
+   each route timed beside its plain version and
+   ``scaled_dot_product_attention`` (the library figure), also as device
+   time (CUDA-graph replay): ``tc`` and ``simt`` at the scoring shape,
+   ``splitkv`` at whisper's decode-time cross-attention;
 12. path A, smollm-135m at full width under the kernel backend:
    ``forward_train`` over a ``synthetic_stream`` batch (B=8, S=2048, bf16),
-   exactly 30 kernel launches, the loss within 2e-2 of the plain pass,
-   tokens/s and the kernel's share; then its ``TokenServingEngine`` (B=8,
-   prompt 512, cache 1024, 64 greedy tokens), where no kernel runs;
+   exactly 30 kernel launches, all ``tc``, the loss within 2e-2 of the
+   plain pass, tokens/s and the kernel's share; then its
+   ``TokenServingEngine`` (B=8, prompt 512, cache 1024, 64 greedy tokens),
+   where no kernel runs;
 13. path B, whisper-medium at full width served (B=8, 1500 encoder frames,
    prompt 4, cache 448, 64 greedy tokens, bf16): exactly 48 + 24 x 64
-   launches, prefill ms and ms per token, beside the plain backend; then
-   card against CPU in f32 with the same weights (smollm-135m B=1 S=128:
-   loss to 1e-5 and 8 greedy tokens; whisper-medium with 256 frames: 8
-   tokens), tokens equal unless the CPU's top two logits lie within 1e-4;
+   launches (24 ``tc`` for the encoder, 24 + 24 x 64 ``splitkv``), prefill
+   ms and ms per token, beside the plain backend; then card against CPU
+   in f32 with the same weights (smollm-135m B=1 S=128: loss to 1e-5 and 8
+   greedy tokens; whisper-medium with 256 frames: 8 tokens), tokens equal
+   unless the CPU's top two logits lie within 1e-4, its launches counted
+   (54 ``simt``, 216 ``splitkv``);
 14. the SSM kernels (the WKV recurrence, the selective scan) against their
    plain versions, y and the final state to max |diff| <= 1e-5 ×
    max(1, max |plain|) in f32 (1e-2 for bf16 y): at rwkv6-7b's and Jamba's
@@ -77,7 +86,8 @@ Phases (any failure exits non-zero; none is caught):
    state, written in place), S 100, S 1 at B 1, hd 32, di 1000 (ragged
    against the block) and the decay extremes 0.02 and 0.999; the
    flash-attention kernel at Jamba's scoring shape (H 64, KV 8, hd 128,
-   bf16, causal); each scan timed at its path's shape and at decode beside
+   bf16, causal; ``tc``), held and timed; each scan timed at its path's
+   shape and at decode beside
    its plain version and its bound (bytes, or operations with the scan's
    exponentials split between the special-function units and FMA-pipe
    polynomials);
@@ -87,11 +97,11 @@ Phases (any failure exits non-zero; none is caught):
    greedy tokens), exactly 32 + 32 × 64 launches;
 16. path D, Jamba without experts (``jamba_dense``) in bf16: scoring under
    the kernel backend (exactly 7 scan and 1 attention launches, the
-   scans' share) and serving (exactly 7 + 7 × 64 scan launches, no
-   attention launch: the attention layer has a cache); then card against
-   CPU in f32 with the same weights at full width cut to two layers
-   (rwkv6-7b; Jamba's ``(mamba, mlp), (attn, mlp)``), B=1, prompt 32:
-   loss to 1e-5 and 8 greedy tokens under phase 13's tie rule.
+   attention ``tc``, the scans' share) and serving (exactly 7 + 7 × 64
+   scan launches, no attention launch: the attention layer has a cache);
+   then card against CPU in f32 with the same weights at full width cut to
+   two layers (rwkv6-7b; Jamba's ``(mamba, mlp), (attn, mlp)``), B=1,
+   prompt 32: loss to 1e-5 and 8 greedy tokens under phase 13's tie rule.
 
 MEDIAN smoke config: the shape of the JAX package's engine benchmark grid
 (``benchmarks/engine_sweep.py``: data1/2/3 × ε ∈ {0.2, 0.1, 0.05, 0.025},
@@ -291,16 +301,17 @@ def crafted_turn_inputs(device, seed=0):
     return t(w), t(b), t(K), t(yK), t(X), t(y)
 
 
-def crafted_pegasos_inputs(device, seed=0):
+def crafted_pegasos_inputs(device, seed=0, d=3):
     """Pegasos-stage inputs with the edge cases of the latch, as ``(X, y,
     nv, w, b, lam, found, w_best, b_best)``: a separable instance with a
     margin, one that enters latched, one of padding only, one with
     duplicate rows, one with random labels (never separable) and one with
-    half its rows padding; N spans two rows per kernel thread."""
+    half its rows padding; N spans ten rows per lane of the kernel's warp.
+    ``d`` above 16 takes the kernel's wide path."""
     import torch
 
     rng = np.random.default_rng(seed)
-    B, N, d = 6, 300, 3
+    B, N = 6, 300
     X = rng.normal(size=(B, N, d)).astype(np.float32)
     w_true = rng.normal(size=(B, d)).astype(np.float32)
     proj = np.einsum("bnd,bd->bn", X, w_true)
@@ -478,6 +489,36 @@ def _median_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _graph_ms(fn, n=50, reps=5):
+    """Device time of one call of ``fn``: ``n`` calls captured in a CUDA
+    graph, replayed between CUDA events (median of ``reps`` replays, over
+    ``n``).  Unlike :func:`_median_ms` it leaves out the host's time to
+    launch, which a single short call cannot hide."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
     return float(np.median(times))
 
 
@@ -798,9 +839,11 @@ def main() -> int:
             hold_stage(crafted_pegasos_inputs(dev, seed),
                        f"pegasos stage, crafted {seed}", nsteps=300,
                        skip_latched=skip)
+        hold_stage(crafted_pegasos_inputs(dev, seed, d=40),
+                   f"pegasos stage, crafted {seed}, d=40", nsteps=300)
     print("kernels: MAXMARG turn scan and Pegasos stage bit for bit against "
-          "the plain versions at the full-batch turn, the polish, d=16 and "
-          "on crafted ties")
+          "the plain versions at the full-batch turn, the polish, d=16, "
+          "d=40 and on crafted ties")
 
     Bm, N1, dd = K1.shape
     kn_valid = int((dm.y != 0).sum())
@@ -1377,53 +1420,94 @@ def main() -> int:
         return tuple(torch.randn(sh, generator=gen, device=dev).to(dtype)
                      for sh in (qs, ks, ks))
 
-    errs["attention"] = 0.0
+    no_routes = dict.fromkeys(fa_module.ROUTES, 0)
+    for route in fa_module.ROUTES:
+        errs[f"attention_{route}"] = 0.0
 
     def hold_attention(what, args, **kw):
+        """The kernel against its plain version at ATTN_TOL, through the
+        route ``attention_route`` names for the call (checked by the
+        per-route count).  Returns the kernel's output."""
+        q_, k_ = args[0], args[1]
+        route = fa_module.attention_route(q_.dtype, q_.shape[-1], q_.shape[1],
+                                          k_.shape[1])
+        before = kernels.attention.routes[route]
         got = kernels.attention(*args, **kw)
+        if kernels.attention.routes[route] != before + 1:
+            raise AssertionError(f"flash attention, {what}: not launched "
+                                 f"through the {route} route")
         want = kernels.attention_plain(*args, **kw)
         rtol, atol = ATTN_TOL[str(args[0].dtype).split(".")[1]]
         diff = (got.float() - want.float()).abs()
         if not (torch.isfinite(got.float()).all()
                 and bool((diff <= atol + rtol * want.float().abs()).all())):
-            raise AssertionError(f"flash attention, {what}: kernel and plain "
-                                 f"version differ by up to "
+            raise AssertionError(f"flash attention, {what} ({route}): kernel "
+                                 f"and plain version differ by up to "
                                  f"{float(diff.max())}")
-        errs["attention"] = max(errs["attention"], float(diff.max()))
-        print(f"flash attention, {what}: max |kernel - plain| "
+        key = f"attention_{route}"
+        errs[key] = max(errs[key], float(diff.max()))
+        print(f"flash attention, {what} ({route}): max |kernel - plain| "
               f"{float(diff.max())!r}")
         return got
 
     S_sc, B_sc = SCORING["S"], SCORING["B"]
     scoring = ((B_sc, S_sc, 9, 64), (B_sc, S_sc, 3, 64))
     encoder = ((8, 1500, 16, 64), (8, 1500, 16, 64))
-    for what, shapes, dtype, kw in [
-            ("smollm-135m scoring, bf16", scoring, bf16, dict(causal=True)),
-            ("smollm-135m scoring, f32", scoring, f32, dict(causal=True)),
-            ("whisper-medium encoder, bf16", encoder, bf16,
-             dict(causal=False)),
-            ("whisper-medium cross-attention at prefill, bf16",
-             ((8, 4, 16, 64), encoder[1]), bf16, dict(causal=False)),
-            ("whisper-medium cross-attention at decode, bf16",
-             ((8, 1, 16, 64), encoder[1]), bf16, dict(causal=False)),
-            ("qwen2.5-14b heads (H 40, KV 8, hd 128), bf16",
-             ((2, 1024, 40, 128), (2, 1024, 8, 128)), bf16,
-             dict(causal=True)),
-            ("window 128, f32", ((2, 1024, 9, 64), (2, 1024, 3, 64)), f32,
-             dict(causal=True, window=128)),
-            ("kv_valid 40 (less than a tile), f32",
-             ((2, 100, 4, 64), (2, 300, 4, 64)), f32,
-             dict(causal=False, kv_valid=40)),
-            ("MQA, f32", ((2, 512, 8, 64), (2, 512, 1, 64)), f32,
-             dict(causal=True)),
-            ("ragged Sq 100 against Skv 1500, f32",
-             ((3, 100, 16, 64), (3, 1500, 16, 64)), f32, dict(causal=False)),
-            ("ragged causal S 1000, hd 32, bf16",
-             ((2, 1000, 6, 32), (2, 1000, 3, 32)), bf16, dict(causal=True)),
-            ("hd 256, Sq 300 against Skv 333, f32",
-             ((1, 300, 4, 256), (1, 333, 2, 256)), f32, dict(causal=True)),
-            ("window 16, hd 32, f32", ((2, 200, 4, 32), (2, 200, 4, 32)),
-             f32, dict(causal=True, window=16))]:
+    decode = ((8, 1, 16, 64), encoder[1])
+    crafted = [   # (what, shapes, kwargs), held in bf16 (tc) and f32 (simt)
+        ("window 128", ((2, 1024, 9, 64), (2, 1024, 3, 64)),
+         dict(causal=True, window=128)),
+        ("kv_valid 40 (less than a tile)", ((2, 100, 4, 64), (2, 300, 4, 64)),
+         dict(causal=False, kv_valid=40)),
+        ("MQA", ((2, 512, 8, 64), (2, 512, 1, 64)), dict(causal=True)),
+        ("ragged Sq 100 against Skv 1500",
+         ((3, 100, 16, 64), (3, 1500, 16, 64)), dict(causal=False))]
+    cases = [
+        # tc: bf16, hd 64 and 128, more than 16 query rows
+        ("smollm-135m scoring, bf16", scoring, bf16, dict(causal=True)),
+        ("whisper-medium encoder, bf16", encoder, bf16, dict(causal=False)),
+        ("qwen2.5-14b heads (H 40, KV 8, hd 128), bf16",
+         ((2, 1024, 40, 128), (2, 1024, 8, 128)), bf16, dict(causal=True)),
+        *[(f"{w}, bf16", sh, bf16, kw) for w, sh, kw in crafted],
+        ("kv_valid 0, hd 128, bf16", ((1, 70, 2, 128), (1, 90, 1, 128)),
+         bf16, dict(causal=False, kv_valid=0)),
+        # splitkv: at most 16 query rows, any dtype and width
+        ("whisper-medium cross-attention at decode, bf16", decode, bf16,
+         dict(causal=False)),
+        ("whisper-medium cross-attention at prefill, bf16",
+         ((8, 4, 16, 64), encoder[1]), bf16, dict(causal=False)),
+        ("whisper-medium cross-attention at decode, f32", decode, f32,
+         dict(causal=False)),
+        ("whisper-medium cross-attention at prefill, f32",
+         ((8, 4, 16, 64), encoder[1]), f32, dict(causal=False)),
+        ("Sq 4, GQA G 8, kv_valid 700, hd 128, f32",
+         ((2, 4, 64, 128), (2, 1500, 8, 128)), f32,
+         dict(causal=False, kv_valid=700)),
+        ("Sq 1, GQA G 8, kv_valid 700, hd 128, bf16",
+         ((2, 1, 64, 128), (2, 1500, 8, 128)), bf16,
+         dict(causal=False, kv_valid=700)),
+        ("Sq 16, GQA G 8, causal, hd 128, bf16",
+         ((2, 16, 64, 128), (2, 1500, 8, 128)), bf16, dict(causal=True)),
+        ("Sq 1 against Skv 1, f32", ((2, 1, 8, 64), (2, 1, 1, 64)), f32,
+         dict(causal=False)),
+        ("Sq 4 against Skv 1, bf16", ((2, 4, 8, 64), (2, 1, 1, 64)), bf16,
+         dict(causal=False)),
+        ("Sq 9, window 4, hd 32, f32", ((2, 9, 6, 32), (2, 300, 3, 32)), f32,
+         dict(causal=True, window=4)),
+        ("Sq 3, hd 256, f32", ((1, 3, 4, 256), (1, 333, 2, 256)), f32,
+         dict(causal=False)),
+        # simt: f32 above 16 rows, bf16 at hd 32 and 256
+        ("smollm-135m scoring, f32", scoring, f32, dict(causal=True)),
+        *[(f"{w}, f32", sh, f32, kw) for w, sh, kw in crafted],
+        ("ragged causal S 1000, hd 32, bf16",
+         ((2, 1000, 6, 32), (2, 1000, 3, 32)), bf16, dict(causal=True)),
+        ("hd 256, Sq 300 against Skv 333, bf16",
+         ((1, 300, 4, 256), (1, 333, 2, 256)), bf16, dict(causal=True)),
+        ("hd 256, Sq 300 against Skv 333, f32",
+         ((1, 300, 4, 256), (1, 333, 2, 256)), f32, dict(causal=True)),
+        ("window 16, hd 32, f32", ((2, 200, 4, 32), (2, 200, 4, 32)), f32,
+         dict(causal=True, window=16))]
+    for what, shapes, dtype, kw in cases:
         hold_attention(what, qkv(shapes, dtype), **kw)
     # a window wider than the sequence is no window: the same function
     args = qkv(scoring, bf16)
@@ -1439,38 +1523,51 @@ def main() -> int:
     print(f"library check: scaled_dot_product_attention against the plain "
           f"version, max |diff| "
           f"{float((sdpa.float() - wide.float()).abs().max())!r}")
-    score_bytes, score_ops = _attention_work(aq, ak, av, causal=True)
-    attn_rows = [dict(
-        name="flash_attention", wrapper="attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:81",
-        fn=lambda: kernels.attention(aq, ak, av, causal=True),
-        plain=lambda: kernels.attention_plain(aq, ak, av, causal=True),
-        library=lambda: F.scaled_dot_product_attention(
-            aq.transpose(1, 2), ak.transpose(1, 2), av.transpose(1, 2),
-            is_causal=True, enable_gqa=True),
-        bytes=score_bytes, ops=score_ops, peak=PEAK_BF16, reps=(20, 20),
-        shape=f"smollm-135m scoring q {tuple(aq.shape)} kv "
-              f"{tuple(ak.shape)} causal bf16")]
-    _time_row(attn_rows[0])
-    # the same shape in f32, and the decode-time cross-attention (bf16)
-    for what, (qq, kk, vv), causal, peak in [
-            ("f32 scoring", qkv(scoring, f32), True, PEAK_F32),
-            ("whisper cross-attention at decode",
-             qkv(((8, 1, 16, 64), encoder[1]), bf16), False, PEAK_BF16)]:
+
+    def attention_row(route, what, qkv_, causal, peak):
+        """A kernel-table row of one attention route at one shape, beside
+        ``scaled_dot_product_attention`` on the same inputs."""
+        qq, kk, vv = qkv_
+        if fa_module.attention_route(qq.dtype, qq.shape[-1], qq.shape[1],
+                                     kk.shape[1]) != route:
+            raise AssertionError(f"{what} does not take the {route} route")
         nb, ops = _attention_work(qq, kk, vv, causal)
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
-        print(f"time attention, {what} q {tuple(qq.shape)} kv "
-              f"{tuple(kk.shape)}: kernel "
-              f"{_median_ms(lambda: kernels.attention(qq, kk, vv, causal=causal), 20):.4f} ms, "
-              f"plain "
-              f"{_median_ms(lambda: kernels.attention_plain(qq, kk, vv, causal=causal), 3):.4f} ms, "
-              f"library {_median_ms(lib, 20):.4f} ms, bound "
-              f"{max(nb / PEAK_BYTES, ops / peak) * 1e3:.4g} ms "
-              f"({nb} bytes, {ops} ops)")
-    del args, aq, ak, av, wide, sdpa, qq, kk, vv
+        return dict(
+            name=f"flash_attention_{route}", route="cuda",
+            attention_route=route,
+            source=f"src/repro_torch/kernels/csrc/"
+                   f"{fa_module._STEM[route]}.cu",
+            replaces="src/repro/kernels/flash_attention.py:81",
+            fn=lambda: kernels.attention(qq, kk, vv, causal=causal),
+            plain=lambda: kernels.attention_plain(qq, kk, vv, causal=causal),
+            library=lambda: F.scaled_dot_product_attention(
+                qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                is_causal=causal, enable_gqa=True),
+            bytes=nb, ops=ops, peak=peak, reps=(20, 3),
+            shape=f"{what} q {tuple(qq.shape)} kv {tuple(kk.shape)}"
+                  f"{' causal' if causal else ''} {str(qq.dtype)[6:]}")
+
+    def time_attention(r):
+        """_time_row, then the kernel's and the library's device times
+        (CUDA-graph replay), printed."""
+        _time_row(r)
+        r["graph_ms"] = _graph_ms(r["fn"])
+        r["library_graph_ms"] = _graph_ms(r["library"])
+        print(f"time {r['name']} at {r['shape']}, device only (CUDA graph "
+              f"of 50 calls): kernel {r['graph_ms']:.4f} ms, library "
+              f"{r['library_graph_ms']:.4f} ms")
+
+    attn_rows = [
+        attention_row("tc", "smollm-135m scoring", args, True, PEAK_BF16),
+        attention_row("splitkv", "whisper-medium cross-attention at decode",
+                      qkv(decode, bf16), False, PEAK_BF16),
+        attention_row("simt", "smollm-135m scoring", qkv(scoring, f32), True,
+                      PEAK_F32)]
+    for r in attn_rows:
+        time_attention(r)
+    for r in attn_rows:
+        del r["fn"], r["plain"], r["library"]
+    del args, aq, ak, av, wide, sdpa
 
     # -- 12. path A: smollm-135m scoring, then smollm-135m serving -----------
     scfg = get_config(SCORING["arch"])
@@ -1489,10 +1586,14 @@ def main() -> int:
     loss_k, met = lm_model.forward_train(smollm, scfg, sbatch)
     torch.cuda.synchronize()
     score_counts = kernels.launches()
+    route_counts = {"smollm_scoring": dict(kernels.attention.routes)}
     expect = dict({n: 0 for n in counts}, attention=scfg.n_layers)
-    if score_counts != expect:
-        raise AssertionError(f"smollm-135m scoring launched {score_counts}; "
-                             f"expected {scfg.n_layers} attention launches")
+    if score_counts != expect or route_counts["smollm_scoring"] != dict(
+            no_routes, tc=scfg.n_layers):
+        raise AssertionError(f"smollm-135m scoring launched {score_counts}, "
+                             f"routes {route_counts['smollm_scoring']}; "
+                             f"expected {scfg.n_layers} attention launches, "
+                             f"all tc")
     if not torch.isfinite(loss_k):
         raise AssertionError(f"smollm-135m scoring loss {loss_k}")
     walls = []
@@ -1518,6 +1619,7 @@ def main() -> int:
     # the wrapper counts its launches through its module-level name, which
     # is this shim during the pass (the counts were read above)
     timed_attention.launches = 0
+    timed_attention.routes = dict(no_routes)
     fa_module.attention = timed_attention
     try:
         torch.cuda.synchronize()
@@ -1602,13 +1704,21 @@ def main() -> int:
                       enc_len=sw["enc_len"])
     wtoks, whisper_counts, wpre_ms, wtok_ms = serve(
         wcfg, whisper, wsc, wprompt, sw["tokens"], "kernel")
+    route_counts["whisper_serving"] = dict(kernels.attention.routes)
     want_launches = (wcfg.n_enc_layers + wcfg.n_layers
                      + wcfg.n_layers * sw["tokens"])
     expect = dict({n: 0 for n in counts}, attention=want_launches)
-    if whisper_counts != expect:
+    # the encoder's self-attention on the tensor cores; the cross-attention
+    # at prefill (4 rows) and at every decoded token (1 row) split the keys
+    want_routes = dict(no_routes, tc=wcfg.n_enc_layers,
+                       splitkv=wcfg.n_layers * (1 + sw["tokens"]))
+    if (whisper_counts != expect
+            or route_counts["whisper_serving"] != want_routes):
         raise AssertionError(f"whisper-medium serving launched "
-                             f"{whisper_counts}; expected {want_launches} "
-                             f"attention launches")
+                             f"{whisper_counts}, routes "
+                             f"{route_counts['whisper_serving']}; expected "
+                             f"{want_launches} attention launches, routes "
+                             f"{want_routes}")
     # the plain pass takes query blocks that divide Sq (the JAX package's
     # "xla" backend asserts the same); one block of 1500 encoder rows
     psc = ServeConfig(batch=sw["B"], cache_len=sw["cache_len"],
@@ -1624,8 +1734,11 @@ def main() -> int:
           f"{ptok_ms:.3f} ms per token, {int((ptoks == wtoks).sum())} of "
           f"{wtoks.size} tokens the same")
 
-    # card against CPU, f32, the same weights
+    # card against CPU, f32, the same weights; counted as a path: the f32
+    # calls take the simt route (above 16 rows) and the splitkv route
     layers.set_attention_impl("kernel")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     for name, mcfg, params, dc, prompt_len in [
             ("smollm-135m", scfg, smollm, DataConfig(seq_len=128,
                                                      global_batch=1, seed=1),
@@ -1661,6 +1774,21 @@ def main() -> int:
               f"{float((lc.cpu() - lh).abs().max())!r}, 8 greedy tokens "
               f"card {got.tolist()} cpu {want.tolist()}")
         del on_cpu, card_eng, cpu_eng
+    f32_counts = kernels.launches()
+    route_counts["card_vs_cpu_f32"] = dict(kernels.attention.routes)
+    # smollm-135m: 30 scoring layers; whisper-medium: 24 encoder layers at
+    # 256 frames, then 24 cross-attention calls at prefill and at each of 8
+    # decoded tokens (the CPU engine launches nothing)
+    want_routes = dict(no_routes, simt=scfg.n_layers + wcfg.n_enc_layers,
+                       splitkv=wcfg.n_layers * (1 + 8))
+    if (route_counts["card_vs_cpu_f32"] != want_routes
+            or f32_counts != dict({n: 0 for n in counts},
+                                  attention=sum(want_routes.values()))):
+        raise AssertionError(f"card vs cpu in f32 launched {f32_counts}, "
+                             f"routes {route_counts['card_vs_cpu_f32']}; "
+                             f"expected routes {want_routes}")
+    print(f"card vs cpu, f32: attention routes "
+          f"{route_counts['card_vs_cpu_f32']}")
     layers.set_attention_impl("plain")
 
     # -- 14. the SSM kernels against their plain versions --------------------
@@ -1763,12 +1891,14 @@ def main() -> int:
             ("decay exp(ΔA) = 0.999, S 2048, carried state, f32",
              (2, 2048, 2048, f32), dict(decay=0.999, state=True))]:
         hold_ssm("mamba_scan", what, *scan_inputs(*shape, **kw))
-    # Jamba's attention layer at its scoring shape, as path D launches it
-    hold_attention(
-        f"Jamba scoring (H {jcfg.n_heads}, KV {jcfg.n_kv}, hd {jcfg.hd}), "
-        f"bf16", qkv(((JAMBA["B"], JAMBA["S"], jcfg.n_heads, jcfg.hd),
-                      (JAMBA["B"], JAMBA["S"], jcfg.n_kv, jcfg.hd)), bf16),
-        causal=True)
+    # Jamba's attention layer at its scoring shape, as path D launches it,
+    # held and timed (printed; the JSON line's tc row is smollm-135m's)
+    jamba_qkv = qkv(((JAMBA["B"], JAMBA["S"], jcfg.n_heads, jcfg.hd),
+                     (JAMBA["B"], JAMBA["S"], jcfg.n_kv, jcfg.hd)), bf16)
+    what = f"Jamba scoring (H {jcfg.n_heads}, KV {jcfg.n_kv}, hd {jcfg.hd})"
+    hold_attention(f"{what}, bf16", jamba_qkv, causal=True)
+    time_attention(attention_row("tc", what, jamba_qkv, True, PEAK_BF16))
+    del jamba_qkv
     torch.cuda.empty_cache()
     rB, rS, rH, rhd = rw_args[0].shape
     sB, sS, sdi = sc_args[0].shape
@@ -1823,19 +1953,23 @@ def main() -> int:
         del r["fn"], r["plain"]
     torch.cuda.empty_cache()
 
-    def score(name, mcfg, lm, batch, expect, wrapper):
+    def score(name, mcfg, lm, batch, expect, wrapper, routes=None):
         """Warm up, then one ``forward_train`` with the launch counts set to
-        0 just before (exactly ``expect``), five timed passes, and one with
-        CUDA events around every call of ``kernels.<wrapper>``."""
+        0 just before (exactly ``expect``, and the attention routes
+        ``routes``), five timed passes, and one with CUDA events around
+        every call of ``kernels.<wrapper>``.  Returns (launches, routes)."""
         lm_model.forward_train(lm, mcfg, batch)            # warm-up
         torch.cuda.synchronize()
         kernels.reset_launches()
         loss, met = lm_model.forward_train(lm, mcfg, batch)
         torch.cuda.synchronize()
         got = kernels.launches()
-        if got != dict({n: 0 for n in counts}, **expect):
-            raise AssertionError(f"{name} scoring launched {got}; expected "
-                                 f"{expect}")
+        got_routes = dict(kernels.attention.routes)
+        if (got != dict({n: 0 for n in counts}, **expect)
+                or got_routes != dict(no_routes, **(routes or {}))):
+            raise AssertionError(f"{name} scoring launched {got}, routes "
+                                 f"{got_routes}; expected {expect}, routes "
+                                 f"{routes}")
         if not (torch.isfinite(loss) and 0 <= float(met["acc"]) <= 1):
             raise AssertionError(f"{name} scoring loss {loss}, acc "
                                  f"{met['acc']}")
@@ -1877,7 +2011,7 @@ def main() -> int:
               f"{B * S / wall:.0f} tokens/s; the {len(spans)} {wrapper} "
               f"launches take {span_s * 1e3:.2f} ms of a "
               f"{events_wall * 1e3:.2f} ms pass ({span_s / events_wall:.1%})")
-        return got
+        return got, got_routes
 
     def serve_path(name, mcfg, lm, batch, expect):
         sv = SERVE_SSM
@@ -1885,7 +2019,8 @@ def main() -> int:
         sc = ServeConfig(batch=sv["B"], cache_len=sv["cache_len"])
         _, got, pre, tok = serve(mcfg, lm, sc, prompt, sv["tokens"],
                                  "kernel")
-        if got != dict({n: 0 for n in counts}, **expect):
+        if (got != dict({n: 0 for n in counts}, **expect)
+                or kernels.attention.routes != no_routes):
             raise AssertionError(f"{name} serving launched {got}; expected "
                                  f"{expect}")
         print(f"{name} serving B={sv['B']} prompt {sv['prompt']} cache "
@@ -1909,8 +2044,8 @@ def main() -> int:
     rwkv = drawn("rwkv6-7b", rcfg, bf16)
     rbatch = next(synthetic_stream(rcfg, DataConfig(
         seq_len=RWKV["S"], global_batch=RWKV["B"])))
-    rwkv_scoring = score("path C, rwkv6-7b", rcfg, rwkv, rbatch,
-                         dict(rwkv6=rcfg.n_layers), "rwkv6")
+    rwkv_scoring, _ = score("path C, rwkv6-7b", rcfg, rwkv, rbatch,
+                            dict(rwkv6=rcfg.n_layers), "rwkv6")
     rwkv_serving = serve_path("path C, rwkv6-7b", rcfg, rwkv, rbatch,
                               dict(rwkv6=rcfg.n_layers * (1 + n_tok)))
     del rwkv
@@ -1927,10 +2062,10 @@ def main() -> int:
     jamba = drawn("jamba without experts", jcfg, bf16)
     jbatch = next(synthetic_stream(jcfg, DataConfig(
         seq_len=JAMBA["S"], global_batch=JAMBA["B"])))
-    jamba_scoring = score("path D, jamba without experts", jcfg, jamba,
-                          jbatch, dict(mamba_scan=n_mamba,
-                                       attention=jcfg.n_layers - n_mamba),
-                          "mamba_scan")
+    jamba_scoring, route_counts["jamba_scoring"] = score(
+        "path D, jamba without experts", jcfg, jamba, jbatch,
+        dict(mamba_scan=n_mamba, attention=jcfg.n_layers - n_mamba),
+        "mamba_scan", routes=dict(tc=jcfg.n_layers - n_mamba))
     jamba_serving = serve_path("path D, jamba without experts", jcfg, jamba,
                                jbatch, dict(mamba_scan=n_mamba * (1 + n_tok)))
     del jamba
@@ -1975,10 +2110,16 @@ def main() -> int:
              "oneway": ow_counts, "gap": gap_counts,
              "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
              "whisper_serving": whisper_counts,
+             "card_vs_cpu_f32": f32_counts,
              "rwkv_scoring": rwkv_scoring, "rwkv_serving": rwkv_serving,
              "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving}
     print(f"launches per path: {paths}")
+    print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}
+    for route in fa_module.ROUTES:
+        launches[f"flash_attention_{route}"] = sum(
+            c[route] for c in route_counts.values())
+        errs[f"flash_attention_{route}"] = errs[f"attention_{route}"]
 
     print(json.dumps({"kernels": [
         dict(name=r["name"], route=r["route"], source=r["source"],

@@ -186,9 +186,12 @@ def _margins_min(X, y, valid, w, b) -> torch.Tensor:
 
 def _classic_stage(X, y, valid, nv, w, b, lam, nsteps, t0=0.0):
     """``nsteps`` Pegasos steps of the classic loop: the hinge gradient as d
-    masked sums over the rows, as the JAX package unrolls it."""
+    masked sums over the rows, as the JAX package unrolls it.  Square roots
+    are correctly rounded (``kernels.pegasos.sqrt_rn``) on every device."""
+    from repro_torch.kernels.pegasos import sqrt_rn
+
     d = X.shape[2]
-    inv_sqrt_lam = 1.0 / torch.sqrt(lam)
+    inv_sqrt_lam = 1.0 / sqrt_rn(lam)
     for i in range(nsteps):
         c = float(np.float32(i) + np.float32(2.0) + np.float32(t0))
         eta = 1.0 / (lam * c)
@@ -200,7 +203,7 @@ def _classic_stage(X, y, valid, nv, w, b, lam, nsteps, t0=0.0):
         gb = -vy.sum(dim=1) / nv
         w = w - eta[:, None] * gw
         b = b - eta * gb
-        nrm = torch.sqrt((w * w).sum(dim=1))
+        nrm = sqrt_rn((w * w).sum(dim=1))
         scale = torch.clamp(inv_sqrt_lam / (nrm + 1e-12), max=1.0)
         w, b = w * scale[:, None], b * scale
     return w, b

@@ -13,6 +13,11 @@ wrapper                   CUDA source                   replaces (TPU kernel)
 ``uncertain_mask``        ``csrc/uncertain_mask.cu``    ``uncertain_mask_batched``
                                                         (and ``uncertain_mask``)
 ``attention``             ``csrc/flash_attention.cu``   ``flash_attention``
+                          (route ``simt``),
+                          ``flash_attention_tc.cu``
+                          (``tc``),
+                          ``flash_attention_splitkv.cu``
+                          (``splitkv``)
 ``rwkv6``                 ``csrc/rwkv6.cu``             ``rwkv6_chunked``
 ``mamba_scan``            ``csrc/mamba_scan.cu``        ``mamba_scan``
 ========================  ============================  =============================
@@ -66,9 +71,11 @@ WRAPPERS = (median_cut_scores, median_extremes, maxmarg_turn_scan,
 
 
 def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count, and the attention routes' counts,
+    to 0."""
     for w in WRAPPERS:
         w.launches = 0
+    attention.routes = dict.fromkeys(attention.routes, 0)
 
 
 def launches() -> Dict[str, int]:

@@ -1,4 +1,12 @@
-// Online-softmax GQA attention, hand-written for Hopper.
+// Online-softmax GQA attention on the CUDA cores: the "simt" route of
+// kernels/flash_attention.py, which takes every supported call the other
+// two routes do not: f32 above SPLITKV_MAX_SQ query rows (the scoring
+// passes' f32 checks, card against CPU) and bf16 at head width 32 or 256.
+// It is the f32 route because the f32 tiers (1e-5 against the plain
+// version, card against CPU at 1e-5 of the loss) leave no room for the
+// tensor cores' TF32, which keeps 10 bits of mantissa.  bf16 at head
+// width 64 or 128 goes to flash_attention_tc.cu, a few query rows to
+// flash_attention_splitkv.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // flash_attention (body _flash_kernel).  For q (B, Sq, H, hd) and k, v
@@ -23,13 +31,10 @@
 // and its alpha 1, so the result is the same.
 //
 // Bound on this card.  A call reads q, k, v once and writes out once and
-// does 4 hd operations per kept (query, key) pair (two products of hd
-// multiply-adds).  At the scoring shape of smollm-135m (B=8, S=2048, H=9,
-// KV=3, hd=64, causal, bf16) that is 3.9e10 operations against 50 MB: on
-// the tensor cores (989 TFLOP/s bf16) the operations bound it at 0.039 ms;
-// in f32 on the CUDA cores (67 TFLOP/s) at 0.58 ms.  Decode-time
-// cross-attention (one query row, a 1500-frame encoder cache) reads the
-// whole cache per launch and is bound by bytes.
+// does 4 hd operations per kept (query, key) pair.  At the scoring shape
+// of smollm-135m (B=8, S=2048, H=9, KV=3, hd=64, causal) in f32 that is
+// 3.9e10 operations against 100 MB: 0.58 ms at 67 TFLOP/s f32 on the CUDA
+// cores, against 0.03 ms of bytes.
 //
 // Design.  One block per (64-row query tile, head, batch row); 256 threads
 // form a 16 x 16 grid of 4 x 4 micro-tiles.  The query tile (scaled) stays
@@ -41,11 +46,9 @@
 // rows x hd/16 output columns in registers.  The kv head is h / (H / KV),
 // so GQA never copies K or V.  Ragged Sq and Skv are handled by bounds:
 // rows past Sq are never written, key rows past kv_end load as 0 and are
-// masked.  What holds it back: every product runs on the CUDA cores in
-// f32 (no mma.sync / wgmma), so it sits far above the bf16 bound; shared
-// memory (up to 217 KB at hd=256) limits a multiprocessor to one to three
-// blocks; loads are synchronous (no TMA, no double buffering); a decode
-// call with one query row keeps 63 of the 64 tile rows idle.
+// masked.  What holds it back: loads are synchronous, one element at a
+// time (no cp.async, no double buffering), and shared memory (up to 217 KB
+// at hd=256) limits a multiprocessor to one to three blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

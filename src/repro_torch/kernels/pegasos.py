@@ -10,9 +10,9 @@ its note gives the bound on an H100 and the design.  The wrapper
 Both form every margin as ``((x0*w0) + (x1*w1) + ...) + b`` left to right
 over d, one rounding per operation, apply the same update with correctly
 rounded square roots (:func:`sqrt_rn`), and sum the hinge gradient over the
-N rows in the same order: the plain version spells out the kernel's block
-reduction (:func:`block_sum`).  So the two agree bit for bit, on the card
-and on the CPU, and with the JAX package's twin (an einsum) to a
+N rows in the same order: the plain version spells out the reduction of
+the kernel's warp (:func:`block_sum`).  So the two agree bit for bit, on
+the card and on the CPU, and with the JAX package's twin (an einsum) to a
 tolerance.
 """
 
@@ -29,9 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.median_cut import _require
 
 BIG = 1e30          # min margin of an instance without valid rows
-_MAX_D = 4096       # w and its gradient sit in shared memory: 8 bytes a feature
-THREADS = 256       # the kernel's block: kThreads in csrc/pegasos_stage.cu
-_WARP = 32
+_MAX_D = 4096       # above d=16 w and its gradient sit in shared memory
+THREADS = 32        # lanes per instance: kThreads in csrc/pegasos_stage.cu
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -53,26 +52,21 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 def block_sum(c: torch.Tensor) -> torch.Tensor:
     """(B, N, d) -> (B, d): the sum over the N rows in the kernel's order.
-    Thread t adds rows t, t+THREADS, ... one at a time onto 0; each warp's
-    lanes fold by shuffle-down (offsets 16, 8, 4, 2, 1, lane 0 keeping
-    the result); then warp 0's sum adds warps 1, 2, ... in turn."""
+    Lane t of the instance's warp adds rows t, t+THREADS, ... one at a time
+    onto 0; then the lanes fold at offsets 16, 8, 4, 2, 1, lane t adding
+    lane t + offset (the kernel's xor fold gives every lane this value)."""
     B, N, d = c.shape
     R = -(-N // THREADS)
     c = torch.nn.functional.pad(c, (0, 0, 0, R * THREADS - N))
     c = c.reshape(B, R, THREADS, d)
-    acc = torch.zeros((B, THREADS, d), dtype=c.dtype, device=c.device)
+    lanes = torch.zeros((B, THREADS, d), dtype=c.dtype, device=c.device)
     for r in range(R):
-        acc = acc + c[:, r]
-    lanes = acc.reshape(B, THREADS // _WARP, _WARP, d)
-    off = _WARP // 2
+        lanes = lanes + c[:, r]
+    off = THREADS // 2
     while off:
-        lanes = lanes[:, :, :off] + lanes[:, :, off:2 * off]
+        lanes = lanes[:, :off] + lanes[:, off:2 * off]
         off //= 2
-    warps = lanes[:, :, 0]                                 # (B, warps, d)
-    total = warps[:, 0]
-    for k in range(1, warps.shape[1]):
-        total = total + warps[:, k]
-    return total
+    return lanes[:, 0]
 
 
 def pegasos_stage_plain(

@@ -112,6 +112,66 @@ def test_wrapper_takes_plain_version_on_cpu_without_launching():
     assert kernels.launches()["attention"] == 0
 
 
+# -- the kernel routes ----------------------------------------------------
+
+@pytest.mark.parametrize("Sq", [1, 4, 16, 17, 1500])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_attention_route(dtype, hd, Sq):
+    """Up to 16 query rows split the keys whatever the dtype and width;
+    above that bf16 at hd 64 or 128 takes the tensor cores and everything
+    else, f32 included, the CUDA cores."""
+    if Sq <= 16:
+        want = "splitkv"
+    elif dtype == torch.bfloat16 and hd in (64, 128):
+        want = "tc"
+    else:
+        want = "simt"
+    assert kernels.flash_attention.attention_route(dtype, hd, Sq, 1500) \
+        == want
+    assert kernels.flash_attention.attention_route(dtype, hd, Sq, 1) == want
+
+
+# (what, dtype, hd, Sq, Skv, route): the calls the token paths make under
+# the kernel backend, and the f32 card-against-CPU checks
+PATH_CALLS = [
+    ("smollm-135m scoring", torch.bfloat16, 64, 2048, 2048, "tc"),
+    ("whisper-medium encoder", torch.bfloat16, 64, 1500, 1500, "tc"),
+    ("whisper-medium cross-attention at prefill", torch.bfloat16, 64, 4,
+     1500, "splitkv"),
+    ("whisper-medium cross-attention at decode", torch.bfloat16, 64, 1,
+     1500, "splitkv"),
+    ("Jamba scoring", torch.bfloat16, 128, 2048, 2048, "tc"),
+    ("qwen2.5-14b heads", torch.bfloat16, 128, 1024, 1024, "tc"),
+    ("smollm-135m card vs cpu, f32", torch.float32, 64, 128, 128, "simt"),
+    ("whisper-medium decode, f32", torch.float32, 64, 1, 256, "splitkv"),
+]
+
+
+@pytest.mark.parametrize("call", PATH_CALLS, ids=[c[0] for c in PATH_CALLS])
+def test_paths_take_their_routes(call):
+    _, dtype, hd, Sq, Skv, route = call
+    assert kernels.flash_attention.attention_route(dtype, hd, Sq, Skv) == route
+
+
+def test_routes_are_counted_and_reset_with_the_launches():
+    """Every route has its source; ``reset_launches`` clears the per-route
+    counts with the launch counts, and CPU calls count neither."""
+    fa = kernels.flash_attention
+    assert set(fa.attention.routes) == set(fa.ROUTES)
+    for route, stem in fa._STEM.items():
+        assert (kernels._build.CSRC / f"{stem}.cu").exists(), route
+    fa.attention.routes["tc"] = 3
+    kernels.reset_launches()
+    assert fa.attention.routes == dict.fromkeys(fa.ROUTES, 0)
+    q, k, v = map(torch.from_numpy, _qkv(6, 1, 4, 40, 4, 2, 64))
+    kernels.attention(q, k, v, causal=False)
+    assert fa.attention.routes == dict.fromkeys(fa.ROUTES, 0)
+    src = (kernels._build.CSRC / "flash_attention_splitkv.cu").read_text()
+    assert "return 8192 / HD;" in src and fa.split_keys(64) == 8192 // 64
+
+
 # -- the attention layer --------------------------------------------------
 
 def _cfg(arch="qwen2.5-14b"):

@@ -212,30 +212,24 @@ def test_stage_skip_latched_keeps_entry_iterates():
 
 
 def _kernel_order_sum(c: np.ndarray) -> np.ndarray:
-    """Scalar replica of csrc/pegasos_stage.cu's reduction: thread t sums
-    rows t, t+256, ... onto 0.0f; lanes fold by shuffle-down; warp 0 adds
-    warps 1..7 in turn."""
+    """Scalar replica of csrc/pegasos_stage.cu's reduction: lane t of the
+    instance's warp sums rows t, t+32, ... onto 0.0f; the 32 lanes fold at
+    offsets 16, 8, 4, 2, 1 (lane l adding lane l + offset); no cross-warp
+    step."""
     f = np.float32
     N, d = c.shape
     out = np.zeros(d, np.float32)
     for i in range(d):
-        part = [f(0.0)] * 256
-        for t in range(256):
-            for r in range(t, N, 256):
-                part[t] = f(part[t] + c[r, i])
-        warps = []
-        for w in range(8):
-            lanes = part[32 * w:32 * w + 32]
-            off = 16
-            while off:
-                lanes = [f(lanes[l] + lanes[l + off]) if l + off < 32
-                         else lanes[l] for l in range(32)]
-                off //= 2
-            warps.append(lanes[0])
-        acc = warps[0]
-        for v in warps[1:]:
-            acc = f(acc + v)
-        out[i] = acc
+        lanes = [f(0.0)] * 32
+        for t in range(32):
+            for r in range(t, N, 32):
+                lanes[t] = f(lanes[t] + c[r, i])
+        off = 16
+        while off:
+            lanes = [f(lanes[l] + lanes[l + off]) if l + off < 32
+                     else lanes[l] for l in range(32)]
+            off //= 2
+        out[i] = lanes[0]
     return out
 
 
@@ -361,7 +355,8 @@ def test_build_targets_hopper_without_fma():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "--fmad=false" in flags
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert sources == ["flash_attention.cu", "mamba_scan.cu",
+    assert sources == ["flash_attention.cu", "flash_attention_splitkv.cu",
+                       "flash_attention_tc.cu", "mamba_scan.cu",
                        "maxmarg_turn.cu", "median_cut.cu",
                        "median_extremes.cu", "pegasos_stage.cu",
                        "rwkv6.cu", "threshold_ranges.cu",
@@ -371,4 +366,4 @@ def test_build_targets_hopper_without_fma():
         assert "__fmul_rn" in text and "__fadd_rn" in text
     paths = [_build.library_path(p[:-3]) for p in sources]
     assert len({p.parent for p in paths}) == 1
-    assert len(set(paths)) == 9 and all(p.suffix == ".so" for p in paths)
+    assert len(set(paths)) == 11 and all(p.suffix == ".so" for p in paths)

@@ -180,3 +180,67 @@ def test_single_instance_entries_match_reference():
         np.testing.assert_array_equal(
             tclf.support_points(tf, Xi, yi, rtol=rtol, max_support=ms),
             jclf.support_points(jf, Xi, yi, rtol=rtol, max_support=ms))
+
+
+def _classic_replica(X, y, w, b, lam, nsteps, sqrt):
+    """numpy f32 replica of ``_classic_stage`` with the square root
+    ``sqrt``: one rounding per operation, margins left to right over d."""
+    f = np.float32
+    valid = y != 0
+    nv = np.maximum(valid.sum(axis=1), 1).astype(f)
+    inv_sqrt_lam = f(1.0) / sqrt(lam)
+    for i in range(nsteps):
+        eta = f(1.0) / (lam * (f(i) + f(2.0)))
+        dec = X[:, :, 0] * w[:, None, 0]
+        for j in range(1, X.shape[2]):
+            dec = dec + X[:, :, j] * w[:, None, j]
+        m = y * (dec + b[:, None])
+        vy = ((m < f(1.0)) & valid).astype(f) * y
+        gsum = (vy[:, :, None] * X).sum(axis=1)     # exact: dyadic X
+        gw = lam[:, None] * w - gsum / nv[:, None]
+        gb = -vy.sum(axis=1) / nv
+        w = w - eta[:, None] * gw
+        b = b - eta * gb
+        nrm2 = w[:, 0] * w[:, 0]
+        for j in range(1, w.shape[1]):
+            nrm2 = nrm2 + w[:, j] * w[:, j]
+        scale = np.minimum(inv_sqrt_lam / (sqrt(nrm2) + f(1e-12)), f(1.0))
+        w, b = w * scale[:, None], b * scale
+    return w, b
+
+
+def _torch_sqrt(x):
+    return torch.sqrt(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+
+
+def test_classic_stage_roots_are_correctly_rounded():
+    """``_classic_stage`` takes correctly rounded square roots on the CPU,
+    as the kernel's ``__fsqrt_rn`` does: on λ values and iterates where
+    torch's CPU sqrt is 1 ulp off (found as
+    test_torch_kernels.test_plain_sqrt_is_correctly_rounded finds them), a
+    step equals its numpy replica with ``np.sqrt`` bit for bit and not the
+    replica with torch's root.  X is dyadic, so every sum over the rows is
+    exact in any order."""
+    rng = np.random.default_rng(0)
+    cand = (rng.random(200_000) * 10.0 ** rng.integers(-3, 1, 200_000)
+            ).astype(np.float32)
+    off = cand[_torch_sqrt(cand) != np.sqrt(cand)]
+    B, N, d, nsteps = 64, 12, 2, 3
+    lam = off[:B].copy()
+    X = (rng.integers(-8, 9, size=(B, N, d)) / 4.0).astype(np.float32)
+    y = rng.choice([-1.0, 1.0], size=(B, N)).astype(np.float32)
+    y[:, -2:] = 0.0                                     # padding rows
+    w = (rng.normal(size=(B, d)) * 40.0).astype(np.float32)   # projected
+    b = rng.normal(size=B).astype(np.float32)
+    assert len(lam) == B and (_torch_sqrt(lam) != np.sqrt(lam)).all()
+    want = _classic_replica(X, y, w, b, lam, nsteps, np.sqrt)
+    wrong = _classic_replica(X, y, w, b, lam, nsteps, _torch_sqrt)
+    valid = torch.from_numpy(y) != 0
+    got = tclf._classic_stage(
+        torch.from_numpy(X), torch.from_numpy(y), valid,
+        valid.sum(dim=1).clamp_min(1).float(), torch.from_numpy(w),
+        torch.from_numpy(b), torch.from_numpy(lam), nsteps)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert not (np.array_equal(wrong[0], want[0])
+                and np.array_equal(wrong[1], want[1]))
