@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; none is caught):
    integer-exact: the cut scan and the extremes scan at the smoke sweep's
    full-batch turn shape, the extremes scan at the sweep's widest turn, and
    crafted ties (duplicate points, bounds built from the points themselves,
-   an absent class, all directions disallowed); each kernel timed with
-   CUDA events beside its plain version;
+   an absent class, all directions disallowed), and the cut scan at its
+   edges (all-positive, all-negative and all-padding instances, points at
+   ±0 against ±0 bounds, bounds on a point's own projection, ±inf bounds;
+   n in {1, 33, 1001}, m in {1, 31, 33, 9000}, B=1); each kernel timed
+   with CUDA events beside its plain version;
 2b. MAXMARG's kernels against their plain versions on the card, bit for
    bit: the turn scan and the Pegasos stage at the first MAXMARG bucket's
    full-batch turn-1 shape (the stage at nsteps=2000 and at the polish
@@ -24,6 +27,10 @@ Phases (any failure exits non-zero; none is caught):
    beside its plain version, the stage also at d=16;
 3. the MEDIAN sweep through ``repro_torch.engine.run_sweep`` on the card,
    with every kernel's launch count set to 0 before it and read after;
+   then the same sweep with CUDA events around every cut-scan call (the
+   scan's share of the wall, and launches × gap from the per-call times
+   and bounds); the extremes and cut scans held and timed at the widest
+   tail turn;
 4. MEDIAN card against CPU on a 48-instance subset with noisy tail
    instances: integer outputs exact, separators to 1e-6;
 5. the MAXMARG sweep (three buckets, one ``run_sweep`` call) on the card,
@@ -82,15 +89,18 @@ Phases (any failure exits non-zero; none is caught):
 14. the SSM kernels (the WKV recurrence, the selective scan) against their
    plain versions, y and the final state to max |diff| <= 1e-5 ×
    max(1, max |plain|) in f32 (1e-2 for bf16 y): at rwkv6-7b's and Jamba's
-   scoring shapes (the scan in bf16 and f32), decode (S 1 with a carried
-   state, written in place), S 100, S 1 at B 1, hd 32, di 1000 (ragged
-   against the block) and the decay extremes 0.02 and 0.999; the
+   scoring shapes (the scan in bf16 and f32; WKV in f32 and as path C
+   passes it, bf16 r, k, v with f32 w), decode (S 1 with a carried state,
+   written in place; WKV in both input types), S 100, S 1 at B 1, hd 32,
+   di 1000 (ragged against the block) and the decay extremes 0.02 and
+   0.999; the
    flash-attention kernel at Jamba's scoring shape (H 64, KV 8, hd 128,
    bf16, causal; ``tc``), held and timed; each scan timed at its path's
    shape and at decode beside
    its plain version and its bound (bytes, or operations with the scan's
    exponentials split between the special-function units and FMA-pipe
-   polynomials);
+   polynomials), WKV in path C's dtypes (and in f32, printed), its decode
+   also as device time (CUDA-graph replay);
 15. path C, rwkv6-7b at full width and depth in bf16: ``forward_train``
    (B=8, S=2048), exactly 32 WKV launches, tokens/s and the kernel's
    share; its ``TokenServingEngine`` (B=8, prompt 512, cache 1024, 64
@@ -236,6 +246,41 @@ def crafted_cut_inputs(V, device, seed=0):
                  t(y[:, r:r + 2].copy()),
                  torch.ones(B, dtype=torch.bool, device=device), Vd)
     return Vd, t(dir_ok), lo, hi, t(X), t(y)
+
+
+def edge_cut_inputs(geometry, device, B, m, n, seed=0):
+    """Cut-scan inputs at the kernel's edges: an all-positive, an
+    all-negative and an all-padding instance (when B allows), points at ±0
+    against bounds of ±0, bounds equal to a point's own projection (made
+    with the scan's rounding), ±inf bounds and disallowed directions, at
+    any (B, m, n).  Returns ``(V, dir_ok, lo, hi, X, y)``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    V = geometry.direction_grid(m, device=device)
+    X = rng.normal(size=(B, n, 2)).astype(np.float32)
+    y = np.where(rng.random((B, n)) < 0.5, 1, -1).astype(np.int32)
+    zeros = np.array([[0.0, 0.0], [-0.0, 0.0], [0.0, -0.0], [-0.0, -0.0]],
+                     np.float32)
+    X[:, :min(4, n)] = zeros[:min(4, n)]
+    if n > 8:
+        y[:, -3:] = 0                             # padding rows
+    for b, lab in zip(range(1, B), (1, -1, 0)):   # one label, or padding
+        y[b] = lab
+    c = rng.normal(scale=0.5, size=(B, m)).astype(np.float32)
+    w = rng.uniform(-0.5, 1.5, size=(B, m)).astype(np.float32)
+    lo, hi = c - w / 2, c + w / 2                 # some bands empty
+    lo[:, 0::7], hi[:, 1::11] = -np.inf, np.inf
+    lo[:, 3::13], hi[:, 5::13], lo[:, 6::13] = 0.0, -0.0, -0.0
+    hi[:, 8::13] = 0.0
+    dir_ok = rng.random((B, m)) < 0.8
+    t = lambda a: torch.from_numpy(a).to(device)
+    X, lo, hi = t(X), t(lo), t(hi)
+    # a band edge on a point's own projection, rounded as the scan rounds
+    pt = X[:, min(5, n - 1)]
+    proj = V[:, 0] * pt[:, :1] + V[:, 1] * pt[:, 1:]        # (B, m)
+    lo[:, 1::9], hi[:, 2::9] = proj[:, 1::9], proj[:, 2::9]
+    return V, t(dir_ok), lo, hi, X, t(y)
 
 
 def maxmarg_buckets(datasets, engine):
@@ -645,6 +690,13 @@ def jamba_dense(cfg):
         period=tuple((m, "mlp") for m, _ in cfg.period), moe=None)
 
 
+def _clocks():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
 def _card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -721,8 +773,17 @@ def main() -> int:
         hold_cut(crafted_cut_inputs(V, dev, seed), f"cut scan, ties {seed}")
         hold_extremes(crafted_extremes_inputs(dev, seed),
                       f"extremes scan, ties {seed}")
+    # the cut scan's edges: one-label and padding-only instances, ±0, ±inf
+    # and self-projection bounds; n ragged against the register tile, m
+    # against the 32-direction mask and at _MAX_ANGLES, B=1
+    for B_, m_, n_ in [(6, 1024, 1), (6, 1024, 33), (6, 1024, 1001),
+                       (6, 1, 64), (6, 31, 64), (6, 33, 64),
+                       (4, kernels.median_cut._MAX_ANGLES, 1001),
+                       (1, 1024, 1000)]:
+        hold_cut(edge_cut_inputs(geometry, dev, B_, m_, n_, seed=B_ + n_),
+                 f"cut scan, edges B={B_} m={m_} n={n_}")
     print("kernels: integer-exact against the plain versions at the full-"
-          "batch turn and on crafted ties")
+          "batch turn, on crafted ties and at the cut scan's edges")
 
     live_pts = int((cut_args[5] != 0).sum())
     m, B, n = cfg["n_angles"], cfg["B"], cut_args[4].shape[1]
@@ -918,7 +979,54 @@ def main() -> int:
         err = float(np.mean(r.classifier.predict(X) != y))
         if err > inst.eps + 2.0 / len(y):
             raise AssertionError(f"instance {i}: error {err} > ε={inst.eps}")
-    # the widest turn's extremes scan: the noisy tail at its final width
+    # the cut scan's share of the sweep: the same sweep once more, with CUDA
+    # events recorded around every call of the cut scan's wrapper
+    from repro_torch.engine import dataplane
+    cut_calls = []
+
+    def timed_cut(*args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = cut_original(*args)
+        ev[1].record()
+        # (events, B, n, live points as a device scalar: no host sync)
+        cut_calls.append((ev, args[1].shape[0], args[4].shape[1],
+                          (args[5] != 0).sum()))
+        return out
+
+    cut_original = dataplane.median_cut
+    dataplane.median_cut = timed_cut
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_sweep(insts, n_angles=cfg["n_angles"],
+                         max_epochs=cfg["max_epochs"], device=dev)
+        torch.cuda.synchronize()
+        cut_wall = time.perf_counter() - t0
+    finally:
+        dataplane.median_cut = cut_original
+    m = cfg["n_angles"]
+    call_ms = [a.elapsed_time(b) for (a, b), *_ in cut_calls]
+    # each call's bound as _time_row counts it: 3 operations per live point
+    # and direction, or its bytes (V, dir_ok, lo, hi, X, y read; the scores
+    # written)
+    call_bound = [max(3 * int(live) * m / PEAK_F32,
+                      (8 * m + Bc * m * 13 + Bc * n_ * 12) / PEAK_BYTES) * 1e3
+                  for _, Bc, n_, live in cut_calls]
+    widths = sorted({Bc for _, Bc, _, _ in cut_calls}, reverse=True)
+    print(f"median sweep again with events: {cut_wall:.3f} s wall, "
+          f"median_cut_scores {len(cut_calls)} calls {sum(call_ms):.4f} ms "
+          f"({sum(call_ms) / 1e3 / cut_wall:.1%} of the wall), bound "
+          f"{sum(call_bound):.4f} ms, launches x gap "
+          f"{sum(call_ms) - sum(call_bound):.4f} ms; per batch width: "
+          + ", ".join(
+              f"B={w} {sum(1 for _, Bc, _, _ in cut_calls if Bc == w)} calls "
+              f"{sum(t for t, (_, Bc, _, _) in zip(call_ms, cut_calls) if Bc == w):.4f} ms"
+              for w in widths))
+    del cut_calls
+
+    # the widest tail turn: the noisy tail at its final width
     tail = [insts[i] for i in sorted(noisy)]
     d_t, st, _, _ = engine.pack_instances(
         tail, n_angles=cfg["n_angles"], max_epochs=cfg["max_epochs"],
@@ -934,6 +1042,15 @@ def main() -> int:
           f"nW={wide[1].shape[2]}): kernel "
           f"{_median_ms(lambda: kernels.median_extremes(*wide), 20):.4f} ms, "
           f"plain {_median_ms(lambda: kernels.median_extremes_plain(*wide), 5):.4f} ms")
+    # the cut scan there, its inputs as step gathers them from that state
+    ct = ft.turn % k
+    tail_cut = (V, ft.dir_ok, g(ft.lo_w, ct), g(ft.hi_w, ct), g(d_t.X, ct),
+                g(d_t.y, ct))
+    hold_cut(tail_cut, "cut scan, widest tail turn")
+    print(f"time median_cut_scores at the widest tail turn (B={len(tail)} "
+          f"m={m} n={tail_cut[4].shape[1]}): kernel "
+          f"{_median_ms(lambda: kernels.median_cut_scores(*tail_cut), 20):.4f} ms, "
+          f"plain {_median_ms(lambda: kernels.median_cut_scores_plain(*tail_cut), 3):.4f} ms")
 
     # -- 4. card against CPU -------------------------------------------------
     sub = insts[:SUBSET]
@@ -1800,9 +1917,11 @@ def main() -> int:
     R_H, R_hd = rcfg.d_model // rcfg.rwkv.head_dim, rcfg.rwkv.head_dim
     J_di, J_ds = jcfg.ssm.expand * jcfg.d_model, jcfg.ssm.d_state
 
-    def wkv_inputs(B, S, H, hd, wval=None, state=False):
-        r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
-                   for _ in range(3))
+    def wkv_inputs(B, S, H, hd, wval=None, state=False, dtype=f32):
+        """r, k, v in ``dtype`` (path C passes the model's bf16); w, u
+        and the state f32."""
+        r, k, v = (torch.randn((B, S, H, hd), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
         if wval is None:    # the JAX tests' decays, in (0.01, 0.99)
             w = torch.sigmoid(torch.randn((B, S, H, hd), generator=gen,
                                           device=dev)) * 0.98 + 0.01
@@ -1860,13 +1979,19 @@ def main() -> int:
         print(f"{name}, {what}: max |kernel - plain| {', '.join(out)}")
 
     bf16 = torch.bfloat16
-    rw_args, _ = wkv_inputs(RWKV["B"], RWKV["S"], R_H, R_hd)
-    hold_ssm("rwkv6", f"rwkv6-7b scoring {tuple(rw_args[0].shape)}",
-             rw_args, None)
+    rw32_args, _ = wkv_inputs(RWKV["B"], RWKV["S"], R_H, R_hd)
+    hold_ssm("rwkv6", f"rwkv6-7b scoring {tuple(rw32_args[0].shape)}, f32",
+             rw32_args, None)
+    # as path C passes them: r, k, v in bf16, w and u f32
+    rw_args, _ = wkv_inputs(RWKV["B"], RWKV["S"], R_H, R_hd, dtype=bf16)
+    hold_ssm("rwkv6", f"rwkv6-7b scoring {tuple(rw_args[0].shape)}, bf16 "
+             f"r, k, v", rw_args, None)
     for what, shape, kw in [
             ("decode, S 1 with a carried state", (8, 1, R_H, R_hd),
              dict(state=True)),
-            ("S 100 (ragged against the 32-step chunk), carried state",
+            ("decode, S 1 with a carried state, bf16 r, k, v",
+             (8, 1, R_H, R_hd), dict(state=True, dtype=bf16)),
+            ("S 100 (ragged against the 16-step chunk), carried state",
              (2, 100, R_H, R_hd), dict(state=True)),
             ("S 1, B 1", (1, 1, R_H, R_hd), {}),
             ("hd 32, S 100, carried state", (2, 100, 8, 32),
@@ -1908,11 +2033,13 @@ def main() -> int:
              replaces="src/repro/kernels/rwkv6.py:81",
              fn=lambda: kernels.rwkv6(*rw_args),
              plain=lambda: kernels.rwkv6_plain(*rw_args),
-             # r, k, v, w, u read; y and the state written, f32
+             # r, k, v (bf16), w, u read; y and the state written, f32
              bytes=_nbytes(*rw_args) + 4 * rB * rS * rH * rhd
              + 4 * rB * rH * rhd * rhd,
              ops=_wkv_ops(rB * rS * rH, rhd),
-             shape=f"rwkv6-7b scoring r {tuple(rw_args[0].shape)} f32"),
+             shape=f"rwkv6-7b scoring r {tuple(rw_args[0].shape)}, bf16 r, "
+                   f"k, v and f32 w as path C passes them",
+             reps=(50, 3)),
         dict(name="mamba_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/mamba_scan.cu",
              replaces="src/repro/kernels/mamba.py:63",
@@ -1925,20 +2052,49 @@ def main() -> int:
              exps=sB * sS * sdi * J_ds,
              shape=f"Jamba scoring xc {tuple(sc_args[0].shape)} ds {J_ds} "
                    f"bf16")]
+    # the attention timing above runs the tensor cores at full power and
+    # can leave the clocks down for a moment: let them settle, and print
+    # them beside the scans' times
+    time.sleep(1.0)
+    print(f"clocks before the SSM timing: {_clocks()}")
     for r in ssm_rows:
         _time_row(r)
+    print(f"time rwkv6 at {ssm_rows[0]['shape']}, device (CUDA graph): "
+          f"{_graph_ms(ssm_rows[0]['fn'], n=10):.4f} ms; clocks after: "
+          f"{_clocks()}")
+    # the same scoring shape with every input f32 (the first design's only
+    # input type), printed
+    _time_row(dict(name="rwkv6", shape=f"rwkv6-7b scoring r "
+                   f"{tuple(rw32_args[0].shape)}, f32",
+                   fn=lambda: kernels.rwkv6(*rw32_args),
+                   plain=lambda: kernels.rwkv6_plain(*rw32_args),
+                   bytes=_nbytes(*rw32_args) + 4 * rB * rS * rH * rhd
+                   + 4 * rB * rH * rhd * rhd,
+                   ops=_wkv_ops(rB * rS * rH, rhd)))
+    del rw32_args
     # the decode shape (S 1, the state read and written in place), where
     # serving makes all but 32 of its WKV and all but 7 of its scan
     # launches; printed only, the JSON line keeps the scoring shape
-    dec_rw, dec_rw0 = wkv_inputs(8, 1, R_H, R_hd, state=True)
+    dec_rw, dec_rw0 = wkv_inputs(8, 1, R_H, R_hd, state=True, dtype=bf16)
+    dec_rw32, _ = wkv_inputs(8, 1, R_H, R_hd)
     dec_sc, dec_h0 = scan_inputs(8, 1, J_di, bf16, state=True)
     rw_state, sc_state = dec_rw0.clone(), dec_h0.clone()
-    for r in [
+    dec_rows = [
             dict(name="rwkv6",
-                 shape=f"decode r (8, 1, {R_H}, {R_hd}), carried state",
+                 shape=f"decode r (8, 1, {R_H}, {R_hd}), carried state, "
+                       f"bf16 r, k, v",
                  fn=lambda: kernels.rwkv6(*dec_rw, state=rw_state),
                  plain=lambda: kernels.rwkv6_plain(*dec_rw, dec_rw0),
-                 bytes=_nbytes(*dec_rw, dec_rw[0], dec_rw0, dec_rw0),
+                 # y f32; the state read and written
+                 bytes=_nbytes(*dec_rw) + 4 * dec_rw[0].numel()
+                 + 2 * _nbytes(dec_rw0),
+                 ops=_wkv_ops(8 * R_H, R_hd)),
+            dict(name="rwkv6",
+                 shape=f"decode r (8, 1, {R_H}, {R_hd}), carried state, f32",
+                 fn=lambda: kernels.rwkv6(*dec_rw32, state=rw_state),
+                 plain=lambda: kernels.rwkv6_plain(*dec_rw32, dec_rw0),
+                 bytes=_nbytes(*dec_rw32) + 4 * dec_rw32[0].numel()
+                 + 2 * _nbytes(dec_rw0),
                  ops=_wkv_ops(8 * R_H, R_hd)),
             dict(name="mamba_scan",
                  shape=f"decode xc (8, 1, {J_di}), carried state, bf16",
@@ -1946,9 +2102,15 @@ def main() -> int:
                  plain=lambda: kernels.mamba_scan_plain(*dec_sc, dec_h0),
                  bytes=_nbytes(*dec_sc, dec_sc[0], dec_h0, dec_h0),
                  ops=6 * 8 * J_di * J_ds + 8 * J_di,
-                 exps=8 * J_di * J_ds)]:
+                 exps=8 * J_di * J_ds)]
+    for r in dec_rows:
         _time_row(r)
-    del rw_args, sc_args, dec_rw, dec_rw0, dec_sc, dec_h0, rw_state, sc_state
+    # decode's device time: a CUDA graph of calls, no host launch time
+    for r in dec_rows[:2]:
+        print(f"time rwkv6 at {r['shape']}, device (CUDA graph): "
+              f"{_graph_ms(r['fn']):.4f} ms, bound {r['bound_ms']:.4g} ms")
+    del rw_args, sc_args, dec_rw, dec_rw32, dec_rw0, dec_sc, dec_h0
+    del rw_state, sc_state, dec_rows
     for r in ssm_rows:
         del r["fn"], r["plain"]
     torch.cuda.empty_cache()

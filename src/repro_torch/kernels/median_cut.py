@@ -25,7 +25,7 @@ from repro_torch.kernels import _build
 # temporaries of the plain version stay near this many elements per chunk
 # of instances (the (B, m, n) scan at full size would need tens of GB)
 _PLAIN_CHUNK = 1 << 26
-_MAX_ANGLES = 9000        # 24 bytes of shared memory per direction
+_MAX_ANGLES = 9000        # 24 bytes of shared memory a direction: 216 KB
 
 
 def _cut_chunk(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
@@ -93,24 +93,12 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _bound() -> ctypes.CDLL:
-    lib = _build.load("median_cut")
-    fn = lib.median_cut_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    return lib
-
-
-def median_cut_scores(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
-    """The cut scan of :func:`median_cut_scores_plain`.  CUDA tensors launch
-    the kernel of ``csrc/median_cut.cu`` (and count the launch in
-    ``median_cut_scores.launches``); CPU tensors take the plain version."""
-    if X.device.type == "cpu":
-        return median_cut_scores_plain(V, dir_ok, lo, hi, X, y)
-    if X.device.type != "cuda":
-        raise ValueError(f"median_cut_scores runs on cuda or cpu, "
-                         f"not {X.device}")
+def check_kernel_args(V, dir_ok, lo, hi, X, y):
+    """Raise unless the kernel takes these inputs: f32 V (m, 2), bool dir_ok
+    (B, m), f32 lo and hi (B, m), f32 X (B, n, 2) and int32 y (B, n), on one
+    device and contiguous (V and X 8-byte aligned: the kernel reads points
+    and directions as pairs), with 0 < m <= ``_MAX_ANGLES``.  Returns
+    (B, m, n)."""
     B, m = dir_ok.shape
     n = X.shape[1]
     if not (0 < m <= _MAX_ANGLES and 0 < B <= 65535 and n > 0):
@@ -123,14 +111,55 @@ def median_cut_scores(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
     _require(hi, "hi", torch.float32, (B, m), dev)
     _require(X, "X", torch.float32, (B, n, 2), dev)
     _require(y, "y", torch.int32, (B, n), dev)
-    hist = torch.zeros((B, 2, m), dtype=torch.int32, device=dev)
+    if V.data_ptr() % 8 or X.data_ptr() % 8:
+        raise ValueError("median_cut_scores: V and X must be 8-byte aligned")
+    return B, m, n
+
+
+_BOUND: list = []
+
+
+def _bound():
+    """(library, C entry point), bound once."""
+    if not _BOUND:
+        lib = _build.load("median_cut")
+        fn = lib.median_cut_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        _BOUND.append((lib, fn))
+    return _BOUND[0]
+
+
+def median_cut_scores(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
+    """The cut scan of :func:`median_cut_scores_plain`.  CUDA tensors launch
+    the kernel of ``csrc/median_cut.cu``, one launch a call (counted in
+    ``median_cut_scores.launches``); CPU tensors take the plain version."""
+    if X.device.type == "cpu":
+        return median_cut_scores_plain(V, dir_ok, lo, hi, X, y)
+    if X.device.type != "cuda":
+        raise ValueError(f"median_cut_scores runs on cuda or cpu, "
+                         f"not {X.device}")
+    B, m, n = check_kernel_args(V, dir_ok, lo, hi, X, y)
+    dev = X.device
     score = torch.empty((B, m), dtype=torch.int32, device=dev)
-    lib = _bound()
-    with torch.cuda.device(dev):
-        err = lib.median_cut_launch(
-            V.data_ptr(), dir_ok.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            X.data_ptr(), y.data_ptr(), hist.data_ptr(), score.data_ptr(),
-            B, m, n, torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _bound()
+
+    def launch() -> int:
+        # the raw handle: the MEDIAN loop calls this once a turn, and
+        # torch.cuda.current_stream() builds a Stream object each time
+        return fn(V.data_ptr(), dir_ok.data_ptr(), lo.data_ptr(),
+                  hi.data_ptr(), X.data_ptr(), y.data_ptr(),
+                  score.data_ptr(), B, m, n,
+                  torch._C._cuda_getCurrentRawStream(dev.index))
+
+    # entering torch.cuda.device costs more than a tail turn's kernel: only
+    # when X is not on the current device
+    if dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     _build.check(lib, "median_cut", err)
     median_cut_scores.launches += 1
     return score

@@ -7,7 +7,12 @@ call: its time mix runs the same recurrence as a ``lax.scan``
 (``models/ssm.py`` ``apply_rwkv_tmix``).  The port's time mix calls
 :func:`rwkv6` instead of a loop.  The CUDA source is ``csrc/rwkv6.cu``;
 its note gives the bound on an H100 and the design (one step per token,
-the TPU kernel's chunked closed form is a later redesign).
+the state in registers, a value column's rows split over four lanes,
+chunks double-buffered with ``cp.async``).  r, k and v may be f32 or
+bf16: the time mix passes them in the model's dtype, and both versions
+widen them to f32 exactly before any arithmetic, so the two types compute
+the same function of the same values.  w (computed in f32 by the model)
+and u stay f32.
 
 Unlike the TPU kernel, both versions take an initial state, as the oracle
 ``ref.rwkv6_ref(S0=)`` does: the serving path carries one.  With a zero
@@ -39,9 +44,10 @@ def rwkv6_plain(
 
       y_t = r_t · (S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
 
-    Returns y (B, S, H, hd) and the final state (B, H, hd, hd), both f32.
-    The twin of the JAX package's ``ref.rwkv6_ref``; the state update
-    rounds as the kernel's does."""
+    r, k, v (and w) may be bf16: they are widened to f32 first.  Returns y
+    (B, S, H, hd) and the final state (B, H, hd, hd), both f32.  The twin
+    of the JAX package's ``ref.rwkv6_ref``; the state update rounds as the
+    kernel's does."""
     B, S, H, hd = r.shape
     r, k, v, w = (a.float() for a in (r, k, v, w))
     u = u.float()[..., None]
@@ -56,13 +62,57 @@ def rwkv6_plain(
     return y, state
 
 
-def _bound() -> ctypes.CDLL:
-    lib = _build.load("rwkv6")
-    fn = lib.rwkv6_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    return lib
+def check_kernel_args(r, k, v, w, u, state=None) -> Tuple[int, ...]:
+    """Raise unless the kernel takes these inputs: r, k, v (B, S, H, hd) of
+    one dtype, f32 or bf16; f32 w of the same shape and u (H, hd); an f32
+    state (B, H, hd, hd) or None; one device, contiguous, r, k, v, w and
+    the state 16-byte aligned, hd in :data:`HEAD_DIMS`.  Returns
+    (B, S, H, hd)."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6: r must be (B, S, H, hd), got "
+                         f"{tuple(r.shape)}")
+    B, S, H, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6: head width {hd} not in {HEAD_DIMS}")
+    if not (0 < B <= 65535 and S > 0 and H > 0):
+        raise ValueError(f"rwkv6: unsupported shape {tuple(r.shape)}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rwkv6: r has dtype {r.dtype}, expected float32 "
+                        f"or bfloat16")
+    dev, f32 = r.device, torch.float32
+    tensors = (r, k, v, w, u) + (() if state is None else (state,))
+    # one pass over the common case; _require names what is wrong
+    if not (k.dtype == v.dtype == r.dtype and w.dtype == u.dtype == f32
+            and k.shape == v.shape == w.shape == r.shape
+            and u.shape == (H, hd)
+            and all(t.device == dev and t.is_contiguous() for t in tensors)
+            and (state is None or (state.dtype == f32
+                                   and state.shape == (B, H, hd, hd)))):
+        for name, t in (("r", r), ("k", k), ("v", v)):
+            _require(t, name, r.dtype, (B, S, H, hd), dev)
+        _require(w, "w", f32, (B, S, H, hd), dev)
+        _require(u, "u", f32, (H, hd), dev)
+        if state is not None:
+            _require(state, "state", f32, (B, H, hd, hd), dev)
+    if any(t.data_ptr() % 16 for t in (r, k, v, w) + tensors[5:]):
+        raise ValueError("rwkv6: the kernel moves r, k, v, w and the state "
+                         "in 16-byte pieces; they must be 16-byte aligned")
+    return B, S, H, hd
+
+
+_BOUND: list = []
+
+
+def _bound():
+    """(library, C entry point), bound once."""
+    if not _BOUND:
+        lib = _build.load("rwkv6")
+        fn = lib.rwkv6_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+        _BOUND.append((lib, fn))
+    return _BOUND[0]
 
 
 def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
@@ -72,9 +122,9 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
     ``rwkv6.launches``); CPU tensors take the plain version.  ``state``
     (B, H, hd, hd), f32, is the initial state (zeros when None); when given,
     the final state is written back into it and it is returned as the
-    final state.  The kernel takes f32 r, k, v, w (B, S, H, hd) and u
-    (H, hd), contiguous, with hd in :data:`HEAD_DIMS`; anything else
-    raises."""
+    final state.  The kernel takes what :func:`check_kernel_args` allows
+    and raises on anything else.  y and the state are f32 in either input
+    type."""
     if r.device.type == "cpu":
         y, final = rwkv6_plain(r, k, v, w, u, S0=state)
         if state is None:
@@ -83,31 +133,29 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
         return y, state
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6 runs on cuda or cpu, not {r.device}")
-    if r.dim() != 4:
-        raise ValueError(f"rwkv6: r must be (B, S, H, hd), got "
-                         f"{tuple(r.shape)}")
-    B, S, H, hd = r.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6: head width {hd} not in {HEAD_DIMS}")
-    if not (0 < B <= 65535 and S > 0 and H > 0):
-        raise ValueError(f"rwkv6: unsupported shape {tuple(r.shape)}")
+    B, S, H, hd = check_kernel_args(r, k, v, w, u, state)
     dev, f32 = r.device, torch.float32
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        _require(t, name, f32, (B, S, H, hd), dev)
-    _require(u, "u", f32, (H, hd), dev)
-    if state is None:
-        final = torch.empty((B, H, hd, hd), dtype=f32, device=dev)
-    else:
-        _require(state, "state", f32, (B, H, hd, hd), dev)
-        final = state
+    final = (torch.empty((B, H, hd, hd), dtype=f32, device=dev)
+             if state is None else state)
     y = torch.empty((B, S, H, hd), dtype=f32, device=dev)
-    lib = _bound()
-    with torch.cuda.device(dev):
-        err = lib.rwkv6_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), None if state is None else state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), B, S, H, hd,
-            torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _bound()
+
+    def launch() -> int:
+        # the raw handle: serving makes one call a layer and token, and
+        # torch.cuda.current_stream() builds a Stream object each time
+        return fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                  u.data_ptr(), None if state is None else state.data_ptr(),
+                  y.data_ptr(), final.data_ptr(), B, S, H, hd,
+                  int(r.dtype == torch.bfloat16),
+                  torch._C._cuda_getCurrentRawStream(dev.index))
+
+    # entering torch.cuda.device costs more than a decode step's launch:
+    # only when r is not on the current device
+    if dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     _build.check(lib, "rwkv6", err)
     rwkv6.launches += 1
     return y, final

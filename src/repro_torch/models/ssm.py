@@ -205,9 +205,10 @@ def apply_rwkv_tmix(
     H, hd = rwkv_dims(cfg)
     xprev = _token_shift(x, None if state is None else state["shift"])
     r, k, v, g, w = _rwkv_gates(p, cfg, x, xprev)
-    # the recurrence in f32, as the JAX package casts before its scan
-    y, _ = kernels.rwkv6(r.float(), k.float(), v.float(), w,
-                         p["u"].float(),
+    # the recurrence in f32, as the JAX package casts before its scan: the
+    # kernel widens r, k and v from the model's dtype itself (exactly, so
+    # the function is the same); w is f32 already
+    y, _ = kernels.rwkv6(r, k, v, w, p["u"].float(),
                          state=None if state is None else state["wkv"])
     # per-head group norm
     y = rmsnorm(y, torch.ones((hd,), dtype=x.dtype, device=x.device),

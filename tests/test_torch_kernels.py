@@ -38,6 +38,7 @@ import torch
 
 import chip_smoke
 from repro_torch import kernels
+from repro_torch.core import geometry as tgeo
 from repro_torch.kernels import _build, median_cut, pegasos
 
 
@@ -367,3 +368,109 @@ def test_build_targets_hopper_without_fma():
     paths = [_build.library_path(p[:-3]) for p in sources]
     assert len({p.parent for p in paths}) == 1
     assert len(set(paths)) == 11 and all(p.suffix == ".so" for p in paths)
+
+
+# -- the cut scan kernel's label flip ---------------------------------------
+
+def _flipped_cut(V, dir_ok, lo, hi, X, y):
+    """The CUDA cut scan's risk test in f32: a negative point staged
+    negated and tested as fl(fl(v0*(-x0)) + fl(v1*(-x1))) > -hi_r, a
+    positive one as p > lo_r, then the plain version's histograms.  Returns
+    (scores, risk)."""
+    B, m = dir_ok.shape
+    nonempty = (lo < hi) & dir_ok
+    lo_r = lo.masked_fill(~nonempty, np.inf)
+    nhi_r = (-hi).masked_fill(~nonempty, np.inf)
+    neg = (y != 0) & (y != 1)
+    Xs = torch.where(neg[..., None], -X, X)
+    p = (V[None, :, None, 0] * Xs[:, None, :, 0]
+         + V[None, :, None, 1] * Xs[:, None, :, 1])           # (B, m, n)
+    risk = p > torch.where(neg[:, None, :], nhi_r[:, :, None],
+                           lo_r[:, :, None])
+    idx = torch.arange(m, dtype=torch.int32)[None, :, None]
+    last = torch.where(risk, idx, -1).amax(dim=1)
+    first = torch.where(risk, idx, m).amin(dim=1)
+    live = ((last >= 0) & (y != 0)).to(torch.int32)
+    zeros = torch.zeros((B, m), dtype=torch.int32)
+    below = torch.cumsum(zeros.scatter_add(1, last.clamp(0, m - 1).long(),
+                                           live), dim=1, dtype=torch.int32)
+    above = (live.sum(dim=1, dtype=torch.int32)[:, None]
+             - torch.cumsum(zeros.scatter_add(
+                 1, first.clamp(0, m - 1).long(), live), dim=1,
+                 dtype=torch.int32))
+    return torch.where(dir_ok, torch.minimum(below, above), -1), risk
+
+
+def _plain_risk(V, dir_ok, lo, hi, X, y):
+    nonempty = (lo < hi) & dir_ok
+    lo_r = lo.masked_fill(~nonempty, np.inf)
+    hi_r = hi.masked_fill(~nonempty, -np.inf)
+    p = (V[None, :, None, 0] * X[:, None, :, 0]
+         + V[None, :, None, 1] * X[:, None, :, 1])
+    return torch.where((y == 1)[:, None, :], p > lo_r[:, :, None],
+                       p < hi_r[:, :, None])
+
+
+@pytest.mark.parametrize("seed,B,m,n", [(0, 6, 64, 40), (1, 6, 31, 33),
+                                        (2, 4, 33, 9), (3, 1, 97, 50)])
+def test_cut_label_flip_matches_plain(seed, B, m, n):
+    """Negating a negative point and its bound gives the plain test bit for
+    bit: at ±0 points and bounds, ±inf bounds, bounds on a point's own
+    projection (ties), both labels, one-label and padding-only rows."""
+    args = chip_smoke.edge_cut_inputs(
+        tgeo, torch.device("cpu"), B, m, n, seed=seed)
+    V, dir_ok, lo, hi, X, y = args
+    y = y.clone()
+    y[0, :3] = torch.tensor([1, -1, 0], dtype=torch.int32)[:min(3, n)]
+    args = (V, dir_ok, lo, hi, X, y)
+    got, risk = _flipped_cut(*args)
+    assert torch.equal(risk & (y != 0)[:, None, :],
+                       _plain_risk(*args) & (y != 0)[:, None, :])
+    assert torch.equal(got, kernels.median_cut_scores_plain(*args))
+
+
+def test_cut_label_flip_on_signed_zeros_and_infinities():
+    """Every pairing of a ±0 / ±inf / ±1 coordinate with a ±0 / ±inf / ±1
+    bound, both labels and both signs of zero in the second coordinate."""
+    vals = [0.0, -0.0, np.inf, -np.inf, 1.0, -1.0]
+    cases = [(a, z, b, lab) for a in vals for z in (0.0, -0.0)
+             for b in vals for lab in (1, -1)]
+    V = torch.tensor([[1.0, 0.0], [1.0, -0.0]])
+    X = torch.tensor([[[a, z]] for a, z, _, _ in cases])      # (N, 1, 2)
+    y = torch.tensor([[lab] for *_, lab in cases], dtype=torch.int32)
+    bound = torch.tensor([[b, b] for _, _, b, _ in cases])
+    inf = torch.full_like(bound, np.inf)
+    # positives meet their bound in lo, negatives in hi
+    lo = torch.where(y == 1, bound, -inf)
+    hi = torch.where(y == 1, inf, bound)
+    dir_ok = torch.ones((len(cases), 2), dtype=torch.bool)
+    got, risk = _flipped_cut(V, dir_ok, lo, hi, X, y)
+    assert torch.equal(risk, _plain_risk(V, dir_ok, lo, hi, X, y))
+    assert risk.any() and not risk.all()
+    assert torch.equal(got, kernels.median_cut_scores_plain(
+        V, dir_ok, lo, hi, X, y))
+
+
+def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
+    cut = [torch.from_numpy(a) for a in _cut_inputs(0)]
+    assert median_cut.check_kernel_args(*cut) == (5, 128, 48)
+    for i, bad in [(0, torch.float64), (2, torch.float16), (4, torch.float64),
+                   (5, torch.int64), (1, torch.uint8)]:
+        args = list(cut)
+        args[i] = args[i].to(bad)
+        with pytest.raises(TypeError):
+            median_cut.check_kernel_args(*args)
+    args = list(cut)
+    args[4] = args[4].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        median_cut.check_kernel_args(*args)
+    args = list(cut)
+    args[4] = torch.zeros(args[4].numel() + 1)[1:].view(args[4].shape)
+    with pytest.raises(ValueError, match="8-byte"):
+        median_cut.check_kernel_args(*args)
+    V = torch.zeros((median_cut._MAX_ANGLES + 1, 2))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        median_cut.check_kernel_args(
+            V, torch.ones((1, len(V)), dtype=torch.bool),
+            torch.zeros((1, len(V))), torch.zeros((1, len(V))), cut[4][:1],
+            cut[5][:1])

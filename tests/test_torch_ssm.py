@@ -16,6 +16,7 @@ weights with their constant leaves drawn away from their constants) and
 are handed to both packages.
 """
 
+import importlib
 import os
 import sys
 
@@ -34,6 +35,9 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+
+# the module (the package's name ``rwkv6`` is its wrapper)
+rwkv6_module = importlib.import_module("repro_torch.kernels.rwkv6")
 
 
 def _close(got, want, rtol=1e-5):
@@ -186,6 +190,127 @@ def test_wrappers_take_plain_versions_on_cpu_and_write_states_in_place():
     assert hT is state and torch.equal(state, hTp) and torch.equal(y, yp)
     assert kernels.rwkv6.launches == kernels.mamba_scan.launches == 0
     assert kernels.launches()["rwkv6"] == kernels.launches()["mamba_scan"] == 0
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_plain_takes_bf16_rkv_as_their_f32_values(with_state):
+    """The time mix hands the kernels r, k, v in the model's dtype: bf16
+    widens to f32 exactly, so the function is that of the f32 values, bit
+    for bit (the wrapper on the CPU too)."""
+    r, k, v, w, u, S0 = _wkv_inputs(21, 2, 19, 3, 32)
+    rb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (r, k, v))
+    w, u = torch.from_numpy(w), torch.from_numpy(u)
+    S0 = torch.from_numpy(S0) if with_state else None
+    y, sT = kernels.rwkv6_plain(rb, kb, vb, w, u, S0=S0)
+    y32, sT32 = kernels.rwkv6_plain(rb.float(), kb.float(), vb.float(), w, u,
+                                    S0=S0)
+    assert y.dtype == sT.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(sT, sT32)
+    yw, sw = kernels.rwkv6(rb, kb, vb, w, u,
+                           state=None if S0 is None else S0.clone())
+    assert torch.equal(yw, y) and torch.equal(sw, sT)
+
+
+def _fma(a, b, c):
+    """fl(a*b + c) for f32 arrays (the product is exact in f64)."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+def _kernel_order_wkv(r, k, v, w, u, S0=None, lanes=4):
+    """numpy f32 replica of csrc/rwkv6.cu's order: per step the bonus
+    c_t = sum_i fl(fl(r_i u_i) k_i) in 8-row pieces, summed in order and
+    folded pairwise (the shuffle butterfly); y_j = each lane's FMA chain of
+    r_i S_ij over its interleaved 4-row groups, the lanes' sums added in
+    lane order, plus fl(v_j c_t); the state fl(fl(w_i S_ij) + fl(k_i v_j))."""
+    f32 = np.float32
+    B, S, H, hd = r.shape
+    st = (np.zeros((B, H, hd, hd), f32) if S0 is None
+          else S0.astype(f32).copy())
+    y = np.empty((B, S, H, hd), f32)
+    rows = [[4 * (q * lanes + l) + e for q in range(hd // 4 // lanes)
+             for e in range(4)] for l in range(lanes)]
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]   # (B, H, hd)
+        pieces = ((rt * u) * kt).reshape(B, H, hd // 8, 8)
+        part = np.zeros((B, H, hd // 8), f32)
+        for x in range(8):
+            part = part + pieces[..., x]
+        while part.shape[-1] > 1:
+            part = part[..., 0::2] + part[..., 1::2]
+        acc = None
+        for lane_rows in rows:
+            a = np.zeros((B, H, hd), f32)
+            for i in lane_rows:
+                a = _fma(rt[..., i, None], st[..., i, :], a)
+            acc = a if acc is None else acc + a
+        y[:, t] = acc + vt * part[..., 0, None]
+        st = wt[..., :, None] * st + kt[..., :, None] * vt[..., None, :]
+    return y, st
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,H,hd", [(2, 37, 3, 64), (1, 20, 2, 32)])
+def test_rwkv6_kernel_order_matches_oracle(B, S, H, hd, with_state):
+    """The kernel's factored y, y_j = sum_i r_i S_ij + v_j c_t, in its
+    summation order, at the f32 tier against ref.rwkv6_ref; its state bit
+    for bit against the plain version."""
+    r, k, v, w, u, S0 = _wkv_inputs(S + hd + with_state, B, S, H, hd)
+    S0 = S0 if with_state else None
+    y, sT = _kernel_order_wkv(r, k, v, w, u, S0)
+    ye, sTe = jref.rwkv6_ref(r, k, v, w, u, S0=S0)
+    _close(torch.from_numpy(y), ye)
+    _close(torch.from_numpy(sT), sTe)
+    _, sTp = kernels.rwkv6_plain(*_t(r, k, v, w, u),
+                                 S0=None if S0 is None else _t(S0)[0])
+    np.testing.assert_array_equal(sT, sTp.numpy())
+
+
+def test_rwkv6_kernel_arguments_refuse_what_the_kernel_does_not_take():
+    r, k, v, w, u, S0 = _t(*_wkv_inputs(5, 2, 3, 2, 32))
+    check = rwkv6_module.check_kernel_args
+    assert check(r, k, v, w, u, S0) == (2, 3, 2, 32)
+    bf = torch.bfloat16
+    assert check(r.to(bf), k.to(bf), v.to(bf), w, u) == (2, 3, 2, 32)
+    for bad in [(r.half(), k.half(), v.half(), w, u),      # f16 inputs
+                (r.to(bf), k, v, w, u),                     # mixed types
+                (r, k, v, w.to(bf), u),                     # bf16 decay
+                (r, k, v, w, u.double()),
+                (r, k, v, w, u, S0.to(bf))]:
+        with pytest.raises(TypeError):
+            check(*bad)
+    for bad in [(r[..., :16].contiguous(),) * 3 + (w[..., :16], u),
+                (r, k, v, w, u[:1]),
+                (r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)]:
+        with pytest.raises(ValueError):
+            check(*bad)
+    flat = torch.zeros(r.numel() + 1)
+    shifted = flat[1:].view(r.shape)                        # 4-byte aligned
+    with pytest.raises(ValueError, match="16-byte"):
+        check(shifted, k, v, w, u)
+    with pytest.raises(ValueError, match="16-byte"):
+        check(r, k, v, w, u, torch.zeros(S0.numel() + 1)[1:].view(S0.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tmix_hands_rwkv6_the_model_dtype(monkeypatch, dtype):
+    """No cast before the kernel: r, k, v arrive in the model's dtype, w and
+    u in f32."""
+    cfg, jcfg = _cfgs("rwkv6-7b")
+    p = {name: torch.from_numpy(a).to(dtype) for name, a in
+         _params(jssm.init_rwkv_tmix, jcfg, 0).items()}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 5, cfg.d_model)).astype(np.float32)).to(dtype)
+    seen, original = [], kernels.rwkv6
+
+    def record(r, k, v, w, u, state=None):
+        seen.append(tuple(a.dtype for a in (r, k, v, w, u)))
+        return original(r, k, v, w, u, state=state)
+
+    monkeypatch.setattr(kernels, "rwkv6", record)
+    out, _ = ssm.apply_rwkv_tmix(p, cfg, x)
+    assert seen == [(dtype,) * 3 + (torch.float32,) * 2]
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
 
 
 def test_wrappers_refuse_other_devices():
