@@ -15,8 +15,14 @@ Phases (any failure exits non-zero; none is caught):
    an absent class, all directions disallowed), and the cut scan at its
    edges (all-positive, all-negative and all-padding instances, points at
    ±0 against ±0 bounds, bounds on a point's own projection, ±inf bounds;
-   n in {1, 33, 1001}, m in {1, 31, 33, 9000}, B=1); each kernel timed
-   with CUDA events beside its plain version;
+   n in {1, 33, 1001}, m in {1, 31, 33, 9000}, B=1); the extremes scan
+   also in its two-segment form (stage 5's call: own rows and transcripts
+   read where they lie), every output exact, at the full batch, B=1 and
+   crafted segments (ties across the boundary, a class in one segment
+   only, an empty node, W = 0, odd n and W); each kernel timed with CUDA
+   events beside its plain version, the extremes scan (two segments, and
+   one on the concatenation) also as device time, with its resident
+   blocks;
 2b. MAXMARG's kernels against their plain versions on the card, bit for
    bit: the turn scan and the Pegasos stage at the first MAXMARG bucket's
    full-batch turn-1 shape (the stage at nsteps=2000 and at the polish
@@ -29,8 +35,9 @@ Phases (any failure exits non-zero; none is caught):
    with every kernel's launch count set to 0 before it and read after;
    then the same sweep with CUDA events around every cut-scan call (the
    scan's share of the wall, and launches × gap from the per-call times
-   and bounds); the extremes and cut scans held and timed at the widest
-   tail turn;
+   and bounds) and around every stage 5 (``median.node_extremes``); the
+   extremes (both forms, also as device time) and cut scans held and
+   timed at the widest tail turn;
 4. MEDIAN card against CPU on a 48-instance subset with noisy tail
    instances: integer outputs exact, separators to 1e-6;
 5. the MAXMARG sweep (three buckets, one ``run_sweep`` call) on the card,
@@ -88,19 +95,24 @@ Phases (any failure exits non-zero; none is caught):
    (54 ``simt``, 216 ``splitkv``);
 14. the SSM kernels (the WKV recurrence, the selective scan) against their
    plain versions, y and the final state to max |diff| <= 1e-5 ×
-   max(1, max |plain|) in f32 (1e-2 for bf16 y): at rwkv6-7b's and Jamba's
-   scoring shapes (the scan in bf16 and f32; WKV in f32 and as path C
-   passes it, bf16 r, k, v with f32 w), decode (S 1 with a carried state,
-   written in place; WKV in both input types), S 100, S 1 at B 1, hd 32,
-   di 1000 (ragged against the block) and the decay extremes 0.02 and
-   0.999; the
+   max(1, max |plain|) in f32 (1e-2 for bf16 y), the scan's final state
+   also bit for bit (``torch.equal``): at rwkv6-7b's and Jamba's scoring
+   shapes (the scan in bf16 and f32; WKV in f32 and as path C passes it,
+   bf16 r, k, v with f32 w), decode (S 1 with a carried state, written in
+   place; both input types, the scan also at B 1), S 100, S 1 at B 1, hd
+   32, the scan at S 31 and 33 (ragged against its chunk) and di 1000 and
+   1001 (ragged against its 128-channel block; 1001 stages scalar), and
+   the decay extremes 0.02 and 0.999; the
    flash-attention kernel at Jamba's scoring shape (H 64, KV 8, hd 128,
    bf16, causal; ``tc``), held and timed; each scan timed at its path's
    shape and at decode beside
    its plain version and its bound (bytes, or operations with the scan's
    exponentials split between the special-function units and FMA-pipe
-   polynomials), WKV in path C's dtypes (and in f32, printed), its decode
-   also as device time (CUDA-graph replay);
+   polynomials), WKV in path C's dtypes (and in f32, printed), both at
+   scoring and decode also as device time (CUDA-graph replay), the scan
+   at prefill's shape (B 8, S 512), with its resident blocks, its waves
+   at the scoring shape and its step loop's instructions counted in its
+   SASS (``cuobjdump``);
 15. path C, rwkv6-7b at full width and depth in bf16: ``forward_train``
    (B=8, S=2048), exactly 32 WKV launches, tokens/s and the kernel's
    share; its ``TokenServingEngine`` (B=8, prompt 512, cache 1024, 64
@@ -401,6 +413,37 @@ def crafted_extremes_inputs(device, seed=0):
     return t(v), t(XW), t(yW)
 
 
+def crafted_segment_inputs(device, seed=0, n=41, width=45, cap=48, B=5):
+    """Two-segment extremes inputs ``(v, X, y, wx, wy, width)``: every
+    transcript starts with a copy of its node's own rows, so the extremes
+    tie across the segment boundary (the own row must win); instance 0's
+    node 1 has its +1 rows in the transcript only, instance 1's node 0 its
+    rows in its own segment only, instance 2's node 2 no rows at all;
+    labels past ``width`` are live (the scan must not read them).  An odd
+    ``n`` or ``width`` starts rows at every alignment."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k = 3
+    ang = rng.uniform(0, 2 * np.pi, B)
+    v = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    X = rng.normal(size=(B, k, n, 2)).astype(np.float32)
+    y = np.where(rng.random((B, k, n)) < 0.5, 1, -1).astype(np.int32)
+    y[:, :, n - n // 8:] = 0                  # padding rows
+    wx = rng.normal(size=(B, k, cap, 2)).astype(np.float32)
+    wy = np.where(rng.random((B, k, cap)) < 0.5, 1, -1).astype(np.int32)
+    c = min(n, width)
+    wx[:, :, :c], wy[:, :, :c] = X[:, :, :c], y[:, :, :c]
+    y[0, 1] = np.where(y[0, 1] == 1, -1, y[0, 1])       # +1 rows only in
+    wy[0, 1, :c] = y[0, 1, :c]                          # the transcript
+    wy[0, 1, c:width] = 1
+    wy[min(1, B - 1), 0] = 0                            # own rows only
+    y[min(2, B - 1), k - 1] = 0                         # no rows at all
+    wy[min(2, B - 1), k - 1] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(v), t(X), t(y), t(wx), t(wy), width
+
+
 def crafted_scan_inputs(device, seed=0, d=2):
     """Bulk-scan inputs on every edge the scans have, as ``(V, dir_ok, lo,
     hi, X, y, Xw, yw)``: the transcript ``(Xw, yw)`` is made of rows of the
@@ -601,6 +644,35 @@ def _time_row(r, reps=(20, 3)):
           f"{r['ops']} ops at {peak:.3g} /s{exps})")
 
 
+def _step_loop(sass, function):
+    """(instructions, MUFU.EX2s, opcode counts) of the innermost loop that
+    holds every exponential of the SASS function whose name contains
+    ``function``: the span from the target of the backward branch that
+    closes it to that branch."""
+    import collections
+    import re
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        if function not in body.split("\n", 1)[0]:
+            continue
+        code = []
+        for line in body.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                text = m.group(2)
+                op = text.split()[1] if text.startswith("@") else \
+                    text.split()[0]
+                code.append((int(m.group(1), 16), op, text))
+        exps = [a for a, op, _ in code if op.startswith("MUFU.EX2")]
+        loops = [(int(text.split()[-1], 16), a) for a, op, text in code
+                 if op.startswith("BRA") and a >= exps[-1]
+                 and int(text.split()[-1], 16) <= exps[0]]
+        start, end = max(loops)
+        ops = [op for a, op, _ in code if start <= a <= end]
+        return (len(ops), sum(op.startswith("MUFU.EX2") for op in ops),
+                collections.Counter(op.split(".")[0] for op in ops))
+    raise AssertionError(f"no SASS function {function}")
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -753,6 +825,8 @@ def main() -> int:
     v1 = V[kernels.median_cut_scores(*cut_args).argmax(dim=1)]
     ext_args = (v1, torch.cat([data.X, s1.wx[:, :, :W]], dim=2),
                 torch.cat([data.y, s1.wy[:, :, :W]], dim=2))
+    # stage 5's call: own rows and transcripts where they lie
+    seg_args = (v1, data.X, data.y, s1.wx, s1.wy, W)
 
     errs = {"median_cut_scores": 0, "median_extremes": 0}
 
@@ -767,12 +841,33 @@ def main() -> int:
             errs["median_extremes"] = max(errs["median_extremes"],
                                           _exact(got, want, what))
 
+    def hold_segments(args, what):
+        """The two-segment call against its plain version, every output
+        exactly (indices, class flags, rows, band edges)."""
+        got = kernels.median_extremes_segments(*args)
+        want = kernels.median_extremes_segments_plain(*args)
+        for name, g, e in zip(want._fields, got, want):
+            check = _same_floats if g.is_floating_point() else _exact
+            errs["median_extremes"] = max(errs["median_extremes"],
+                                          check(g, e, f"{what}: {name}"))
+
     hold_cut(cut_args, "cut scan, full batch")
     hold_extremes(ext_args, "extremes scan, full batch")
+    hold_segments(seg_args, "extremes scan, two segments, full batch")
+    hold_segments(tuple(a[:1] for a in seg_args[:5]) + (W,),
+                  "extremes scan, two segments, B=1")
     for seed in range(3):
         hold_cut(crafted_cut_inputs(V, dev, seed), f"cut scan, ties {seed}")
         hold_extremes(crafted_extremes_inputs(dev, seed),
                       f"extremes scan, ties {seed}")
+    # two segments: ties across the boundary, a class in one segment only,
+    # an empty node, W = 0, odd n and W (unaligned starts), B = 1
+    for seed, n_, w_, B_ in [(0, 41, 45, 5), (1, 41, 0, 5), (2, 40, 1, 5),
+                             (3, 7, 47, 5), (4, 1000, 33, 5),
+                             (5, 999, 48, 1)]:
+        hold_segments(crafted_segment_inputs(dev, seed, n=n_, width=w_, B=B_),
+                      f"extremes scan, two segments, crafted n={n_} W={w_} "
+                      f"B={B_}")
     # the cut scan's edges: one-label and padding-only instances, ±0, ±inf
     # and self-projection bounds; n ragged against the register tile, m
     # against the 32-direction mask and at _MAX_ANGLES, B=1
@@ -783,14 +878,18 @@ def main() -> int:
         hold_cut(edge_cut_inputs(geometry, dev, B_, m_, n_, seed=B_ + n_),
                  f"cut scan, edges B={B_} m={m_} n={n_}")
     print("kernels: integer-exact against the plain versions at the full-"
-          "batch turn, on crafted ties and at the cut scan's edges")
+          "batch turn, on crafted ties and at the cut scan's edges; the "
+          "two-segment extremes scan exact in every output")
 
     live_pts = int((cut_args[5] != 0).sum())
     m, B, n = cfg["n_angles"], cfg["B"], cut_args[4].shape[1]
     cut_bytes = _nbytes(*cut_args) + B * m * 4
     cut_ops = 3 * live_pts * m           # 2 multiplies + 1 add per test
     live_rows = int((ext_args[2] != 0).sum())
-    ext_bytes = _nbytes(*ext_args) + 2 * B * k * 4
+    # v, the own rows and the transcripts' first W rows read; indices,
+    # flags, rows and edges written (4 + 4 + 1 + 1 + 8 + 8 + 4 + 4 bytes)
+    ext_bytes = (_nbytes(v1, data.X, data.y, s1.wx[:, :, :W],
+                         s1.wy[:, :, :W]) + 34 * B * k)
     ext_ops = 3 * live_rows
     rows = [
         dict(name="median_cut_scores", route="cuda",
@@ -803,13 +902,24 @@ def main() -> int:
         dict(name="median_extremes", route="cuda",
              source="src/repro_torch/kernels/csrc/median_extremes.cu",
              replaces="src/repro/kernels/support_margin.py:381",
-             fn=lambda: kernels.median_extremes(*ext_args),
-             plain=lambda: kernels.median_extremes_plain(*ext_args),
+             fn=lambda: kernels.median_extremes_segments(*seg_args),
+             plain=lambda: kernels.median_extremes_segments_plain(
+                 *seg_args),
              bytes=ext_bytes, ops=ext_ops,
-             shape=f"B={B} k={k} nW={ext_args[1].shape[2]}"),
+             shape=f"B={B} k={k} n={data.X.shape[2]} W={W}, two segments"),
     ]
     for r in rows:
         _time_row(r)
+    def one_seg():
+        return kernels.median_extremes(*ext_args)
+
+    team, per_sm = kernels.support_margin.extremes_occupancy(B * k)
+    print(f"time median_extremes at {rows[1]['shape']}, device (CUDA "
+          f"graph): {_graph_ms(rows[1]['fn']):.4f} ms; one segment (the "
+          f"concatenation, {ext_args[1].shape[2]} rows): "
+          f"{_median_ms(one_seg, 20):.4f} ms, device "
+          f"{_graph_ms(one_seg):.4f} ms; {team} warp(s) a row block, "
+          f"{per_sm} blocks of 256 resident an SM")
 
     # -- 2b. MAXMARG's kernels against plain versions ------------------------
     from repro_torch.core import classifiers
@@ -995,8 +1105,23 @@ def main() -> int:
                           (args[5] != 0).sum()))
         return out
 
+    # and around every stage 5 (median.node_extremes: the extremes scan
+    # with everything the step does around it)
+    stage5_calls = []
+
+    def timed_stage5(data_, *args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = stage5_original(data_, *args)
+        ev[1].record()
+        stage5_calls.append((ev, data_.X.shape[0]))
+        return out
+
     cut_original = dataplane.median_cut
+    stage5_original = median.node_extremes
     dataplane.median_cut = timed_cut
+    median.node_extremes = timed_stage5
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1006,6 +1131,7 @@ def main() -> int:
         cut_wall = time.perf_counter() - t0
     finally:
         dataplane.median_cut = cut_original
+        median.node_extremes = stage5_original
     m = cfg["n_angles"]
     call_ms = [a.elapsed_time(b) for (a, b), *_ in cut_calls]
     # each call's bound as _time_row counts it: 3 operations per live point
@@ -1025,6 +1151,17 @@ def main() -> int:
               f"{sum(t for t, (_, Bc, _, _) in zip(call_ms, cut_calls) if Bc == w):.4f} ms"
               for w in widths))
     del cut_calls
+    stage5_ms = [a.elapsed_time(b) for (a, b), _ in stage5_calls]
+    print(f"median sweep again with events: stage 5 (node_extremes) "
+          f"{len(stage5_ms)} calls {sum(stage5_ms):.4f} ms "
+          f"({sum(stage5_ms) / 1e3 / cut_wall:.1%} of the wall); turn 0 "
+          f"{stage5_ms[0]:.4f} ms, turn 1 {stage5_ms[1]:.4f} ms (B="
+          f"{stage5_calls[1][1]}); per batch width: " + ", ".join(
+              f"B={w} {sum(1 for _, Bc in stage5_calls if Bc == w)} calls "
+              f"{sum(t for t, (_, Bc) in zip(stage5_ms, stage5_calls) if Bc == w):.4f}"
+              f" ms" for w in sorted({Bc for _, Bc in stage5_calls},
+                                     reverse=True)))
+    del stage5_calls
 
     # the widest tail turn: the noisy tail at its final width
     tail = [insts[i] for i in sorted(noisy)]
@@ -1037,11 +1174,22 @@ def main() -> int:
                                   cap)
     wide = (ft.h_v, torch.cat([d_t.X, ft.wx[:, :, :Wmax]], dim=2),
             torch.cat([d_t.y, ft.wy[:, :, :Wmax]], dim=2))
+    wide_seg = (ft.h_v, d_t.X, d_t.y, ft.wx, ft.wy, Wmax)
     hold_extremes(wide, "extremes scan, widest turn")
+    hold_segments(wide_seg, "extremes scan, two segments, widest turn")
+    team, _ = kernels.support_margin.extremes_occupancy(len(tail) * k)
     print(f"time median_extremes at the widest turn (B={len(tail)} "
-          f"nW={wide[1].shape[2]}): kernel "
-          f"{_median_ms(lambda: kernels.median_extremes(*wide), 20):.4f} ms, "
-          f"plain {_median_ms(lambda: kernels.median_extremes_plain(*wide), 5):.4f} ms")
+          f"n={d_t.X.shape[2]} W={Wmax}, {team} warps a row block)"
+          + "".join(
+              f"; {what}: kernel {_median_ms(lambda: fn(*a), 20):.4f} ms, "
+              f"device {_graph_ms(lambda: fn(*a)):.4f} ms, plain "
+              f"{_median_ms(lambda: plain(*a), 5):.4f} ms"
+              for what, fn, plain, a in [
+                  ("two segments", kernels.median_extremes_segments,
+                   kernels.median_extremes_segments_plain, wide_seg),
+                  (f"one segment (nW={wide[1].shape[2]})",
+                   kernels.median_extremes, kernels.median_extremes_plain,
+                   wide)]))
     # the cut scan there, its inputs as step gathers them from that state
     ct = ft.turn % k
     tail_cut = (V, ft.dir_ok, g(ft.lo_w, ct), g(ft.hi_w, ct), g(d_t.X, ct),
@@ -1976,7 +2124,11 @@ def main() -> int:
                                      f"(scale {scale})")
             errs[name] = max(errs[name], diff)
             out.append(f"{part} {diff!r} (of {scale:.4g})")
-        print(f"{name}, {what}: max |kernel - plain| {', '.join(out)}")
+        if name == "mamba_scan" and not torch.equal(final, fp):
+            raise AssertionError(f"{name}, {what}: the final state differs "
+                                 f"from the plain version's")
+        print(f"{name}, {what}: max |kernel - plain| {', '.join(out)}"
+              + (", state bit for bit" if name == "mamba_scan" else ""))
 
     bf16 = torch.bfloat16
     rw32_args, _ = wkv_inputs(RWKV["B"], RWKV["S"], R_H, R_hd)
@@ -2008,8 +2160,24 @@ def main() -> int:
              {}),
             ("decode, S 1 with a carried state, bf16", (8, 1, J_di, bf16),
              dict(state=True)),
+            ("decode, S 1 with a carried state, f32", (8, 1, J_di, f32),
+             dict(state=True)),
+            ("decode, S 1, B 1, carried state, bf16", (1, 1, J_di, bf16),
+             dict(state=True)),
             ("di 1000 (not a multiple of the 128-channel block), S 100, "
              "carried state, f32", (2, 100, 1000, f32), dict(state=True)),
+            ("di 1000, S 100, carried state, bf16", (2, 100, 1000, bf16),
+             dict(state=True)),
+            ("di 1001 (rows not 16-byte multiples: scalar staging), S 33, "
+             "carried state, f32", (2, 33, 1001, f32), dict(state=True)),
+            ("di 1001, S 33, bf16", (2, 33, 1001, bf16), {}),
+            ("S 31 (under a 16-step bf16 chunk), carried state, bf16",
+             (2, 31, 2048, bf16), dict(state=True)),
+            ("S 33 (a chunk and one step past), bf16", (2, 33, 2048, bf16),
+             {}),
+            ("S 33, f32 (8-step chunks)", (2, 33, 2048, f32), {}),
+            ("S 100, carried state, bf16", (2, 100, 2048, bf16),
+             dict(state=True)),
             ("S 1, B 1, f32", (1, 1, J_di, f32), {}),
             ("decay exp(ΔA) = 0.02, S 2048, f32", (2, 2048, 2048, f32),
              dict(decay=0.02)),
@@ -2059,9 +2227,38 @@ def main() -> int:
     print(f"clocks before the SSM timing: {_clocks()}")
     for r in ssm_rows:
         _time_row(r)
-    print(f"time rwkv6 at {ssm_rows[0]['shape']}, device (CUDA graph): "
-          f"{_graph_ms(ssm_rows[0]['fn'], n=10):.4f} ms; clocks after: "
-          f"{_clocks()}")
+    for r in ssm_rows:
+        print(f"time {r['name']} at {r['shape']}, device (CUDA graph): "
+              f"{_graph_ms(r['fn'], n=10):.4f} ms")
+    print(f"clocks after: {_clocks()}")
+    # the scan's residency and its step loop's instructions, from its SASS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = kernels.mamba.occupancy(bf16)
+    blocks = -(-sdi // 128) * sB
+    print(f"mamba_scan residency: {per_sm} blocks of 128 an SM in bf16 "
+          f"({kernels.mamba.occupancy(f32)} in f32) on {sms} SMs; Jamba's "
+          f"scoring grid of {blocks} blocks takes "
+          f"{blocks / (per_sm * sms):.3f} waves")
+    loop, exps, ops = _step_loop(_build.sass("mamba_scan"),
+                                 "mamba_scanI13__nv_bfloat16")
+    slots = loop / exps * J_ds * sB * sS * sdi / 32    # warp instructions
+    print(f"mamba_scan SASS (bf16): the step loop holds {loop} instructions "
+          f"for {exps} exponentials, {loop / exps:.4f} a (step, channel, "
+          f"state): {dict(ops.most_common())}; at the scoring shape "
+          f"{slots:.4g} warp instructions, "
+          f"{slots / (4 * sms * 1.98e9) * 1e3:.4g} ms at one a clock on "
+          f"each of {4 * sms} schedulers at 1.98 GHz")
+    # the scan at prefill's shape (B=8, S=512), printed
+    pre_sc, _ = scan_inputs(SERVE_SSM["B"], SERVE_SSM["prompt"], J_di, bf16)
+    pB, pS = SERVE_SSM["B"], SERVE_SSM["prompt"]
+    _time_row(dict(name="mamba_scan",
+                   shape=f"prefill xc ({pB}, {pS}, {J_di}) ds {J_ds} bf16",
+                   fn=lambda: kernels.mamba_scan(*pre_sc),
+                   plain=lambda: kernels.mamba_scan_plain(*pre_sc),
+                   bytes=_nbytes(*pre_sc, pre_sc[0]) + 4 * pB * J_di * J_ds,
+                   ops=6 * pB * pS * J_di * J_ds + pB * pS * J_di,
+                   exps=pB * pS * J_di * J_ds), reps=(20, 1))
+    del pre_sc
     # the same scoring shape with every input f32 (the first design's only
     # input type), printed
     _time_row(dict(name="rwkv6", shape=f"rwkv6-7b scoring r "
@@ -2106,8 +2303,8 @@ def main() -> int:
     for r in dec_rows:
         _time_row(r)
     # decode's device time: a CUDA graph of calls, no host launch time
-    for r in dec_rows[:2]:
-        print(f"time rwkv6 at {r['shape']}, device (CUDA graph): "
+    for r in dec_rows:
+        print(f"time {r['name']} at {r['shape']}, device (CUDA graph): "
               f"{_graph_ms(r['fn']):.4f} ms, bound {r['bound_ms']:.4g} ms")
     del rw_args, sc_args, dec_rw, dec_rw32, dec_rw0, dec_sc, dec_h0
     del rw_state, sc_state, dec_rows

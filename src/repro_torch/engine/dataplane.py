@@ -3,10 +3,12 @@ routed to the port's kernels (counterpart of ``repro.engine.dataplane``).
 
 MEDIAN: ``median_cut(V, dir_ok, lo, hi, X, y)`` gives the batched
 median-cut scores (int32 (B, m), -1 at disallowed cuts) that the
-coordinator argmaxes; ``median_extremes(v, XW, yW)`` the per-node
-extreme-point rows ``(i_p, i_q)`` of stage 5 at the hot loop's fill-capped
-width.  MAXMARG: ``maxmarg_turn_scan(w, b, K, yK, X, y, ...)`` gives the
-support ranks, per-node error counts and most-violated ranks of a refit
+coordinator argmaxes; ``median_extremes_segments(v, X, y, wx, wy, W)``
+the per-node extreme rows of stage 5 over the own rows and the transcripts
+at the hot loop's fill-capped width, each read where it lies (the
+one-segment ``median_extremes(v, XW, yW)`` gives ``(i_p, i_q)`` alone).
+MAXMARG: ``maxmarg_turn_scan(w, b, K, yK, X, y, ...)`` gives the support
+ranks, per-node error counts and most-violated ranks of a refit
 proposal; ``pegasos_stage(X, y, nv, w, b, lam, found, w_best, b_best, ...)``
 runs one λ stage of the refit solver with its first-0-error latch.
 
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.kernels import median_cut_scores as median_cut  # noqa: F401
 from repro_torch.kernels import median_extremes  # noqa: F401
+from repro_torch.kernels import median_extremes_segments  # noqa: F401
 from repro_torch.kernels import maxmarg_turn_scan, pegasos_stage  # noqa: F401
 from repro_torch.kernels import threshold_ranges, uncertain_mask
 

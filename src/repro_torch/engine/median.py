@@ -50,7 +50,9 @@ from repro_torch.engine.state import (
     pack_instances,
 )
 from repro_torch.kernels.median_cut import median_cut_scores_plain
-from repro_torch.kernels.support_margin import median_extremes_plain
+from repro_torch.kernels.support_margin import (
+    median_extremes_segments_plain,
+)
 
 _INF = math.inf
 _I32 = torch.int32
@@ -61,14 +63,6 @@ WIDTH_SLACK = 2
 
 
 _gather_rows = hotloop.gather_rows           # (B, N, ...) × (B,) -> (B, ...)
-
-
-def _gather_rows2(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """arr (B, k, N, ...), idx (B, k) -> (B, k, ...)."""
-    B, k = idx.shape
-    rows = torch.arange(B, device=arr.device)[:, None]
-    nodes = torch.arange(k, device=arr.device)[None, :]
-    return arr[rows, nodes, idx.long()]
 
 
 def _append2(wx, wy, fill, lo_j, hi_j, pts, labs, do, V) -> None:
@@ -99,6 +93,21 @@ def _append2(wx, wy, fill, lo_j, hi_j, pts, labs, do, V) -> None:
     wx[rows, at] = pts.to(wx.dtype)
     wy[rows, at] = labs
     fill += nvalid
+
+
+def node_extremes(data: EngineData, wx, wy, v, trans_width, kernel):
+    """Stage 5: every node's extreme band points along ``v`` over its own
+    rows and its transcript ``wx``, ``wy`` (B, k, cap, ...) read up to
+    ``trans_width``, each segment read where it lies.  Returns ``(p_k, q_k,
+    has_pk, has_qk, lo_k, hi_k)``: the first-index argmax row over +1 rows
+    and argmin row over -1 rows (B, k, d) (row 0 where the class is
+    absent), whether each class is present (B, k), and the band edges
+    (B, k), -inf / +inf where absent."""
+    width = wx.shape[2] if trans_width is None else trans_width
+    extremes = (dataplane.median_extremes_segments if kernel
+                else median_extremes_segments_plain)
+    e = extremes(v, data.X, data.y, wx, wy, width)
+    return e.p, e.q, e.has_p, e.has_q, e.lo, e.hi
 
 
 def step(
@@ -210,21 +219,8 @@ def step(
                          messages=comm.messages + fire_err * km1)
 
     # -- 5. per-node extremes along v (post-S transcripts, fill-capped) -----
-    wx_r, wy_r = wx, wy
-    if trans_width is not None:
-        wx_r = wx[:, :, :trans_width]
-        wy_r = wy[:, :, :trans_width]
-    XW = torch.cat([data.X, wx_r], dim=2)                # (B, k, n+W, d)
-    yW = torch.cat([data.y, wy_r], dim=2)
-    extremes = (dataplane.median_extremes if extremes_kernel
-                else median_extremes_plain)
-    i_p, i_q = extremes(v, XW, yW)
-    has_pk = (yW == 1).any(dim=2)
-    has_qk = (yW == -1).any(dim=2)
-    p_k = _gather_rows2(XW, i_p)
-    q_k = _gather_rows2(XW, i_q)
-    lo_k = torch.where(has_pk, project_each(p_k, v), -_INF)
-    hi_k = torch.where(has_qk, project_each(q_k, v), _INF)
+    p_k, q_k, has_pk, has_qk, lo_k, hi_k = node_extremes(
+        data, wx, wy, v, trans_width, extremes_kernel)
     lo_g = lo_k.amax(dim=1)
     hi_g = hi_k.amin(dim=1)
     best_p = p_k[rows, lo_k.argmax(dim=1)]               # first max node

@@ -22,7 +22,9 @@ wrapper                   CUDA source                   replaces (TPU kernel)
 ``mamba_scan``            ``csrc/mamba_scan.cu``        ``mamba_scan``
 ========================  ============================  =============================
 
-The single-instance TPU kernels are B=1 calls of the batched wrappers
+``median_extremes_segments`` is the extremes kernel over two segments (own
+rows and transcript, read where they lie), counted as ``median_extremes``
+launches.  The single-instance TPU kernels are B=1 calls of the batched wrappers
 (``threshold_ranges_one``, ``uncertain_mask_one``) and count as their
 launches.
 
@@ -51,8 +53,11 @@ from repro_torch.kernels.pegasos import (  # noqa: F401
 from repro_torch.kernels.support_margin import (  # noqa: F401
     maxmarg_turn_scan,
     maxmarg_turn_scan_plain,
+    Extremes,
     median_extremes,
     median_extremes_plain,
+    median_extremes_segments,
+    median_extremes_segments_plain,
     threshold_ranges,
     threshold_ranges_one,
     threshold_ranges_plain,

@@ -11,7 +11,12 @@ builds every missing library, one ``nvcc`` per source, all started
 together.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero value.
+``cudaGetLastError()``; :func:`check` raises on a non-zero value.  A
+wrapper binds its entry point once (:func:`bind`) and calls it through
+:func:`launch`, which passes the raw handle of the current stream: the
+turn loops and decode make short calls, where building a
+``torch.cuda.Stream`` or entering ``torch.cuda.device`` would cost more
+than the kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -32,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Tuple[ctypes.CDLL, Any]] = {}
 _LOCK = threading.Lock()
 
 
@@ -103,3 +111,38 @@ def check(lib: ctypes.CDLL, stem: str, err: int) -> None:
         describe.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{stem}: CUDA error {err} "
                            f"({describe(err).decode()})")
+
+
+def bind(stem: str, entry: str, argtypes: Sequence[Any]
+         ) -> Tuple[ctypes.CDLL, Any]:
+    """(library, C entry point ``entry`` of ``csrc/<stem>.cu``), its
+    argument types set and returning an int, bound once.  Give every
+    pointer and the stream as ``ctypes.c_void_p``."""
+    got = _ENTRIES.get((stem, entry))
+    if got is None:
+        lib = load(stem)
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        got = _ENTRIES[(stem, entry)] = (lib, fn)
+    return got
+
+
+def launch(fn: Any, device: torch.device, *args: Any) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream (its raw
+    handle); enters ``torch.cuda.device`` only when ``device`` is not the
+    current one.  Returns the entry point's error code."""
+    current = torch.cuda.current_device()
+    if device.index in (None, current):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def sass(stem: str) -> str:
+    """The SASS of the library built from ``csrc/<stem>.cu``
+    (``cuobjdump -sass``, from the toolkit beside ``nvcc``)."""
+    load(stem)
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(stem))],
+                          check=True, capture_output=True, text=True).stdout

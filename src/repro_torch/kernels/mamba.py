@@ -7,7 +7,10 @@ not call: its Mamba mixer runs the same recurrence as a ``lax.scan``
 (``models/ssm.py`` ``apply_mamba``).  The port's mixer calls
 :func:`mamba_scan` instead of a loop, at prefill and (S = 1) at every
 decoded token.  The CUDA source is ``csrc/mamba_scan.cu``; its note gives
-the bound on an H100 and the design.
+the bound on an H100 and the design (a thread a channel, 64 registers so
+that Jamba's scoring grid runs in one wave, chunks of delta and x
+double-buffered with ``cp.async``, the state moved in coalesced 16-byte
+pieces).
 
 Unlike the TPU kernel, both versions take an initial state, as the oracle
 ``ref.mamba_ref(h0=)`` does.  With a zero state they compute the TPU
@@ -58,33 +61,11 @@ def mamba_scan_plain(
     return y.to(xc.dtype), h
 
 
-def _bound() -> ctypes.CDLL:
-    lib = _build.load("mamba_scan")
-    fn = lib.mamba_scan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    return lib
-
-
-def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan of :func:`mamba_scan_plain`.  CUDA tensors launch the kernel
-    of ``csrc/mamba_scan.cu`` (and count the launch in
-    ``mamba_scan.launches``); CPU tensors take the plain version.
-    ``state`` (B, di, ds), f32, is the initial state (zeros when None);
-    when given, the final state is written back into it and it is returned
-    as the final state.  The kernel takes xc, delta (B, S, di) and Bs, Cs
-    (B, S, ds) all f32 or all bf16, A (di, ds) f32, contiguous, with ds in
-    :data:`STATE_DIMS`; anything else raises."""
-    if xc.device.type == "cpu":
-        y, final = mamba_scan_plain(xc, delta, A, Bs, Cs, h0=state)
-        if state is None:
-            return y, final
-        state.copy_(final)
-        return y, state
-    if xc.device.type != "cuda":
-        raise ValueError(f"mamba_scan runs on cuda or cpu, not {xc.device}")
+def check_kernel_args(xc, delta, A, Bs, Cs, state=None) -> Tuple[int, ...]:
+    """Raise unless the kernel takes these inputs: xc, delta (B, S, di) and
+    Bs, Cs (B, S, ds) of one dtype, f32 or bf16; f32 A (di, ds) and an f32
+    state (B, di, ds) or None; one device, contiguous and 16-byte aligned,
+    ds in :data:`STATE_DIMS`.  Returns (B, S, di, ds)."""
     if xc.dim() != 3 or A.dim() != 2:
         raise ValueError(f"mamba_scan: xc must be (B, S, di) and A (di, ds), "
                          f"got {tuple(xc.shape)} and {tuple(A.shape)}")
@@ -98,25 +79,69 @@ def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
         raise TypeError(f"mamba_scan: xc has dtype {xc.dtype}, expected "
                         f"float32 or bfloat16")
     dev, f32 = xc.device, torch.float32
-    _require(xc, "xc", xc.dtype, (B, S, di), dev)
-    _require(delta, "delta", xc.dtype, (B, S, di), dev)
-    _require(A, "A", f32, (di, ds), dev)
-    _require(Bs, "Bs", xc.dtype, (B, S, ds), dev)
-    _require(Cs, "Cs", xc.dtype, (B, S, ds), dev)
-    if state is None:
-        final = torch.empty((B, di, ds), dtype=f32, device=dev)
-    else:
-        _require(state, "state", f32, (B, di, ds), dev)
-        final = state
+    tensors = (xc, delta, A, Bs, Cs) + (() if state is None else (state,))
+    # one pass over the common case; _require names what is wrong
+    if not (delta.dtype == Bs.dtype == Cs.dtype == xc.dtype
+            and A.dtype == f32 and delta.shape == xc.shape
+            and A.shape == (di, ds) and Bs.shape == Cs.shape == (B, S, ds)
+            and all(t.device == dev and t.is_contiguous() for t in tensors)
+            and (state is None or (state.dtype == f32
+                                   and state.shape == (B, di, ds)))):
+        _require(delta, "delta", xc.dtype, (B, S, di), dev)
+        _require(A, "A", f32, (di, ds), dev)
+        _require(Bs, "Bs", xc.dtype, (B, S, ds), dev)
+        _require(Cs, "Cs", xc.dtype, (B, S, ds), dev)
+        if state is not None:
+            _require(state, "state", f32, (B, di, ds), dev)
+        _require(xc, "xc", xc.dtype, (B, S, di), dev)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("mamba_scan: the kernel moves A, the state and its "
+                         "staged inputs in 16-byte pieces; they must be "
+                         "16-byte aligned")
+    return B, S, di, ds
+
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def occupancy(dtype: torch.dtype) -> int:
+    """Blocks of the kernel for ``dtype`` inputs resident on one SM of the
+    current card (the CUDA occupancy calculator)."""
+    _, fn = _build.bind("mamba_scan", "mamba_scan_occupancy",
+                        [ctypes.c_int, ctypes.c_void_p])
+    blocks = ctypes.c_int(0)
+    err = fn(int(dtype == torch.bfloat16), ctypes.byref(blocks))
+    _build.check(_build.load("mamba_scan"), "mamba_scan", err)
+    return blocks.value
+
+
+def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan of :func:`mamba_scan_plain`.  CUDA tensors launch the kernel
+    of ``csrc/mamba_scan.cu`` (and count the launch in
+    ``mamba_scan.launches``); CPU tensors take the plain version.
+    ``state`` (B, di, ds), f32, is the initial state (zeros when None);
+    when given, the final state is written back into it and it is returned
+    as the final state.  The kernel takes what :func:`check_kernel_args`
+    allows and raises on anything else."""
+    if xc.device.type == "cpu":
+        y, final = mamba_scan_plain(xc, delta, A, Bs, Cs, h0=state)
+        if state is None:
+            return y, final
+        state.copy_(final)
+        return y, state
+    if xc.device.type != "cuda":
+        raise ValueError(f"mamba_scan runs on cuda or cpu, not {xc.device}")
+    B, S, di, ds = check_kernel_args(xc, delta, A, Bs, Cs, state)
+    final = (torch.empty((B, di, ds), dtype=torch.float32, device=xc.device)
+             if state is None else state)
     y = torch.empty_like(xc)
-    lib = _bound()
-    with torch.cuda.device(dev):
-        err = lib.mamba_scan_launch(
-            xc.data_ptr(), delta.data_ptr(), A.data_ptr(), Bs.data_ptr(),
-            Cs.data_ptr(), None if state is None else state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), B, S, di, ds,
-            int(xc.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.bind("mamba_scan", "mamba_scan_launch", _ARGTYPES)
+    err = _build.launch(
+        fn, xc.device, xc.data_ptr(), delta.data_ptr(), A.data_ptr(),
+        Bs.data_ptr(), Cs.data_ptr(),
+        None if state is None else state.data_ptr(), y.data_ptr(),
+        final.data_ptr(), B, S, di, ds, int(xc.dtype == torch.bfloat16))
     _build.check(lib, "mamba_scan", err)
     mamba_scan.launches += 1
     return y, final

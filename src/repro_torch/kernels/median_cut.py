@@ -116,19 +116,7 @@ def check_kernel_args(V, dir_ok, lo, hi, X, y):
     return B, m, n
 
 
-_BOUND: list = []
-
-
-def _bound():
-    """(library, C entry point), bound once."""
-    if not _BOUND:
-        lib = _build.load("median_cut")
-        fn = lib.median_cut_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
-        _BOUND.append((lib, fn))
-    return _BOUND[0]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def median_cut_scores(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
@@ -143,23 +131,10 @@ def median_cut_scores(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
     B, m, n = check_kernel_args(V, dir_ok, lo, hi, X, y)
     dev = X.device
     score = torch.empty((B, m), dtype=torch.int32, device=dev)
-    lib, fn = _bound()
-
-    def launch() -> int:
-        # the raw handle: the MEDIAN loop calls this once a turn, and
-        # torch.cuda.current_stream() builds a Stream object each time
-        return fn(V.data_ptr(), dir_ok.data_ptr(), lo.data_ptr(),
-                  hi.data_ptr(), X.data_ptr(), y.data_ptr(),
-                  score.data_ptr(), B, m, n,
-                  torch._C._cuda_getCurrentRawStream(dev.index))
-
-    # entering torch.cuda.device costs more than a tail turn's kernel: only
-    # when X is not on the current device
-    if dev.index == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(dev):
-            err = launch()
+    lib, fn = _build.bind("median_cut", "median_cut_launch", _ARGTYPES)
+    err = _build.launch(fn, dev, V.data_ptr(), dir_ok.data_ptr(),
+                        lo.data_ptr(), hi.data_ptr(), X.data_ptr(),
+                        y.data_ptr(), score.data_ptr(), B, m, n)
     _build.check(lib, "median_cut", err)
     median_cut_scores.launches += 1
     return score

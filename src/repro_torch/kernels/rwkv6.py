@@ -100,19 +100,7 @@ def check_kernel_args(r, k, v, w, u, state=None) -> Tuple[int, ...]:
     return B, S, H, hd
 
 
-_BOUND: list = []
-
-
-def _bound():
-    """(library, C entry point), bound once."""
-    if not _BOUND:
-        lib = _build.load("rwkv6")
-        fn = lib.rwkv6_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        _BOUND.append((lib, fn))
-    return _BOUND[0]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
@@ -138,24 +126,12 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
     final = (torch.empty((B, H, hd, hd), dtype=f32, device=dev)
              if state is None else state)
     y = torch.empty((B, S, H, hd), dtype=f32, device=dev)
-    lib, fn = _bound()
-
-    def launch() -> int:
-        # the raw handle: serving makes one call a layer and token, and
-        # torch.cuda.current_stream() builds a Stream object each time
-        return fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                  u.data_ptr(), None if state is None else state.data_ptr(),
-                  y.data_ptr(), final.data_ptr(), B, S, H, hd,
-                  int(r.dtype == torch.bfloat16),
-                  torch._C._cuda_getCurrentRawStream(dev.index))
-
-    # entering torch.cuda.device costs more than a decode step's launch:
-    # only when r is not on the current device
-    if dev.index == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(dev):
-            err = launch()
+    lib, fn = _build.bind("rwkv6", "rwkv6_launch", _ARGTYPES)
+    err = _build.launch(
+        fn, dev, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u.data_ptr(), None if state is None else state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), B, S, H, hd,
+        int(r.dtype == torch.bfloat16))
     _build.check(lib, "rwkv6", err)
     rwkv6.launches += 1
     return y, final

@@ -4,7 +4,9 @@ plain PyTorch versions.
 * MEDIAN's stage-5 per-node extremes scan, :func:`median_extremes`
   (``csrc/median_extremes.cu``), replaces the TPU kernel
   ``src/repro/kernels/support_margin.py`` ``median_extremes_batched``;
-  both versions form the projection as ``(x0*v0) + (x1*v1)``.
+  both versions form the projection as ``(x0*v0) + (x1*v1)``.  Its
+  two-segment form :func:`median_extremes_segments` reads each node's own
+  rows and its transcript where they lie, as MEDIAN's step calls it.
 * MAXMARG's fused turn scan, :func:`maxmarg_turn_scan`
   (``csrc/maxmarg_turn.cu``), replaces ``maxmarg_turn_scan_batched``;
   both versions form every margin with
@@ -22,6 +24,7 @@ Each rounds once per operation, and each returns integers, booleans or
 maxima and minima of projections only, so kernel and plain version agree
 exactly.  The CUDA sources' notes give the bounds
 on an H100 and the designs.  A wrapper launches its kernel for CUDA tensors
+(bound once, on the current stream's raw handle: :func:`._build.launch`)
 and takes the plain version only for tensors on the CPU.
 """
 
@@ -29,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -56,42 +59,132 @@ def median_extremes_plain(
     return i_p.to(torch.int32), i_q.to(torch.int32)
 
 
-def _bound() -> ctypes.CDLL:
-    lib = _build.load("median_extremes")
-    fn = lib.median_extremes_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    return lib
+class Extremes(NamedTuple):
+    """Stage 5's extremes per (instance, node), each (B, k) unless noted."""
+    i_p: torch.Tensor     # i32 first argmax row over +1 rows, 0 if none
+    i_q: torch.Tensor     # i32 first argmin row over -1 rows, 0 if none
+    has_p: torch.Tensor   # bool: some +1 row
+    has_q: torch.Tensor   # bool: some -1 row
+    p: torch.Tensor       # (B, k, 2) f32 row i_p
+    q: torch.Tensor       # (B, k, 2) f32 row i_q
+    lo: torch.Tensor      # f32 p's projection on v, -inf without has_p
+    hi: torch.Tensor      # f32 q's projection on v, +inf without has_q
+
+
+def median_extremes_segments_plain(
+    v: torch.Tensor,    # (B, 2) f32 per-instance proposed directions
+    X: torch.Tensor,    # (B, k, n, 2) f32 own rows
+    y: torch.Tensor,    # (B, k, n) i32 ±1, 0 = padding
+    wx: torch.Tensor,   # (B, k, cap, 2) f32 transcripts
+    wy: torch.Tensor,   # (B, k, cap) i32
+    width: int,         # transcript rows read, <= cap
+) -> Extremes:
+    """:func:`median_extremes_plain` over each node's own rows followed by
+    the first ``width`` rows of its transcript (the rows numbered as that
+    concatenation), with the chosen rows, whether each class is present and
+    the band edges beside the indices."""
+    XW = torch.cat([X, wx[:, :, :width]], dim=2)
+    yW = torch.cat([y, wy[:, :, :width]], dim=2)
+    i_p, i_q = median_extremes_plain(v, XW, yW)
+    has_p = (yW == 1).any(dim=2)
+    has_q = (yW == -1).any(dim=2)
+    rows = (torch.arange(XW.shape[0], device=XW.device)[:, None],
+            torch.arange(XW.shape[1], device=XW.device)[None, :])
+    p, q = XW[rows + (i_p.long(),)], XW[rows + (i_q.long(),)]
+    lo = torch.where(has_p, project_each(p, v), -math.inf)
+    hi = torch.where(has_q, project_each(q, v), math.inf)
+    return Extremes(i_p, i_q, has_p, has_q, p, q, lo, hi)
+
+
+def check_extremes_args(v, X, y, wx=None, wy=None, width=0):
+    """Raise unless the kernel takes these inputs: f32 v (B, 2), X
+    (B, k, n, 2) and int32 y (B, k, n); with a transcript, f32 wx
+    (B, k, cap, 2) and int32 wy (B, k, cap), 0 <= width <= cap; one device,
+    contiguous, v, X and wx 8-byte aligned, and at least one row.  Returns
+    (B, k, n, cap)."""
+    B, k, n = y.shape
+    cap = 0 if wy is None else wy.shape[2]
+    if B * k == 0 or not 0 <= width <= cap or n + width == 0:
+        raise ValueError(f"median_extremes: unsupported shape B={B}, k={k}, "
+                         f"n={n}, cap={cap}, width={width}")
+    dev, f32 = X.device, torch.float32
+    _require(v, "v", f32, (B, 2), dev)
+    _require(X, "X", f32, (B, k, n, 2), dev)
+    _require(y, "y", torch.int32, (B, k, n), dev)
+    if wy is not None:
+        _require(wx, "wx", f32, (B, k, cap, 2), dev)
+        _require(wy, "wy", torch.int32, (B, k, cap), dev)
+    if any(t.data_ptr() % 8 for t in (v, X) + (() if wx is None else (wx,))):
+        raise ValueError("median_extremes: v, X and wx must be 8-byte "
+                         "aligned (the kernel reads points as pairs)")
+    return B, k, n, cap
+
+
+_EXTREMES_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+
+
+def _extremes_launch(v, X, y, wx, wy, width, full):
+    """Launch the extremes kernel; ``full``: all of :class:`Extremes`,
+    else (i_p, i_q)."""
+    B, k, n, cap = check_extremes_args(v, X, y, wx, wy, width)
+    dev = X.device
+    i_p = torch.empty((B, k), dtype=torch.int32, device=dev)
+    i_q = torch.empty((B, k), dtype=torch.int32, device=dev)
+    rest = ()
+    if full:
+        rest = (torch.empty((B, k), dtype=torch.bool, device=dev),
+                torch.empty((B, k), dtype=torch.bool, device=dev),
+                torch.empty((B, k, 2), device=dev),
+                torch.empty((B, k, 2), device=dev),
+                torch.empty((B, k), device=dev),
+                torch.empty((B, k), device=dev))
+    lib, fn = _build.bind("median_extremes", "median_extremes_launch",
+                          _EXTREMES_ARGS)
+    err = _build.launch(
+        fn, dev, *(None if t is None else t.data_ptr()
+                   for t in (v, X, y, wx, wy, i_p, i_q)
+                   + (rest or (None,) * 6)), B, k, n, cap, width)
+    _build.check(lib, "median_extremes", err)
+    median_extremes.launches += 1
+    return Extremes(i_p, i_q, *rest) if full else (i_p, i_q)
 
 
 def median_extremes(v, XW, yW) -> Tuple[torch.Tensor, torch.Tensor]:
     """The extremes scan of :func:`median_extremes_plain`.  CUDA tensors
     launch the kernel of ``csrc/median_extremes.cu`` (and count the launch
-    in ``median_extremes.launches``); CPU tensors take the plain version."""
+    in ``median_extremes.launches``); CPU tensors take the plain version.
+    The one-segment case of :func:`median_extremes_segments`."""
     if XW.device.type == "cpu":
         return median_extremes_plain(v, XW, yW)
     if XW.device.type != "cuda":
         raise ValueError(f"median_extremes runs on cuda or cpu, "
                          f"not {XW.device}")
-    B, k, nW = yW.shape
-    if B * k == 0 or nW == 0:
-        raise ValueError(f"median_extremes: empty shape {(B, k, nW)}")
-    dev = XW.device
-    _require(v, "v", torch.float32, (B, 2), dev)
-    _require(XW, "XW", torch.float32, (B, k, nW, 2), dev)
-    _require(yW, "yW", torch.int32, (B, k, nW), dev)
-    i_p = torch.empty((B, k), dtype=torch.int32, device=dev)
-    i_q = torch.empty((B, k), dtype=torch.int32, device=dev)
-    lib = _bound()
-    with torch.cuda.device(dev):
-        err = lib.median_extremes_launch(
-            v.data_ptr(), XW.data_ptr(), yW.data_ptr(), i_p.data_ptr(),
-            i_q.data_ptr(), B, k, nW,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "median_extremes", err)
-    median_extremes.launches += 1
-    return i_p, i_q
+    return _extremes_launch(v, XW, yW, None, None, 0, full=False)
+
+
+def median_extremes_segments(v, X, y, wx, wy, width: int) -> Extremes:
+    """The extremes of :func:`median_extremes_segments_plain`, read from
+    the two segments where they lie: CUDA tensors launch the kernel of
+    ``csrc/median_extremes.cu`` (counted in ``median_extremes.launches``),
+    CPU tensors take the plain version."""
+    if X.device.type == "cpu":
+        return median_extremes_segments_plain(v, X, y, wx, wy, width)
+    if X.device.type != "cuda":
+        raise ValueError(f"median_extremes runs on cuda or cpu, "
+                         f"not {X.device}")
+    return _extremes_launch(v, X, y, wx, wy, width, full=True)
+
+
+def extremes_occupancy(rows: int) -> Tuple[int, int]:
+    """(warps the kernel gives each of ``rows`` row blocks, its blocks
+    resident on one SM of the current card)."""
+    _, fn = _build.bind("median_extremes", "median_extremes_occupancy",
+                        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    team, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(rows, ctypes.byref(team), ctypes.byref(blocks))
+    _build.check(_build.load("median_extremes"), "median_extremes", err)
+    return team.value, blocks.value
 
 
 median_extremes.launches = 0
@@ -152,13 +245,8 @@ def maxmarg_turn_scan_plain(
     return sup_rank, err_k, viol_rank
 
 
-def _bound_turn() -> ctypes.CDLL:
-    lib = _build.load("maxmarg_turn")
-    fn = lib.maxmarg_turn_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib
+_TURN_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
@@ -189,14 +277,12 @@ def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
     err_k = torch.empty((B, k), dtype=torch.int32, device=dev)
     viol_rank = torch.empty((B, k, n), dtype=torch.int32, device=dev)
     scratch = torch.empty((B, N + k * n), dtype=torch.float32, device=dev)
-    lib = _bound_turn()
-    with torch.cuda.device(dev):
-        err = lib.maxmarg_turn_launch(
-            w.data_ptr(), b.data_ptr(), K.data_ptr(), yK.data_ptr(),
-            X.data_ptr(), y.data_ptr(), sup_rank.data_ptr(),
-            err_k.data_ptr(), viol_rank.data_ptr(), scratch.data_ptr(),
-            B, N, k, n, d, float(np.float32(1.0 + rtol)), max_support,
-            viol_ship, torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.bind("maxmarg_turn", "maxmarg_turn_launch", _TURN_ARGS)
+    err = _build.launch(
+        fn, dev, w.data_ptr(), b.data_ptr(), K.data_ptr(), yK.data_ptr(),
+        X.data_ptr(), y.data_ptr(), sup_rank.data_ptr(), err_k.data_ptr(),
+        viol_rank.data_ptr(), scratch.data_ptr(), B, N, k, n, d,
+        float(np.float32(1.0 + rtol)), max_support, viol_ship)
     _build.check(lib, "maxmarg_turn", err)
     maxmarg_turn_scan.launches += 1
     return sup_rank, err_k, viol_rank
@@ -231,13 +317,7 @@ def threshold_ranges_plain(
             torch.cat([p[1] for p in parts]))
 
 
-def _bound_ranges() -> ctypes.CDLL:
-    lib = _build.load("threshold_ranges")
-    fn = lib.threshold_ranges_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    return lib
+_RANGES_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -259,12 +339,10 @@ def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
     _require(yw, "yw", torch.int32, (B, n), dev)
     lo = torch.empty((B, m), dtype=torch.float32, device=dev)
     hi = torch.empty((B, m), dtype=torch.float32, device=dev)
-    lib = _bound_ranges()
-    with torch.cuda.device(dev):
-        err = lib.threshold_ranges_launch(
-            V.data_ptr(), Xw.data_ptr(), yw.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), B, m, n, d,
-            torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.bind("threshold_ranges", "threshold_ranges_launch",
+                          _RANGES_ARGS)
+    err = _build.launch(fn, dev, V.data_ptr(), Xw.data_ptr(), yw.data_ptr(),
+                        lo.data_ptr(), hi.data_ptr(), B, m, n, d)
     _build.check(lib, "threshold_ranges", err)
     threshold_ranges.launches += 1
     return lo, hi
@@ -305,13 +383,8 @@ def uncertain_mask_plain(
         V.shape[0] * X.shape[1], nonempty, lo, hi, X, y)])
 
 
-def _bound_uncertain() -> ctypes.CDLL:
-    lib = _build.load("uncertain_mask")
-    fn = lib.uncertain_mask_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    return lib
+_UNCERTAIN_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
 
 
 def uncertain_mask(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
@@ -337,12 +410,11 @@ def uncertain_mask(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
     out = torch.empty((B, n), dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    lib = _bound_uncertain()
-    with torch.cuda.device(dev):
-        err = lib.uncertain_mask_launch(
-            V.data_ptr(), dir_ok.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            X.data_ptr(), y.data_ptr(), out.data_ptr(), B, m, n, d,
-            torch.cuda.current_stream(dev).cuda_stream)
+    lib, fn = _build.bind("uncertain_mask", "uncertain_mask_launch",
+                          _UNCERTAIN_ARGS)
+    err = _build.launch(fn, dev, V.data_ptr(), dir_ok.data_ptr(),
+                        lo.data_ptr(), hi.data_ptr(), X.data_ptr(),
+                        y.data_ptr(), out.data_ptr(), B, m, n, d)
     _build.check(lib, "uncertain_mask", err)
     uncertain_mask.launches += 1
     return out

@@ -32,14 +32,14 @@ import jax
 import jax.numpy as jnp
 
 from repro.core import geometry as jgeo
-from repro.kernels import ref
+from repro.kernels import ops, ref
 
 import torch
 
 import chip_smoke
 from repro_torch import kernels
 from repro_torch.core import geometry as tgeo
-from repro_torch.kernels import _build, median_cut, pegasos
+from repro_torch.kernels import _build, median_cut, pegasos, support_margin
 
 
 def _cut_inputs(seed, B=5, m=128, n=48):
@@ -281,6 +281,103 @@ def test_extremes_plain_matches_jnp_twin(seed):
     np.testing.assert_array_equal(i_p.numpy(), np.asarray(want_p))
     np.testing.assert_array_equal(i_q.numpy(), np.asarray(want_q))
     assert int(i_p[0, 1]) == 0 and int(i_q[2, 2]) == 0
+
+
+def _jax_interpret_extremes(v, XW, yW):
+    """The JAX package's Pallas extremes kernel in interpret mode, as
+    tests/test_kernels_interpret.py runs it."""
+    from jax.experimental.pallas import tpu as pltpu
+    import contextlib
+    ctx = (pltpu.force_tpu_interpret_mode()
+           if hasattr(pltpu, "force_tpu_interpret_mode")
+           else contextlib.nullcontext())
+    with ctx:
+        got = ops.support_extremes_batch(
+            *(jnp.asarray(a.numpy()) for a in (v, XW, yW)), interpret=True)
+    return tuple(np.asarray(g) for g in got)
+
+
+@pytest.mark.parametrize("seed,n,width", [(0, 41, 45), (1, 41, 0),
+                                          (2, 40, 1), (3, 7, 47),
+                                          (4, 64, 33)])
+def test_extremes_segments_plain_is_the_scan_of_the_concatenation(
+        seed, n, width):
+    """Own rows and transcript read as two segments give the one-segment
+    scan of their concatenation and the JAX package's Pallas kernel on it:
+    ties across the boundary (every transcript starts with a copy of the
+    own rows), a class in one segment only, an empty node, W = 0, odd n and
+    W; the rows, class flags and band edges are the concatenation's."""
+    v, X, y, wx, wy, W = chip_smoke.crafted_segment_inputs(
+        "cpu", seed, n=n, width=width)
+    e = kernels.median_extremes_segments_plain(v, X, y, wx, wy, W)
+    XW = torch.cat([X, wx[:, :, :W]], dim=2)
+    yW = torch.cat([y, wy[:, :, :W]], dim=2)
+    i_p, i_q = kernels.median_extremes_plain(v, XW, yW)
+    assert torch.equal(e.i_p, i_p) and torch.equal(e.i_q, i_q)
+    jp, jq = _jax_interpret_extremes(v, XW, yW)
+    np.testing.assert_array_equal(i_p.numpy(), jp)
+    np.testing.assert_array_equal(i_q.numpy(), jq)
+    has_p, has_q = (yW == 1).any(dim=2), (yW == -1).any(dim=2)
+    assert torch.equal(e.has_p, has_p) and torch.equal(e.has_q, has_q)
+    rows = np.arange(X.shape[0])[:, None], np.arange(X.shape[1])[None, :]
+    assert torch.equal(e.p, XW[rows + (i_p.long(),)])
+    assert torch.equal(e.q, XW[rows + (i_q.long(),)])
+    for edge, row, has, absent in ((e.lo, e.p, has_p, -np.inf),
+                                   (e.hi, e.q, has_q, np.inf)):
+        want = torch.where(has, row[..., 0] * v[:, None, 0]
+                           + row[..., 1] * v[:, None, 1], absent)
+        assert torch.equal(edge, want)
+    assert not bool(e.has_p[2, 2] or e.has_q[2, 2])
+    assert int(e.i_p[2, 2]) == int(e.i_q[2, 2]) == 0
+    assert bool(e.has_q[1, 0]) and int(e.i_q[1, 0]) < n
+    if W > n:
+        assert bool(e.has_p[0, 1]) and int(e.i_p[0, 1]) >= n
+
+
+def test_extremes_segments_ties_across_the_boundary_go_to_the_own_row():
+    """A transcript that is an exact copy of the own rows ties every
+    extreme across the boundary: both indices stay in the own segment."""
+    v, X, y, _, _, _ = chip_smoke.crafted_segment_inputs("cpu", 5, n=40)
+    e = kernels.median_extremes_segments_plain(v, X, y, X.clone(), y.clone(),
+                                               40)
+    own_p, own_q = kernels.median_extremes_plain(v, X, y)
+    assert torch.equal(e.i_p, own_p) and torch.equal(e.i_q, own_q)
+    assert bool((e.i_p < 40).all() and (e.i_q < 40).all())
+
+
+def test_extremes_segments_wrapper_takes_the_plain_version_on_cpu():
+    kernels.reset_launches()
+    args = chip_smoke.crafted_segment_inputs("cpu", 6)
+    got = kernels.median_extremes_segments(*args)
+    want = kernels.median_extremes_segments_plain(*args)
+    assert type(got) is kernels.Extremes
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.launches()["median_extremes"] == 0
+    meta = [a.to("meta") for a in args[:5]]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.median_extremes_segments(*meta, args[5])
+
+
+def test_extremes_arguments_refuse_what_the_kernel_does_not_take():
+    v, X, y, wx, wy, W = chip_smoke.crafted_segment_inputs("cpu", 7)
+    check = support_margin.check_extremes_args
+    assert check(v, X, y, wx, wy, W) == (5, 3, 41, 48)
+    assert check(v, X, y) == (5, 3, 41, 0)
+    for bad in [(v.double(), X, y, wx, wy, W), (v, X, y.long(), wx, wy, W),
+                (v, X, y, wx.half(), wy, W)]:
+        with pytest.raises(TypeError):
+            check(*bad)
+    for bad in [(v, X, y, wx, wy, 49),                    # past capacity
+                (v, X, y, wx, wy, -1),
+                (v, X, y, wx[:1], wy, W),
+                (v, X[:, :, :0], y[:, :, :0], wx, wy, 0),   # no rows
+                (v, X, y, wx.transpose(0, 1).contiguous().transpose(0, 1),
+                 wy, W)]:
+        with pytest.raises(ValueError):
+            check(*bad)
+    shifted = torch.zeros(X.numel() + 1)[1:].view(X.shape)   # 4-byte aligned
+    with pytest.raises(ValueError, match="8-byte"):
+        check(v, shifted, y, wx, wy, W)
 
 
 def test_cut_plain_chunking_changes_nothing(monkeypatch):

@@ -243,6 +243,43 @@ def test_step_fill_capped_read_is_bit_exact(ref):
                 assert torch.equal(getattr(full, f), getattr(capped, f)), f
 
 
+def _concatenated_stage5(data, wx, wy, v):
+    """Stage 5 as the step spelled it before it read the segments where
+    they lie: one concatenation, the one-segment scan, gathers, projections."""
+    from repro_torch.core.geometry import project_each
+    XW = torch.cat([data.X, wx], dim=2)
+    yW = torch.cat([data.y, wy], dim=2)
+    i_p, i_q = median_extremes_plain(v, XW, yW)
+    has_p, has_q = (yW == 1).any(dim=2), (yW == -1).any(dim=2)
+    rows = (torch.arange(XW.shape[0])[:, None],
+            torch.arange(XW.shape[1])[None, :])
+    p, q = XW[rows + (i_p.long(),)], XW[rows + (i_q.long(),)]
+    return (p, q, has_p, has_q,
+            torch.where(has_p, project_each(p, v), -np.inf),
+            torch.where(has_q, project_each(q, v), np.inf))
+
+
+@pytest.mark.parametrize("capped", [False, True], ids=["full", "capped"])
+def test_node_extremes_equals_the_concatenated_stage(ref, capped):
+    """On the live states of the port's walk, stage 5 over the two
+    segments gives, bit for bit, what it gave over their concatenation."""
+    k = ref["k"]
+    data_t, ts, Vt = _carry(ref, ref["state0"])
+    for t in range(2 * MAX_EPOCHS):
+        v = Vt[torch.full((ts.wx.shape[0],), (29 * t + 3) % N_ANGLES)]
+        w = (thot.quantize_width(int(ts.w_fill.max()) + tmed.WIDTH_SLACK,
+                                 ref["cap"]) if capped else None)
+        got = tmed.node_extremes(data_t, ts.wx, ts.wy, v, w, kernel=True)
+        cut = slice(None) if w is None else slice(0, w)
+        want = _concatenated_stage5(data_t, ts.wx[:, :, cut],
+                                    ts.wy[:, :, cut], v)
+        for name, g, e in zip(("p", "q", "has_p", "has_q", "lo", "hi"),
+                              got, want):
+            assert torch.equal(g, e), f"turn {t}: {name}"
+        ts = tmed.step(data_t, Vt, ts, k=k, first_turn=(t == 0),
+                       trans_width=w)
+
+
 # -- (e) the hot sweep ------------------------------------------------------
 
 OUTPUT_LEAVES = ("done", "converged", "epochs", "h_v", "h_t", "h_valid",

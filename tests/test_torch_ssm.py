@@ -292,6 +292,76 @@ def test_rwkv6_kernel_arguments_refuse_what_the_kernel_does_not_take():
         check(r, k, v, w, u, torch.zeros(S0.numel() + 1)[1:].view(S0.shape))
 
 
+mamba_module = importlib.import_module("repro_torch.kernels.mamba")
+
+
+def _kernel_order_scan(xc, delta, A, Bs, Cs, h0=None):
+    """f32 replica of csrc/mamba_scan.cu's order: the state rounded as the
+    plain version rounds it (one rounding per operation, torch.exp), and
+    y_t[i] a chain of fused multiply-adds acc = fma(h[i][s], C_t[s], acc)
+    from s = 0 up."""
+    x, d, A, Bf, Cf = (torch.from_numpy(a) for a in (xc, delta, A, Bs, Cs))
+    B, S, di = x.shape
+    h = (torch.zeros((B, di, A.shape[1])) if h0 is None
+         else torch.from_numpy(h0).clone())
+    y = np.empty((B, S, di), np.float32)
+    for t in range(S):
+        d_t = d[:, t]
+        h = (torch.exp(d_t[..., None] * A) * h
+             + (d_t * x[:, t])[..., None] * Bf[:, t, None, :])
+        hn, cn = h.numpy(), Cf[:, t].numpy()
+        acc = np.zeros((B, di), np.float32)
+        for k in range(A.shape[1]):
+            acc = _fma(hn[..., k], cn[:, None, k], acc)
+        y[:, t] = acc
+    return y, h
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,di", [(2, 37, 48), (1, 33, 40), (3, 1, 24)])
+def test_mamba_kernel_order_matches_oracle(B, S, di, with_state):
+    """The kernel's y, summed in its order, at the f32 tier against
+    ref.mamba_ref; its state bit for bit against the plain version."""
+    xc, delta, A, Bs, Cs, h0 = _scan_inputs(B + S + di, B, S, di, 16)
+    h0 = h0 if with_state else None
+    y, hT = _kernel_order_scan(xc, delta, A, Bs, Cs, h0)
+    ye, hTe = jref.mamba_ref(xc, delta, A, Bs, Cs, h0=h0)
+    _close(torch.from_numpy(y), ye)
+    _close(hT, hTe)
+    _, hTp = kernels.mamba_scan_plain(*_t(xc, delta, A, Bs, Cs),
+                                      h0=None if h0 is None else _t(h0)[0])
+    assert torch.equal(hT, hTp)
+
+
+def test_mamba_kernel_arguments_refuse_what_the_kernel_does_not_take():
+    xc, delta, A, Bs, Cs, h0 = _t(*_scan_inputs(8, 2, 5, 40, 16))
+    check = mamba_module.check_kernel_args
+    assert check(xc, delta, A, Bs, Cs, h0) == (2, 5, 40, 16)
+    bf = torch.bfloat16
+    assert check(xc.to(bf), delta.to(bf), A, Bs.to(bf), Cs.to(bf)) == \
+        (2, 5, 40, 16)
+    for bad in [(xc.half(), delta.half(), A, Bs.half(), Cs.half()),
+                (xc.to(bf), delta, A, Bs, Cs),              # mixed types
+                (xc, delta, A.to(bf), Bs, Cs),               # bf16 A
+                (xc, delta, A, Bs, Cs, h0.double())]:
+        with pytest.raises(TypeError):
+            check(*bad)
+    for bad in [(xc, delta, A[:, :8].contiguous(), Bs[..., :8].contiguous(),
+                 Cs[..., :8].contiguous()),                 # d_state 8
+                (xc, delta[:, :4], A, Bs, Cs),
+                (xc, delta, A, Bs, Cs, h0[:1]),
+                (xc.transpose(0, 1).contiguous().transpose(0, 1), delta, A,
+                 Bs, Cs)]:
+        with pytest.raises(ValueError):
+            check(*bad)
+    with pytest.raises(ValueError, match="16-byte"):
+        check(xc, delta, A, Bs, Cs,
+              torch.zeros(h0.numel() + 1)[1:].view(h0.shape))
+    with pytest.raises(ValueError, match="16-byte"):
+        check(torch.zeros(xc.numel() + 1)[1:].view(xc.shape), delta, A, Bs,
+              Cs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tmix_hands_rwkv6_the_model_dtype(monkeypatch, dtype):
     """No cast before the kernel: r, k, v arrive in the model's dtype, w and
