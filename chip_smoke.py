@@ -26,11 +26,14 @@ Phases (any failure exits non-zero; none is caught):
 2b. MAXMARG's kernels against their plain versions on the card, bit for
    bit: the turn scan and the Pegasos stage at the first MAXMARG bucket's
    full-batch turn-1 shape (the stage at nsteps=2000 and at the polish
-   shape, t0=1024), the stage at d=16, both at the widest tail turn, and
-   crafted inputs (duplicate rows, a row exactly on the band edge, a node
-   without valid rows, an all-padding instance, instances that enter
-   latched; the stage also at d=40, its wide path); each kernel timed
-   beside its plain version, the stage also at d=16;
+   shape, t0=1024), the turn scan also at turn 1 of the k4_d2 and k2_d16
+   buckets (d=16: its any-d path) and with max_support 12 or viol_ship 9
+   (above its register list: more passes), the stage at d=16, both at
+   the widest tail turn, and crafted inputs (duplicate rows, a row exactly
+   on the band edge, a node without valid rows, an all-padding instance,
+   instances that enter latched; the stage also at d=40, its wide path);
+   each kernel timed beside its plain version (the turn scan also as
+   device time, with its residency), the stage also at d=16;
 3. the MEDIAN sweep through ``repro_torch.engine.run_sweep`` on the card,
    with every kernel's launch count set to 0 before it and read after;
    then the same sweep with CUDA events around every cut-scan call (the
@@ -42,19 +45,25 @@ Phases (any failure exits non-zero; none is caught):
    instances: integer outputs exact, separators to 1e-6;
 5. the MAXMARG sweep (three buckets, one ``run_sweep`` call) on the card,
    launch counts read around it, outputs checked; then the same sweep
-   with CUDA events around every call of the two MAXMARG kernels (their
-   share of the wall), and both kernels held at the widest tail turn;
+   with CUDA events around every call of the two MAXMARG kernels (each
+   one's share of the wall), and both kernels held and timed at the widest
+   tail turn (the turn scan also as device time);
 6. MAXMARG card against CPU on 56 instances of it, the same solver path on
    both: comm, rounds and convergence exact, separator directions to a
    cosine of 1 - 1e-4;
 7. the bulk scans' kernels (consistent-threshold ranges, set-of-uncertainty
    membership) against their plain versions, exactly, batched and at B=1,
    on crafted inputs (points on a band edge, an absent class, an
-   all-padding transcript, no direction allowed; d=2 and d=3); then the
-   SOU diagnostics path (``dataplane.ranges`` / ``dataplane.uncertain``) on
-   the MEDIAN smoke sweep's final state at the full batch, launch counts
-   read around it: every node's rescan equals the ranges the engine kept
-   at append time, and both kernels equal their plain versions there;
+   all-padding transcript, no direction allowed; d=2 and d=3, the
+   membership also at d=64 over 600 directions, more than its shared
+   memory holds at once); then the SOU diagnostics path
+   (``dataplane.ranges`` / ``dataplane.uncertain``) on the MEDIAN smoke
+   sweep's final state at the full batch, launch counts read around it:
+   every node's rescan equals the ranges the engine kept at append time,
+   and both kernels equal their plain versions there (the membership also
+   at B=1 and B=24, below one wave); both timed, the membership also as
+   device time at B=3072 and B=1, with its residency and its test round's
+   SASS instructions;
 8. the one-way sweep through ``run_sweep`` (launch counts read around it):
    RANDOM / NAIVE / VOTING / MIXING over the JAX one-way benchmark's grid
    and a k=4 RANDOM bucket; closed-form metering checked, the ε gate
@@ -444,7 +453,7 @@ def crafted_segment_inputs(device, seed=0, n=41, width=45, cap=48, B=5):
     return t(v), t(X), t(y), t(wx), t(wy), width
 
 
-def crafted_scan_inputs(device, seed=0, d=2):
+def crafted_scan_inputs(device, seed=0, d=2, m=200):
     """Bulk-scan inputs on every edge the scans have, as ``(V, dir_ok, lo,
     hi, X, y, Xw, yw)``: the transcript ``(Xw, yw)`` is made of rows of the
     shard (and the shard holds copies of them), and ``(lo, hi)`` are the
@@ -456,7 +465,7 @@ def crafted_scan_inputs(device, seed=0, d=2):
     from repro_torch import kernels
 
     rng = np.random.default_rng(seed)
-    B, m, n, nw = 6, 200, 70, 24
+    B, n, nw = 6, 70, 24
     V = rng.normal(size=(m, d))
     V = (V / np.linalg.norm(V, axis=1, keepdims=True)).astype(np.float32)
     X = rng.normal(size=(B, n, d)).astype(np.float32)
@@ -523,21 +532,23 @@ def _oneway_points(inst, sample_size):
     return sum(sizes[:-1])
 
 
-def _uncertain_work(V, dir_ok, lo, hi, X, y):
-    """What the SOU scan must do for these inputs: ``(tests, bytes)``.
-    A point is projected only onto the directions that are allowed and
-    have lo < hi, in grid order up to and including its first risky one
-    (all of them for a point that none puts at risk).  Every direction's
-    flag and bounds are read, a point and its label only in an instance
-    with at least one such direction (elsewhere the answer is False
-    whatever the point), and one byte is written per point."""
+def _uncertain_work(V, dir_ok, lo, hi, X, y, width=128):
+    """What the SOU scan must do for these inputs: ``(tests, bytes,
+    rounds)``.  A point is projected only onto the directions that are
+    allowed and have lo < hi, in grid order up to and including its first
+    risky one (all of them for a point that none puts at risk).  Every
+    direction's flag and bounds are read, a point and its label only in an
+    instance with at least one such direction (elsewhere the answer is
+    False whatever the point), and one byte is written per point.
+    ``rounds``: the kernel's rounds of ``width`` directions over all points
+    (each point's tests rounded up to whole rounds)."""
     import torch
     from repro_torch.core.geometry import project
     from repro_torch.kernels.median_cut import plain_chunks
 
     m = V.shape[0]
     nonempty = (lo < hi) & dir_ok
-    tests = 0
+    tests = rounds = 0
     for ne, lc, hc, Xc, yc in plain_chunks(m * X.shape[1], nonempty, lo, hi,
                                            X, y):
         proj = project(V, Xc)
@@ -546,13 +557,15 @@ def _uncertain_work(V, dir_ok, lo, hi, X, y):
         idx = torch.arange(m, device=X.device)[None, :, None]
         first = torch.where(risk, idx, m - 1).amin(dim=1)       # (b, n)
         upto = torch.cumsum(ne.int(), dim=1)                     # (b, m)
-        tests += int(upto.gather(1, first).sum())
+        each = upto.gather(1, first)
+        tests += int(each.sum())
+        rounds += int(((each + width - 1) // width).sum())
     needed = nonempty.any(dim=1)
     point_bytes = (X.shape[1] * (X.shape[2] * X.element_size()
                                  + y.element_size()))
     nbytes = (_nbytes(V, dir_ok, lo, hi) + int(needed.sum()) * point_bytes
               + y.numel())
-    return tests, nbytes
+    return tests, nbytes, rounds
 
 
 def _ranges_bytes(V, Xw, yw, B):
@@ -632,24 +645,26 @@ def _time_row(r, reps=(20, 3)):
     by_ops = _ops_ms(r["ops"], r.get("exps", 0), peak)
     r["bound_ms"] = max(by_bytes, by_ops)
     r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    if r.get("graph"):
+        r["device_ms"] = _graph_ms(r["fn"])
     library = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")
+    device = (f" (device {r['device_ms']:.4f} ms, a CUDA graph)"
+              if r.get("graph") else "")
     exps = (f" and {r['exps']} exponentials split between the "
             f"special-function units and FMA-pipe polynomials: "
             f"{by_ops:.4g} ms; on the special-function units alone "
             f"{r['exps'] / PEAK_SFU * 1e3:.4g} ms" if r.get("exps") else "")
-    print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+    print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms"
+          f"{device}, "
           f"plain {r['plain_ms']:.4f} ms{library}, bound "
           f"{r['bound_ms']:.4g} ms ({r['bound_by']}: {r['bytes']} bytes, "
           f"{r['ops']} ops at {peak:.3g} /s{exps})")
 
 
-def _step_loop(sass, function):
-    """(instructions, MUFU.EX2s, opcode counts) of the innermost loop that
-    holds every exponential of the SASS function whose name contains
-    ``function``: the span from the target of the backward branch that
-    closes it to that branch."""
-    import collections
+def _sass_code(sass, function):
+    """[(address, opcode, text)] of the SASS function whose name contains
+    ``function``."""
     import re
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         if function not in body.split("\n", 1)[0]:
@@ -662,15 +677,43 @@ def _step_loop(sass, function):
                 op = text.split()[1] if text.startswith("@") else \
                     text.split()[0]
                 code.append((int(m.group(1), 16), op, text))
-        exps = [a for a, op, _ in code if op.startswith("MUFU.EX2")]
-        loops = [(int(text.split()[-1], 16), a) for a, op, text in code
-                 if op.startswith("BRA") and a >= exps[-1]
-                 and int(text.split()[-1], 16) <= exps[0]]
-        start, end = max(loops)
-        ops = [op for a, op, _ in code if start <= a <= end]
-        return (len(ops), sum(op.startswith("MUFU.EX2") for op in ops),
-                collections.Counter(op.split(".")[0] for op in ops))
+        return code
     raise AssertionError(f"no SASS function {function}")
+
+
+def _step_loop(sass, function):
+    """(instructions, MUFU.EX2s, opcode counts) of the innermost loop that
+    holds every exponential of the SASS function whose name contains
+    ``function``: the span from the target of the backward branch that
+    closes it to that branch."""
+    import collections
+    code = _sass_code(sass, function)
+    exps = [a for a, op, _ in code if op.startswith("MUFU.EX2")]
+    loops = [(int(text.split()[-1], 16), a) for a, op, text in code
+             if op.startswith("BRA") and a >= exps[-1]
+             and int(text.split()[-1], 16) <= exps[0]]
+    start, end = max(loops)
+    ops = [op for a, op, _ in code if start <= a <= end]
+    return (len(ops), sum(op.startswith("MUFU.EX2") for op in ops),
+            collections.Counter(op.split(".")[0] for op in ops))
+
+
+def _vote_round(sass, function):
+    """(instructions, opcode counts) of one round of a test loop unrolled
+    with a vote a round from registers, in the SASS function whose name
+    contains ``function``: the median span from one VOTE to the next (the
+    second one included) among those that compare (FSETP) and read no
+    shared memory (LDS)."""
+    import collections
+    ops = [op for _, op, _ in _sass_code(sass, function)]
+    votes = [i for i, op in enumerate(ops) if op.startswith("VOTE")]
+    spans = sorted(((a, b) for a, b in zip(votes, votes[1:])
+                    if any(op.startswith("FSETP") for op in ops[a:b])
+                    and not any(op.startswith("LDS") for op in ops[a:b])),
+                   key=lambda v: v[1] - v[0])
+    first, last = spans[len(spans) // 2]
+    return (last - first, collections.Counter(
+        op.split(".")[0] for op in ops[first + 1:last + 1]))
 
 
 def _nbytes(*tensors):
@@ -924,6 +967,7 @@ def main() -> int:
     # -- 2b. MAXMARG's kernels against plain versions ------------------------
     from repro_torch.core import classifiers
     from repro_torch.engine import maxmarg
+    from repro_torch.kernels import support_margin
 
     mm = MAXMARG
     t0 = time.perf_counter()
@@ -970,13 +1014,30 @@ def main() -> int:
         device=dev)
     peg16 = stage_args(dh.X[:, 0], dh.y[:, 0])
 
+    def bucket_turn1(insts):
+        """Turn 1's turn-scan inputs of a bucket, as step gathers them."""
+        db, sb0, kb, capb = engine.pack_instances_maxmarg(
+            insts, max_epochs=mm["max_epochs"],
+            max_support=mm["max_support"], device=dev)
+        sb1 = maxmarg.step(db, sb0, k=kb, max_support=mm["max_support"],
+                           steps=mm["steps"], stages=mm["stages"],
+                           lam0=mm["lam"], fused_kernel=True,
+                           solver_kernel=True)
+        Wb = hotloop.quantize_width(int(sb1.w_fill[:, 1].max()), capb)
+        Kb = torch.cat([db.X[:, 1], sb1.wx[:, 1, :Wb]], dim=1)
+        yKb = torch.cat([db.y[:, 1], sb1.wy[:, 1, :Wb]], dim=1)
+        wb, bb, _ = classifiers._svm_solve_batch(
+            Kb, yKb.float(), mm["lam"], mm["steps"], mm["stages"],
+            kernel=True)
+        return wb, bb, Kb, yKb, db.X, db.y
+
     errs["maxmarg_turn_scan"] = 0
     errs["pegasos_stage"] = 0.0
 
-    def hold_turn(args, what):
-        for got, want in zip(kernels.maxmarg_turn_scan(*args, **scan_opts),
-                             kernels.maxmarg_turn_scan_plain(*args,
-                                                             **scan_opts)):
+    def hold_turn(args, what, **kw):
+        opts = dict(scan_opts, **kw)
+        for got, want in zip(kernels.maxmarg_turn_scan(*args, **opts),
+                             kernels.maxmarg_turn_scan_plain(*args, **opts)):
             errs["maxmarg_turn_scan"] = max(errs["maxmarg_turn_scan"],
                                             _exact(got, want, what))
 
@@ -1000,6 +1061,12 @@ def main() -> int:
         return got
 
     hold_turn(turn1, "turn scan, full batch")
+    for name, binsts in buckets[1:]:
+        hold_turn(bucket_turn1(binsts), f"turn scan, {name} turn 1")
+    # above the kernel's register list (8): further passes of its walk
+    for ms, vs in ((12, 2), (4, 9)):
+        hold_turn(turn1, f"turn scan, max_support {ms}, viol_ship {vs}",
+                  max_support=ms, viol_ship=vs)
     hold_stage(peg1, "pegasos stage, full batch", nsteps=mm["steps"])
     hold_stage(polish1, "pegasos polish, full batch",
                nsteps=classifiers.WARM_STEPS, t0=classifiers.WARM_OFFSET)
@@ -1013,7 +1080,9 @@ def main() -> int:
         hold_stage(crafted_pegasos_inputs(dev, seed, d=40),
                    f"pegasos stage, crafted {seed}, d=40", nsteps=300)
     print("kernels: MAXMARG turn scan and Pegasos stage bit for bit against "
-          "the plain versions at the full-batch turn, the polish, d=16, "
+          "the plain versions at the full-batch turn (the turn scan also at "
+          "turn 1 of the k4_d2 and k2_d16 buckets and with max_support 12 "
+          "and viol_ship 9, above its register list), the polish, d=16, "
           "d=40 and on crafted ties")
 
     Bm, N1, dd = K1.shape
@@ -1034,7 +1103,7 @@ def main() -> int:
              ops=((2 * dd + 2 + mm["max_support"]) * N_valid
                   + (2 * dd + 2 + maxmarg.VIOL_SHIP) * kn_valid),
              shape=f"B={Bm} N={N1} k={km} n={dm.X.shape[2]} d={dd}",
-             reps=(20, 3)),
+             reps=(20, 3), graph=True),
         dict(name="pegasos_stage", route="cuda",
              source="src/repro_torch/kernels/csrc/pegasos_stage.cu",
              replaces="src/repro/kernels/pegasos.py:127",
@@ -1051,6 +1120,15 @@ def main() -> int:
     ]
     for r in mm_rows:
         _time_row(r)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    segs = Bm * (km + 1)
+    team, cap_list, per_sm = support_margin.turn_occupancy(
+        Bm, N1, km, dm.X.shape[2], dd, mm["max_support"], maxmarg.VIOL_SHIP)
+    print(f"maxmarg_turn_scan residency: {per_sm} blocks of 256 an SM on "
+          f"{sms} SMs, {8 * per_sm * sms} warps resident; turn 1's {segs} "
+          f"segments take {team} warp(s) each, {segs * team} warps "
+          f"({segs * team / (8 * per_sm * sms):.3f} waves), a register "
+          f"list of {cap_list}")
     print(f"time pegasos_stage at d=16 (B={peg16[0].shape[0]} "
           f"N={peg16[0].shape[1]}): kernel "
           f"{_median_ms(lambda: kernels.pegasos_stage(*peg16, nsteps=mm['steps']), 5):.4f} ms")
@@ -1300,8 +1378,8 @@ def main() -> int:
     kern_s = {n: sum(a.elapsed_time(b) for a, b in v) / 1e3
               for n, v in spans.items()}
     print(f"maxmarg sweep again with events: {timed_wall:.3f} s wall, "
-          + ", ".join(f"{n} {len(spans[n])} calls {v:.4f} s" for n, v in
-                      kern_s.items())
+          + ", ".join(f"{n} {len(spans[n])} calls {v:.4f} s "
+                      f"({v / timed_wall:.2%})" for n, v in kern_s.items())
           + f": the two kernels are {sum(kern_s.values()) / timed_wall:.1%} "
           f"of the wall")
 
@@ -1322,9 +1400,15 @@ def main() -> int:
     hold_turn(wide_turn, "turn scan, widest tail turn")
     hold_stage(wide_stage, "pegasos stage, widest tail turn",
                nsteps=mm["steps"])
-    print(f"time at the widest tail turn (B={len(tail)} N={Kt.shape[1]}): "
+    team_t = support_margin.turn_occupancy(
+        len(tail), Kt.shape[1], km, d_t.X.shape[2], dd, mm["max_support"],
+        maxmarg.VIOL_SHIP)[0]
+    print(f"time at the widest tail turn (B={len(tail)} N={Kt.shape[1]}, "
+          f"{team_t} warp(s) a segment): "
           f"maxmarg_turn_scan "
-          f"{_median_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts), 20):.4f} ms, "
+          f"{_median_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts), 20):.4f} ms "
+          f"(device "
+          f"{_graph_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts)):.4f} ms), "
           f"pegasos_stage "
           f"{_median_ms(lambda: kernels.pegasos_stage(*wide_stage, nsteps=mm['steps']), 5):.4f} ms")
 
@@ -1395,8 +1479,13 @@ def main() -> int:
                 _exact(kernels.uncertain_mask_one(Vc, okc[b], loc[b], hic[b],
                                                   Xc[b], yc[b]),
                        mask_b[b], f"uncertain B=1, {what}, {b}")
+    # more directions than the SOU kernel's shared memory holds at once
+    # (256 at d=64): three chunks, points that hit in one skipped in the next
+    hold_uncertain(crafted_scan_inputs(dev, 0, 64, 600)[:6],
+                   "uncertain, d=64, m=600")
     print("kernels: ranges and uncertainty scans exactly equal to the plain "
-          "versions on crafted edges (d=2, d=3), batched and at B=1")
+          "versions on crafted edges (d=2, d=3; uncertainty also at d=64 "
+          "over m=600 directions), batched and at B=1")
 
     t0 = time.perf_counter()
     final = median.run_hot(data, V, s0, k=k, max_turns=k * cfg["max_epochs"],
@@ -1448,11 +1537,23 @@ def main() -> int:
             raise AssertionError(f"node {j}: SOU mask differs from the "
                                  f"plain version's")
         scan_args.append((ra, ua))
+    # B=1 forms (instance 0 is noisy: no direction is left) and a batch
+    # smaller than one wave, whose points the kernel splits over blocks
+    ua = scan_args[0][1]
+    for b in range(4):
+        errs["uncertain_mask"] = max(errs["uncertain_mask"], _exact(
+            kernels.uncertain_mask_one(V, *(a[b] for a in ua[1:])),
+            kernels.uncertain_mask_plain(V, *(a[b:b + 1] for a in ua[1:]))[0],
+            f"uncertain B=1, final state, instance {b}"))
+    hold_uncertain((V,) + tuple(a[:24] for a in ua[1:]),
+                   "uncertain, final state, 24 instances")
     print("kernels: ranges and uncertainty scans exactly equal to the plain "
-          "versions on the full-batch final state")
+          "versions on the full-batch final state (uncertainty also at B=1 "
+          "and B=24)")
 
     ra, ua = scan_args[0]
     m, d2, B = V.shape[0], V.shape[1], cfg["B"]
+    n_sou = ua[4].shape[1]
     ua_work = _uncertain_work(*ua)
     scan_rows = [
         dict(name="threshold_ranges", route="cuda",
@@ -1474,7 +1575,7 @@ def main() -> int:
              # 2d-1 operations of projection and one compare per nonempty
              # allowed direction, each point up to its first hit
              ops=2 * d2 * ua_work[0],
-             shape=f"B={B} m={m} n={ua[4].shape[1]} d={d2}"),
+             shape=f"B={B} m={m} n={ua[4].shape[1]} d={d2}", graph=True),
     ]
     for r in scan_rows:
         _time_row(r)
@@ -1497,8 +1598,26 @@ def main() -> int:
                      V, *(a[None] for a in ua1)),
                  bytes=ua1_work[1],
                  ops=2 * d2 * ua1_work[0],
-                 shape=f"m={m} n={ua1[3].shape[0]} d={d2}")):
+                 shape=f"m={m} n={ua1[3].shape[0]} d={d2}", graph=True)):
         _time_row(r)
+    parts, chunk, per_sm = support_margin.uncertain_occupancy(B, m, n_sou,
+                                                              d2)
+    print(f"uncertain_mask residency: {per_sm} blocks of 256 an SM on {sms} "
+          f"SMs, a chunk of {chunk} directions; at B={B} {parts} block(s) "
+          f"an instance ({B * parts / (per_sm * sms):.3f} waves), at B=24 "
+          f"{support_margin.uncertain_occupancy(24, m, n_sou, d2)[0]}, at "
+          f"B=1 {support_margin.uncertain_occupancy(1, m, n_sou, d2)[0]}")
+    # a round: four directions a lane from registers, one vote
+    per_round, ops = _vote_round(_build.sass("uncertain_mask"),
+                                 "uncertain_maskILi2E")
+    rounds = ua_work[2]
+    print(f"uncertain_mask SASS (d=2): a round of 128 directions holds "
+          f"{per_round} instructions: {dict(ops.most_common())}; at the SOU "
+          f"shape {rounds} rounds over the points ({ua_work[0]} tests), "
+          f"{rounds * per_round:.4g} warp instructions, "
+          f"{rounds * per_round / (4 * sms * 1.98e9) * 1e3:.4g} ms at one a "
+          f"clock on each of {4 * sms} schedulers at 1.98 GHz (the "
+          f"instructions each point costs outside the loop not counted)")
 
     # -- 8. the one-way sweep on the card ------------------------------------
     t0 = time.perf_counter()

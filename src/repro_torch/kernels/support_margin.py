@@ -23,7 +23,11 @@ plain PyTorch versions.
 Each rounds once per operation, and each returns integers, booleans or
 maxima and minima of projections only, so kernel and plain version agree
 exactly.  The CUDA sources' notes give the bounds
-on an H100 and the designs.  A wrapper launches its kernel for CUDA tensors
+on an H100 and the designs.  The wrappers' argument checks are plain
+functions (:func:`check_extremes_args`, :func:`check_turn_args`,
+:func:`check_uncertain_args`), and :func:`extremes_occupancy`,
+:func:`turn_occupancy` and :func:`uncertain_occupancy` report how a kernel
+spreads a call over the card.  A wrapper launches its kernel for CUDA tensors
 (bound once, on the current stream's raw handle: :func:`._build.launch`)
 and takes the plain version only for tensors on the CPU.
 """
@@ -245,7 +249,34 @@ def maxmarg_turn_scan_plain(
     return sup_rank, err_k, viol_rank
 
 
-_TURN_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
+def check_turn_args(w, b, K, yK, X, y, max_support=4, viol_ship=2):
+    """Raise unless the kernel takes these inputs: f32 w (B, d), b (B,),
+    K (B, N, d) and X (B, k, n, d), int32 yK (B, N) and y (B, k, n), on one
+    device and contiguous, with 0 < d <= ``_MAX_TURN_D``, at least one
+    instance, fit-set row, node and shard row, and max_support, viol_ship
+    >= 0; for d = 2, w, K and X 8-byte aligned.  Returns (B, N, k, n, d)."""
+    B, N, d = K.shape
+    k, n = y.shape[1], y.shape[2]
+    if not (B > 0 and N > 0 and k > 0 and n > 0 and 0 < d <= _MAX_TURN_D
+            and max_support >= 0 and viol_ship >= 0):
+        raise ValueError(f"maxmarg_turn_scan: unsupported shape B={B}, "
+                         f"N={N}, k={k}, n={n}, d={d}, max_support="
+                         f"{max_support}, viol_ship={viol_ship}")
+    dev, f32 = K.device, torch.float32
+    _require(w, "w", f32, (B, d), dev)
+    _require(b, "b", f32, (B,), dev)
+    _require(K, "K", f32, (B, N, d), dev)
+    _require(yK, "yK", torch.int32, (B, N), dev)
+    _require(X, "X", f32, (B, k, n, d), dev)
+    _require(y, "y", torch.int32, (B, k, n), dev)
+    if d == 2 and any(t.data_ptr() % 8 for t in (w, K, X)):
+        raise ValueError("maxmarg_turn_scan: w, K and X must be 8-byte "
+                         "aligned at d = 2 (the kernel reads points as "
+                         "pairs)")
+    return B, N, k, n, d
+
+
+_TURN_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -260,32 +291,35 @@ def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
     if K.device.type != "cuda":
         raise ValueError(f"maxmarg_turn_scan runs on cuda or cpu, "
                          f"not {K.device}")
-    B, N, d = K.shape
-    k, n = y.shape[1], y.shape[2]
-    if not (B > 0 and N > 0 and k > 0 and n > 0 and 0 < d <= _MAX_TURN_D
-            and max_support >= 0 and viol_ship >= 0):
-        raise ValueError(f"maxmarg_turn_scan: unsupported shape B={B}, "
-                         f"N={N}, k={k}, n={n}, d={d}")
+    B, N, k, n, d = check_turn_args(w, b, K, yK, X, y, max_support,
+                                    viol_ship)
     dev = K.device
-    _require(w, "w", torch.float32, (B, d), dev)
-    _require(b, "b", torch.float32, (B,), dev)
-    _require(K, "K", torch.float32, (B, N, d), dev)
-    _require(yK, "yK", torch.int32, (B, N), dev)
-    _require(X, "X", torch.float32, (B, k, n, d), dev)
-    _require(y, "y", torch.int32, (B, k, n), dev)
     sup_rank = torch.empty((B, N), dtype=torch.int32, device=dev)
     err_k = torch.empty((B, k), dtype=torch.int32, device=dev)
     viol_rank = torch.empty((B, k, n), dtype=torch.int32, device=dev)
-    scratch = torch.empty((B, N + k * n), dtype=torch.float32, device=dev)
     lib, fn = _build.bind("maxmarg_turn", "maxmarg_turn_launch", _TURN_ARGS)
     err = _build.launch(
         fn, dev, w.data_ptr(), b.data_ptr(), K.data_ptr(), yK.data_ptr(),
         X.data_ptr(), y.data_ptr(), sup_rank.data_ptr(), err_k.data_ptr(),
-        viol_rank.data_ptr(), scratch.data_ptr(), B, N, k, n, d,
-        float(np.float32(1.0 + rtol)), max_support, viol_ship)
+        viol_rank.data_ptr(), B, N, k, n, d, float(np.float32(1.0 + rtol)),
+        max_support, viol_ship)
     _build.check(lib, "maxmarg_turn", err)
     maxmarg_turn_scan.launches += 1
     return sup_rank, err_k, viol_rank
+
+
+def turn_occupancy(B, N, k, n, d, max_support=4, viol_ship=2
+                   ) -> Tuple[int, int, int]:
+    """(warps the turn kernel gives each segment, its register list's
+    capacity, its blocks resident on one SM of the current card) for these
+    shapes."""
+    _, fn = _build.bind("maxmarg_turn", "maxmarg_turn_occupancy",
+                        [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+    team, cap, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(B, N, k, n, d, max_support, viol_ship, ctypes.byref(team),
+             ctypes.byref(cap), ctypes.byref(blocks))
+    _build.check(_build.load("maxmarg_turn"), "maxmarg_turn", err)
+    return team.value, cap.value, blocks.value
 
 
 maxmarg_turn_scan.launches = 0
@@ -383,6 +417,29 @@ def uncertain_mask_plain(
         V.shape[0] * X.shape[1], nonempty, lo, hi, X, y)])
 
 
+def check_uncertain_args(V, dir_ok, lo, hi, X, y):
+    """Raise unless the kernel takes these inputs: f32 V (m, d), bool dir_ok
+    (B, m), f32 lo and hi (B, m), f32 X (B, n, d) and int32 y (B, n), on one
+    device and contiguous, with B, m > 0 and 0 < d <= ``_MAX_SCAN_D``; for
+    d = 2, V and X 8-byte aligned.  Returns (B, m, n, d)."""
+    (m, d), (B, n) = V.shape, y.shape
+    if not (B > 0 and m > 0 and 0 < d <= _MAX_SCAN_D):
+        raise ValueError(f"uncertain_mask: unsupported shape B={B}, m={m}, "
+                         f"n={n}, d={d}")
+    dev = X.device
+    _require(V, "V", torch.float32, (m, d), dev)
+    _require(dir_ok, "dir_ok", torch.bool, (B, m), dev)
+    _require(lo, "lo", torch.float32, (B, m), dev)
+    _require(hi, "hi", torch.float32, (B, m), dev)
+    _require(X, "X", torch.float32, (B, n, d), dev)
+    _require(y, "y", torch.int32, (B, n), dev)
+    if d == 2 and any(t.data_ptr() % 8 for t in (V, X)):
+        raise ValueError("uncertain_mask: V and X must be 8-byte aligned at "
+                         "d = 2 (the kernel reads points and directions as "
+                         "pairs)")
+    return B, m, n, d
+
+
 _UNCERTAIN_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 
@@ -396,28 +453,31 @@ def uncertain_mask(V, dir_ok, lo, hi, X, y) -> torch.Tensor:
     if X.device.type != "cuda":
         raise ValueError(f"uncertain_mask runs on cuda or cpu, "
                          f"not {X.device}")
-    (m, d), (B, n) = V.shape, y.shape
-    if not (B > 0 and m > 0 and 0 < d <= _MAX_SCAN_D):
-        raise ValueError(f"uncertain_mask: unsupported shape B={B}, m={m}, "
-                         f"n={n}, d={d}")
-    dev = X.device
-    _require(V, "V", torch.float32, (m, d), dev)
-    _require(dir_ok, "dir_ok", torch.bool, (B, m), dev)
-    _require(lo, "lo", torch.float32, (B, m), dev)
-    _require(hi, "hi", torch.float32, (B, m), dev)
-    _require(X, "X", torch.float32, (B, n, d), dev)
-    _require(y, "y", torch.int32, (B, n), dev)
-    out = torch.empty((B, n), dtype=torch.bool, device=dev)
+    B, m, n, d = check_uncertain_args(V, dir_ok, lo, hi, X, y)
+    out = torch.empty((B, n), dtype=torch.bool, device=X.device)
     if n == 0:
         return out
     lib, fn = _build.bind("uncertain_mask", "uncertain_mask_launch",
                           _UNCERTAIN_ARGS)
-    err = _build.launch(fn, dev, V.data_ptr(), dir_ok.data_ptr(),
+    err = _build.launch(fn, X.device, V.data_ptr(), dir_ok.data_ptr(),
                         lo.data_ptr(), hi.data_ptr(), X.data_ptr(),
                         y.data_ptr(), out.data_ptr(), B, m, n, d)
     _build.check(lib, "uncertain_mask", err)
     uncertain_mask.launches += 1
     return out
+
+
+def uncertain_occupancy(B, m, n, d) -> Tuple[int, int, int]:
+    """(blocks the SOU kernel splits each instance's points over, the
+    directions one chunk of its shared memory holds, its blocks resident on
+    one SM of the current card) for these shapes."""
+    _, fn = _build.bind("uncertain_mask", "uncertain_mask_occupancy",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+    parts, cap, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(B, m, n, d, ctypes.byref(parts), ctypes.byref(cap),
+             ctypes.byref(blocks))
+    _build.check(_build.load("uncertain_mask"), "uncertain_mask", err)
+    return parts.value, cap.value, blocks.value
 
 
 uncertain_mask.launches = 0

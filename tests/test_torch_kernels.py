@@ -571,3 +571,374 @@ def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
             V, torch.ones((1, len(V)), dtype=torch.bool),
             torch.zeros((1, len(V))), torch.zeros((1, len(V))), cut[4][:1],
             cut[5][:1])
+
+
+# -- the turn kernel's selection: per-lane lists, merged ---------------------
+
+def _before(a, b):
+    """The kernel's (margin, index) order."""
+    return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _lane_lists(key, valid, lanes, cap, floor):
+    """Each of ``lanes`` lanes walks rows lane, lane + lanes, ... and keeps
+    its ``cap`` smallest (margin, index) pairs among valid rows with a
+    finite margin after ``floor``, sorted, as the kernel's register list."""
+    lists = []
+    for lane in range(lanes):
+        kept = []
+        for i in range(lane, len(key), lanes):
+            c = (float(key[i]), i)
+            if not (valid[i] and c[0] < np.inf and _before(floor, c)):
+                continue
+            if len(kept) == cap and not _before(c, kept[-1]):
+                continue
+            t = 0
+            while t < len(kept) and not _before(c, kept[t]):
+                t += 1
+            kept = (kept[:t] + [c] + kept[t:])[:cap]
+        lists.append(kept)
+    return lists
+
+
+def _merge(lists, cap):
+    """``cap`` rounds of an argmin over the lists' heads, the winner popping
+    its head: the kernel's shuffle merge (a warp's lanes, then a team's
+    warps)."""
+    heads = [list(x) for x in lists]
+    out = []
+    for _ in range(cap):
+        live = [h for h in heads if h]
+        if not live:
+            break
+        best = min(live, key=lambda h: h[0])
+        out.append(best.pop(0))
+    return out
+
+
+def _replica_segment(key, valid, r, cap, team, band_scale=None):
+    """One segment's ranks as the kernel forms them: per-lane lists over a
+    lane-strided walk by a team of ``team`` warps, each warp's lanes merged,
+    then the team's warps; for the fit set (``band_scale`` given) the band
+    edge from the merged list's first margin.  Ranks beyond ``cap`` take
+    further passes after the last pair ranked."""
+    n = len(key)
+    ranks = np.full(n, n, np.int32)
+    thr, floor, base = np.float32(np.inf), (-np.inf, -1), 0
+    while True:
+        lanes = _lane_lists(key, valid, 32 * team, cap, floor)
+        warps = [_merge(lanes[32 * w:32 * w + 32], cap) for w in range(team)]
+        m = _merge(warps, cap)
+        if base == 0 and band_scale is not None:
+            mmin = np.float32(m[0][0] if m else np.inf)
+            thr = np.maximum(mmin, np.float32(1e-12)) * band_scale
+        placed = 0
+        for t, (kt, it) in enumerate(m):
+            if base + t < r and kt <= thr:
+                ranks[it] = base + t
+                placed += 1
+        if not (placed == cap and base + cap < r):
+            return ranks
+        floor, base = m[-1], base + cap
+
+
+def _list_cap(max_support, viol_ship):
+    r = max(max_support, viol_ship)
+    return 1 if r <= 1 else 2 if r <= 2 else 4 if r <= 4 else 8
+
+
+def _turn_replica(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
+                  viol_ship=2, team=1):
+    """numpy replica of ``csrc/maxmarg_turn.cu``: margins rounded once per
+    operation, left to right over d, then each segment's selection."""
+    def dec(P, wi, bi):
+        s = P[..., 0] * wi[0]
+        for c in range(1, P.shape[-1]):
+            s = s + P[..., c] * wi[c]
+        return s + bi
+
+    cap = _list_cap(max_support, viol_ship)
+    scale = np.float32(1.0 + rtol)
+    B, N, _ = K.shape
+    k, n = y.shape[1:]
+    sup = np.empty((B, N), np.int32)
+    err = np.empty((B, k), np.int32)
+    viol = np.empty((B, k, n), np.int32)
+    for i in range(B):
+        mK = yK[i].astype(np.float32) * dec(K[i], w[i], b[i])
+        sup[i] = _replica_segment(mK, yK[i] != 0, max_support, cap, team,
+                                  scale)
+        for j in range(k):
+            dj = dec(X[i, j], w[i], b[i])
+            lab = y[i, j]
+            err[i, j] = int(((lab != 0) & (np.where(dj > 0, 1, -1)
+                                           != lab)).sum())
+            viol[i, j] = _replica_segment(lab.astype(np.float32) * dj,
+                                          lab != 0, viol_ship, cap, team)
+    return sup, err, viol
+
+
+def _few_in_band(seed):
+    """Fit sets whose band holds fewer rows than max_support while many
+    more valid rows lie outside it; margins are exact copies of the first
+    coordinate (w = (1, 0), b = 0), so JAX's dot forms them alike."""
+    rng = np.random.default_rng(seed)
+    B, N, k, n = 3, 75, 2, 43
+    w = np.tile(np.float32([1.0, 0.0]), (B, 1))
+    b = np.zeros(B, np.float32)
+    K = rng.normal(size=(B, N, 2)).astype(np.float32)
+    yK = np.where(rng.random((B, N)) < 0.5, 1, -1).astype(np.int32)
+    m = rng.uniform(2.0, 4.0, (B, N)).astype(np.float32)
+    m[:, [5, 40]] = np.float32(1.0)                  # two rows in the band
+    m[1, 60] = np.float32(1.0) * np.float32(1.15)    # a third on its edge
+    yK[2, ::3] = 0
+    K[..., 0] = yK * m
+    X = rng.normal(size=(B, k, n, 2)).astype(np.float32)
+    y = np.where(rng.random((B, k, n)) < 0.5, 1, -1).astype(np.int32)
+    X[..., 0] = y * rng.choice(np.float32([-0.5, 0.25, 0.25, 1.0]), (B, k, n))
+    return w, b, K, yK, X, y
+
+
+_TURN_CASES = {
+    "ties0": lambda: chip_smoke.crafted_turn_inputs("cpu", 0),
+    "ties1": lambda: chip_smoke.crafted_turn_inputs("cpu", 1),
+    "ties2": lambda: chip_smoke.crafted_turn_inputs("cpu", 2),
+    "few_in_band": lambda: _few_in_band(4),
+}
+
+
+@pytest.mark.parametrize("case,max_support,viol_ship,team", [
+    ("ties0", 4, 2, 1), ("ties1", 4, 2, 1), ("ties2", 4, 2, 1),
+    ("ties0", 0, 0, 1), ("ties1", 1, 1, 1), ("ties2", 8, 8, 1),
+    ("ties0", 4, 2, 2), ("ties1", 8, 3, 8), ("ties2", 1, 4, 2),
+    ("ties0", 12, 2, 1), ("ties1", 3, 17, 2),
+    ("few_in_band", 4, 2, 1), ("few_in_band", 8, 2, 2),
+    ("few_in_band", 1, 8, 1), ("few_in_band", 0, 4, 8),
+])
+def test_turn_kernel_selection_replica_is_bit_for_bit(case, max_support,
+                                                      viol_ship, team):
+    """The kernel's one-pass selection, replicated in numpy (per-lane lists
+    over a walk whose lane count does not divide N or n, merged lanes then
+    warps, the band cut from the merged list, further passes above the
+    list's capacity), equals the plain version and JAX's
+    ``ref.maxmarg_turn_batch_ref`` on every tie ``crafted_turn_inputs``
+    holds and on bands with fewer rows than max_support."""
+    args = tuple(np.asarray(a) for a in _TURN_CASES[case]())
+    opts = dict(max_support=max_support, viol_ship=viol_ship)
+    got = _turn_replica(*args, team=team, **opts)
+    plain = kernels.maxmarg_turn_scan_plain(*map(torch.from_numpy, args),
+                                            **opts)
+    jref = ref.maxmarg_turn_batch_ref(*args, **opts)
+    for g, p, e in zip(got, plain, jref):
+        np.testing.assert_array_equal(g, p.numpy())
+        np.testing.assert_array_equal(g, np.asarray(e))
+    if case == "few_in_band" and max_support >= 4:
+        # only the band's rows are ranked, though more valid rows exist
+        assert (got[0] < args[2].shape[1]).sum(1).tolist() == [2, 3, 2]
+
+
+@pytest.mark.parametrize("seed,B,N,k,n,d", [(0, 3, 50, 3, 30, 3),
+                                            (1, 2, 97, 2, 33, 2),
+                                            (2, 2, 40, 4, 65, 16)])
+def test_turn_kernel_selection_replica_on_random_rows(seed, B, N, k, n, d):
+    """General position at d = 2, 3 and 16 (the kernel's pair path and its
+    any-d path compute the same margins): replica and plain version agree
+    for a warp and for teams."""
+    args = _turn_inputs(seed, B, N, k, n, d)
+    plain = kernels.maxmarg_turn_scan_plain(*map(torch.from_numpy, args))
+    for team in (1, 2, 8):
+        for g, p in zip(_turn_replica(*args, team=team), plain):
+            np.testing.assert_array_equal(g, p.numpy())
+
+
+def test_turn_arguments_refuse_what_the_kernel_does_not_take():
+    args = list(map(torch.from_numpy, _turn_inputs(0, d=2)))
+    check = support_margin.check_turn_args
+    assert check(*args) == (4, 50, 3, 30, 2)
+    for i, bad in [(0, torch.float64), (1, torch.float16), (2, torch.float64),
+                   (3, torch.int64), (4, torch.bfloat16), (5, torch.int16)]:
+        a = list(args)
+        a[i] = a[i].to(bad)
+        with pytest.raises(TypeError):
+            check(*a)
+    for i, bad in [(0, args[0][:, :1]), (1, args[1][:3]),
+                   (3, args[3][:, :7]), (5, args[5][:, :2])]:
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            check(*a)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        check(*args, max_support=-1)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        check(*args, viol_ship=-2)
+    wide = list(map(torch.from_numpy, _turn_inputs(
+        0, B=1, N=2, k=1, n=2, d=support_margin._MAX_TURN_D + 1)))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        check(*wide)
+    a = list(args)
+    a[2] = a[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(*a)
+    a = list(args)
+    a[4] = torch.zeros(a[4].numel() + 1)[1:].view(a[4].shape)  # 4-byte
+    with pytest.raises(ValueError, match="8-byte"):
+        check(*a)
+    odd = list(map(torch.from_numpy, _turn_inputs(0, d=3)))
+    odd[2] = torch.zeros(odd[2].numel() + 1)[1:].view(odd[2].shape)
+    assert check(*odd) == (4, 50, 3, 30, 3)   # pairs only at d = 2
+
+
+# -- the SOU kernel's direction-parallel test --------------------------------
+
+def _sou_replica(V, dir_ok, lo, hi, X, y, cap=1024, parts=1, width=128):
+    """numpy replica of ``csrc/uncertain_mask.cu``: per chunk of ``cap``
+    grid directions, the nonempty allowed ones compacted in grid order as
+    (v, lo, -hi) and padded with slots no point passes to a multiple of
+    ``width``; each point staged (negated unless labelled +1) and tested
+    ``width`` directions a round against lo or -hi, stopping at the first
+    round with a hit; points split over ``parts`` blocks.  (The kernel
+    tests a chunk of at most one round's directions point-parallel, in
+    grid order to each point's first hit: the same mask.)  Returns (mask,
+    slots tested)."""
+    B, m = dir_ok.shape
+    n = X.shape[1]
+    out = np.zeros((B, n), bool)
+    tested = 0
+    per = -(-n // parts)
+    for bi in range(B):
+        for j0 in range(0, m, cap):
+            js = [j for j in range(j0, min(m, j0 + cap))
+                  if dir_ok[bi, j] and lo[bi, j] < hi[bi, j]]
+            rounds = -(-len(js) // width)
+            pad = rounds * width - len(js)
+            Vc = np.concatenate([V[js], np.zeros((pad, V.shape[1]),
+                                                 np.float32)])
+            lo_c = np.concatenate([lo[bi, js], np.full(pad, np.inf,
+                                                       np.float32)])
+            nhi_c = np.concatenate([-hi[bi, js], np.full(pad, np.inf,
+                                                         np.float32)])
+            for part in range(parts):
+                for i in range(part * per, min(n, (part + 1) * per)):
+                    if out[bi, i]:
+                        continue
+                    pos = y[bi, i] == 1
+                    x = X[bi, i] if pos else -X[bi, i]
+                    bound = lo_c if pos else nhi_c
+                    for g in range(rounds):
+                        sl = slice(width * g, width * g + width)
+                        p = Vc[sl, 0] * x[0]
+                        for c in range(1, V.shape[1]):
+                            p = p + Vc[sl, c] * x[c]
+                        tested += width
+                        if (p > bound[sl]).any():
+                            out[bi, i] = True
+                            break
+    return out, tested
+
+
+@pytest.mark.parametrize("seed,d,cap,parts", [
+    (0, 2, 1024, 1), (1, 2, 1024, 3), (0, 3, 1024, 1), (1, 3, 256, 2),
+    (2, 2, 128, 1), (3, 5, 128, 4),
+])
+def test_sou_kernel_replica_is_exact_on_band_edges(seed, d, cap, parts):
+    """Points sitting exactly on band edges built from their own
+    projections (``crafted_scan_inputs``): the negated test against -hi,
+    the compaction, the inert padding, rounds of 128, chunks of directions
+    (points that hit in an earlier chunk skipped) and points split over
+    blocks give the plain version's mask exactly."""
+    V, ok, lo, hi, X, y, _, _ = chip_smoke.crafted_scan_inputs("cpu", seed,
+                                                               d)
+    got, _ = _sou_replica(*(a.numpy() for a in (V, ok, lo, hi, X, y)),
+                          cap=cap, parts=parts)
+    want = kernels.uncertain_mask_plain(V, ok, lo, hi, X, y)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("seed,d", [(0, 2), (1, 3)])
+def test_sou_kernel_replica_matches_jax_and_counts_its_tests(seed, d):
+    """General position against JAX's ``ref.uncertain_mask_batch_ref``; the
+    slots the replica tests are at least the bound's tests (every test up
+    to a point's first hit in grid order) and at most 127 a point more."""
+    V, ok, lo, hi, X, y = _cut_inputs(seed)
+    if d != 2:
+        rng = np.random.default_rng(seed)
+        V = rng.normal(size=(V.shape[0], d)).astype(np.float32)
+        X = rng.normal(size=X.shape[:2] + (d,)).astype(np.float32)
+    got, tested = _sou_replica(V, ok, lo, hi, X, y)
+    want = ref.uncertain_mask_batch_ref(*map(jnp.asarray,
+                                             (V, ok, lo, hi, X, y)))
+    np.testing.assert_array_equal(got, np.asarray(want))
+    tests, _, rounds = chip_smoke._uncertain_work(
+        *map(torch.from_numpy, (V, ok, lo, hi, X, y)))
+    points = X.shape[0] * X.shape[1]
+    live = [int(((lo[b] < hi[b]) & ok[b]).sum()) > 0 for b in range(len(ok))]
+    assert tests <= tested == 128 * rounds <= tests + 127 * points
+    assert any(live) and not all(live)
+
+
+def test_uncertain_arguments_refuse_what_the_kernel_does_not_take():
+    args = list(map(torch.from_numpy, _cut_inputs(0)))
+    check = support_margin.check_uncertain_args
+    assert check(*args) == (5, 128, 48, 2)
+    for i, bad in [(0, torch.float64), (1, torch.uint8), (2, torch.float16),
+                   (3, torch.float64), (4, torch.float64), (5, torch.int64)]:
+        a = list(args)
+        a[i] = a[i].to(bad)
+        with pytest.raises(TypeError):
+            check(*a)
+    for i, bad in [(1, args[1][:, :5]), (2, args[2][:2]), (4, args[4][:, :, :1])]:
+        a = list(args)
+        a[i] = bad
+        with pytest.raises(ValueError):
+            check(*a)
+    wide = torch.zeros((3, support_margin._MAX_SCAN_D + 1))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        check(wide, args[1][:, :3], args[2][:, :3], args[3][:, :3],
+              torch.zeros((5, 48, wide.shape[1])), args[5])
+    a = list(args)
+    a[2] = a[2].t().contiguous().t()
+    with pytest.raises(ValueError, match="contiguous"):
+        check(*a)
+    a = list(args)
+    a[0] = torch.zeros(a[0].numel() + 1)[1:].view(a[0].shape)   # 4-byte
+    with pytest.raises(ValueError, match="8-byte"):
+        check(*a)
+
+
+def _sass(name, ops):
+    lines = ["", f"\t\tFunction : {name}"]
+    for i, op in enumerate(ops):
+        lines.append(f"        /*{16 * i:04x}*/                   {op} ;"
+                     f"    /* 0x000000000000000000 */")
+    return "\n".join(lines) + "\n"
+
+
+def test_sass_counters_read_loops_and_vote_rounds():
+    """chip_smoke's SASS readers on a listing in ``cuobjdump -sass``'s
+    form: the exponentials' loop (the selective scan's count) and the
+    median span between votes that test from registers (the SOU kernel's
+    rounds; its shared-memory rounds and the divergence fallbacks after
+    the exit not counted)."""
+    scan = ["MOV R1, c[0x0][0x28]", "MUFU.EX2 R2, R3", "FFMA R4, R2, R5, R6",
+            "MUFU.EX2 R7, R8", "ISETP.GE.AND P0, PT, R9, R10, PT",
+            "@!P0 BRA 0x10", "EXIT"]
+    other = _sass("_Z5otherv", ["NOP", "EXIT"])
+    loop, exps, ops = chip_smoke._step_loop(
+        other + _sass("_Z10mamba_scanv", scan), "mamba_scan")
+    assert (loop, exps) == (5, 2) and ops["MUFU"] == 2 and ops["BRA"] == 1
+    rnd = ["FMUL R1, R2, R3", "FMUL R4, R5, R6", "FADD R7, R1, R4",
+           "FSETP.GT.AND P0, PT, R7, R8, PT", "VOTE.ANY R9, PT, P0",
+           "@P1 BRA 0x200"]
+    shared = ["LDS.128 R8, [R9]"] + rnd
+    fallback = ["WARPSYNC.COLLECTIVE R11, 0x31f0", "VOTE.ANY R55, PT, P0",
+                "ENDCOLLECTIVE", "BSYNC B0"]
+    sou = (["VOTE.ANY R0, PT, P2", "LDG.E R1, [R2]"] + rnd * 3
+           + ["SHFL.IDX R3, R4, R5, R6"] * 4 + rnd + shared * 2
+           + ["EXIT"] + fallback * 9)
+    per_round, ops = chip_smoke._vote_round(
+        _sass("_Z14uncertain_maskILi2EEvv", sou), "uncertain_maskILi2E")
+    assert per_round == len(rnd)
+    assert ops["FMUL"] == 2 and ops["VOTE"] == 1 and ops["BRA"] == 1
+    with pytest.raises(AssertionError, match="no SASS function"):
+        chip_smoke._vote_round(other, "uncertain_mask")
