@@ -486,6 +486,105 @@ def crafted_scan_inputs(device, seed=0, d=2, m=200):
     return Vt, t(dir_ok), lo, hi, t(X), t(y), Xwt, ywt
 
 
+def crafted_ranges_inputs(device, seed=0, d=2, m=203, n=392, B=5):
+    """Ranges-scan inputs on the kernel's edges, as ``(V, Xw, yw)``: a
+    batch mixing one transcript of 384 live rows (instance 0, as a noisy
+    MEDIAN instance holds, with runs of copies of a point in each class)
+    with transcripts of 4 to 48; every instance's live rows interleaved
+    with padding, not a prefix; instance 1 has no +1
+    row, instance 3 is padding only.  Directions 0 and 5 are the first
+    axis, where instances 2 and 4 project to ±0: per class 9 rows (24 in
+    instance 4, a list long enough that the kernel bounds it at d = 2),
+    the second and the ninth with first coordinate +0 and -0 (the others
+    -1, so every other term is -0), the rest on the wrong side of 0.
+    Their maximum or minimum is a zero whose sign depends on the order of
+    the merge: one row group meets the second row first, more meet the
+    ninth (instance 4's third row is a copy of its second).  The default
+    m = 203 is not a multiple of 4; an n above a staged chunk (1024 rows
+    at d = 2 and 3, 64 at d = 64) spreads the rows over chunks."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(m, d))
+    V = (V / np.linalg.norm(V, axis=1, keepdims=True)).astype(np.float32)
+    V[[0, 5 % m]] = np.eye(d, dtype=np.float32)[0]
+    X = rng.normal(size=(B, n, d)).astype(np.float32)
+    y = np.zeros((B, n), np.int32)
+    live = rng.choice(n, size=min(384, n), replace=False)
+    y[0, live] = rng.choice([-1, 1], size=len(live))
+    for label in (1, -1):       # runs of copies, as a transcript ships them
+        rows = np.flatnonzero(y[0] == label)
+        for i in range(1, len(rows)):
+            if rng.random() < 0.5:
+                X[0, rows[i]] = X[0, rows[i - 1]]
+    for b in range(1, B):
+        rows = rng.choice(n, size=min(4, n), replace=False)
+        y[b, rows] = rng.choice([-1, 1], size=len(rows))
+    if B > 1:
+        y[1] = np.where(y[1] == 1, -1, y[1])
+    for b, k in ((2, 9), (4, 24)):
+        if b >= B or n < 2 * k:
+            continue
+        y[b] = 0
+        rows = np.sort(rng.choice(n, size=2 * k, replace=False))
+        for label, at, zeros in ((1, rows[0::2], (0.0, -0.0)),
+                                 (-1, rows[1::2], (-0.0, 0.0))):
+            y[b, at] = label
+            X[b, at, 0] = -label * (0.5 + rng.random(k))
+            X[b, at[[1, 8]], 1:] = -1.0
+            X[b, at[[1, 8]], 0] = zeros
+            if b == 4:
+                X[b, at[2]] = X[b, at[1]]       # a copy of a zero row
+    if B > 3:
+        y[3] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(V), t(X), t(y)
+
+
+def ranges_splits(d, m, n):
+    """Every split the ranges kernel has at these shapes, as
+    ``support_margin.RangesSplit``s: each tile of its ladder, and where
+    the transcripts fit one chunk, each also with three instances (the
+    kernel's most) staged together by a block."""
+    from repro_torch.kernels import support_margin as sm
+
+    chunk = sm.ranges_chunk(d, n)
+    ladder = sm._RANGES_LADDER if d in (2, 3) else sm._RANGES_LADDER_ANY_D
+    batches = (1, sm._RANGES_MAX_BATCH) if n <= chunk else (1,)
+    return [sm.RangesSplit(w, p, 0, chunk, 0, k) for w, p in ladder
+            for k in batches]
+
+
+def ranges_replica(V, Xw, yw, groups, chunk):
+    """numpy replica of ``csrc/threshold_ranges.cu``'s order: per chunk of
+    ``chunk`` rows the +1 rows and the -1 rows listed in row order, place s
+    of a list going to row group s % ``groups``; each group folds its rows
+    chunk after chunk, and the groups' partials fold in group order, a
+    value replacing the running one only if strictly greater (lo) or less
+    (hi).  So each output is the first of the maximal (minimal) projections
+    in the order (group, chunk, place): its sign of zero is the kernel's.
+    (The rows the kernel passes over at d = 2 are never maximal.)
+    Projections are rounded once per operation, as the kernel's.  Returns
+    (lo, hi), each (B, m) f32."""
+    V, Xw, yw = (np.asarray(a) for a in (V, Xw, yw))
+    B, n, d = Xw.shape
+    m = V.shape[0]
+    lo = np.full((B, m), -np.inf, np.float32)
+    hi = np.full((B, m), np.inf, np.float32)
+    for b in range(B):
+        for label, out, better in ((1, lo, np.greater), (-1, hi, np.less)):
+            order = []
+            for c0 in range(0, n, chunk):
+                rows = c0 + np.flatnonzero(yw[b, c0:c0 + chunk] == label)
+                order += [(s % groups, c0, s, r) for s, r in enumerate(rows)]
+            for *_, r in sorted(order):
+                p = V[:, 0] * Xw[b, r, 0]
+                for c in range(1, d):
+                    p = p + V[:, c] * Xw[b, r, c]
+                out[b] = np.where(better(p, out[b]), p, out[b])
+    return lo, hi
+
+
 def oneway_buckets(datasets, engine):
     """The one-way smoke sweep as ``(name, instances)``: the JAX one-way
     benchmark's grid at n_per_node=1000 over seeds 0–63 (selector-major, as
@@ -1483,9 +1582,43 @@ def main() -> int:
     # (256 at d=64): three chunks, points that hit in one skipped in the next
     hold_uncertain(crafted_scan_inputs(dev, 0, 64, 600)[:6],
                    "uncertain, d=64, m=600")
+    # the ranges kernel on its own edges, at every split it has: equal to
+    # the plain version, and bit for bit (signs of zero included) to the
+    # replica of its merge order; m a multiple of 4 or not, rows over
+    # several chunks (1024 rows at d = 2 and 3, 64 at d = 64)
+    splits = 0
+    for dd, nn, mm in ((2, 392, 203), (2, 1100, 200), (3, 1100, 203),
+                       (3, 392, 200), (64, 392, 203)):
+        ra = crafted_ranges_inputs(dev, 0, dd, mm, nn)
+        what = f"d={dd}, n={nn}, m={mm}"
+        hold_ranges(ra, f"ranges, crafted, {what}")
+        lo_b, hi_b = kernels.threshold_ranges_plain(*ra)
+        for b in range(ra[1].shape[0]):
+            lo1, hi1 = kernels.threshold_ranges_one(ra[0], ra[1][b],
+                                                    ra[2][b])
+            _same_floats(lo1, lo_b[b], f"ranges B=1, crafted, {what}, {b}")
+            _same_floats(hi1, hi_b[b], f"ranges B=1, crafted, {what}, {b}")
+        for split in ranges_splits(dd, mm, nn):
+            got = support_margin._ranges_launch(*ra, split)
+            want = ranges_replica(*(a.cpu().numpy() for a in ra),
+                                  8 // split.warps, split.chunk)
+            for g, p, r, side in zip(got, (lo_b, hi_b), want, ("lo", "hi")):
+                errs["threshold_ranges"] = max(
+                    errs["threshold_ranges"],
+                    _same_floats(g, p, f"ranges {side}, crafted, {what}, "
+                                       f"split {split}"))
+                bits = g.cpu().numpy().view(np.int32)
+                if not np.array_equal(bits, r.view(np.int32)):
+                    raise AssertionError(
+                        f"ranges {side}, crafted, {what}, split {split}: "
+                        f"{int((bits != r.view(np.int32)).sum())} entries "
+                        f"differ in their bits from the replica")
+            splits += 1
     print("kernels: ranges and uncertainty scans exactly equal to the plain "
           "versions on crafted edges (d=2, d=3; uncertainty also at d=64 "
-          "over m=600 directions), batched and at B=1")
+          "over m=600 directions), batched and at B=1; the ranges kernel "
+          f"also at d=64, m=203 and n=1100, and at {splits} (input, split) "
+          "pairs bit for bit equal to its replica, ±0 included")
 
     t0 = time.perf_counter()
     final = median.run_hot(data, V, s0, k=k, max_turns=k * cfg["max_epochs"],
@@ -1547,9 +1680,17 @@ def main() -> int:
             f"uncertain B=1, final state, instance {b}"))
     hold_uncertain((V,) + tuple(a[:24] for a in ua[1:]),
                    "uncertain, final state, 24 instances")
+    ra = scan_args[0][0]
+    lo_b, hi_b = kernels.threshold_ranges_plain(V, ra[1][:4], ra[2][:4])
+    for b in range(4):
+        lo1, hi1 = kernels.threshold_ranges_one(V, ra[1][b], ra[2][b])
+        _same_floats(lo1, lo_b[b], f"ranges B=1, final state, instance {b}")
+        _same_floats(hi1, hi_b[b], f"ranges B=1, final state, instance {b}")
+    hold_ranges((V, ra[1][:24], ra[2][:24]),
+                "ranges, final state, 24 instances")
     print("kernels: ranges and uncertainty scans exactly equal to the plain "
-          "versions on the full-batch final state (uncertainty also at B=1 "
-          "and B=24)")
+          "versions on the full-batch final state, at B=24 and at B=1 "
+          "(instances 0-3)")
 
     ra, ua = scan_args[0]
     m, d2, B = V.shape[0], V.shape[1], cfg["B"]
@@ -1565,7 +1706,7 @@ def main() -> int:
              # 2d-1 operations of projection and one compare per live
              # transcript row and direction
              ops=2 * d2 * int((ra[2] != 0).sum()) * m,
-             shape=f"B={B} m={m} cap={ra[1].shape[1]} d={d2}"),
+             shape=f"B={B} m={m} cap={ra[1].shape[1]} d={d2}", graph=True),
         dict(name="uncertain_mask", route="cuda",
              source="src/repro_torch/kernels/csrc/uncertain_mask.cu",
              replaces="src/repro/kernels/support_margin.py:449",
@@ -1591,7 +1732,7 @@ def main() -> int:
                      V, ra1[1][None], ra1[2][None]),
                  bytes=_ranges_bytes(*ra1, 1),
                  ops=2 * d2 * int((ra1[2] != 0).sum()) * m,
-                 shape=f"m={m} cap={ra1[1].shape[0]} d={d2}"),
+                 shape=f"m={m} cap={ra1[1].shape[0]} d={d2}", graph=True),
             dict(name="uncertain_mask_one",
                  fn=lambda: kernels.uncertain_mask_one(V, *ua1),
                  plain=lambda: kernels.uncertain_mask_plain(
@@ -1600,6 +1741,15 @@ def main() -> int:
                  ops=2 * d2 * ua1_work[0],
                  shape=f"m={m} n={ua1[3].shape[0]} d={d2}", graph=True)):
         _time_row(r)
+    cap_w = ra[1].shape[1]
+    for bb in (B, 24, 1):
+        split = support_margin.ranges_occupancy(bb, m, cap_w, d2)
+        tile = 32 * split.warps * split.per_thread
+        print(f"threshold_ranges split at B={bb}: {split}: a block of "
+              f"{8 // split.warps} row group(s) of {split.warps} warp(s), "
+              f"{split.per_thread} direction(s) a thread, tiles of {tile}; "
+              f"{bb * split.tiles} blocks on {sms} SMs "
+              f"({bb * split.tiles / (split.per_sm * sms):.3f} waves)")
     parts, chunk, per_sm = support_margin.uncertain_occupancy(B, m, n_sou,
                                                               d2)
     print(f"uncertain_mask residency: {per_sm} blocks of 256 an SM on {sms} "

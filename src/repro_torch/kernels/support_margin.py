@@ -25,16 +25,19 @@ maxima and minima of projections only, so kernel and plain version agree
 exactly.  The CUDA sources' notes give the bounds
 on an H100 and the designs.  The wrappers' argument checks are plain
 functions (:func:`check_extremes_args`, :func:`check_turn_args`,
-:func:`check_uncertain_args`), and :func:`extremes_occupancy`,
-:func:`turn_occupancy` and :func:`uncertain_occupancy` report how a kernel
-spreads a call over the card.  A wrapper launches its kernel for CUDA tensors
-(bound once, on the current stream's raw handle: :func:`._build.launch`)
+:func:`check_ranges_args`, :func:`check_uncertain_args`), and
+:func:`extremes_occupancy`, :func:`turn_occupancy`,
+:func:`ranges_occupancy` and :func:`uncertain_occupancy` report how a
+kernel spreads a call over the card.  A wrapper launches its kernel for
+CUDA tensors (bound once, on the current stream's raw handle:
+:func:`._build.launch`)
 and takes the plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -351,18 +354,11 @@ def threshold_ranges_plain(
             torch.cat([p[1] for p in parts]))
 
 
-_RANGES_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The ranges of :func:`threshold_ranges_plain`.  CUDA tensors launch
-    the kernel of ``csrc/threshold_ranges.cu`` (and count the launch in
-    ``threshold_ranges.launches``); CPU tensors take the plain version."""
-    if Xw.device.type == "cpu":
-        return threshold_ranges_plain(V, Xw, yw)
-    if Xw.device.type != "cuda":
-        raise ValueError(f"threshold_ranges runs on cuda or cpu, "
-                         f"not {Xw.device}")
+def check_ranges_args(V, Xw, yw):
+    """Raise unless the kernel takes these inputs: f32 V (m, d), f32 Xw
+    (B, n, d) and int32 yw (B, n), on one device and contiguous, with
+    B, m > 0 and 0 < d <= ``_MAX_SCAN_D``; for d = 2, V and Xw 8-byte
+    aligned.  Returns (B, m, n, d)."""
     (m, d), (B, n) = V.shape, yw.shape
     if not (B > 0 and m > 0 and 0 < d <= _MAX_SCAN_D):
         raise ValueError(f"threshold_ranges: unsupported shape B={B}, "
@@ -371,15 +367,133 @@ def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
     _require(V, "V", torch.float32, (m, d), dev)
     _require(Xw, "Xw", torch.float32, (B, n, d), dev)
     _require(yw, "yw", torch.int32, (B, n), dev)
-    lo = torch.empty((B, m), dtype=torch.float32, device=dev)
-    hi = torch.empty((B, m), dtype=torch.float32, device=dev)
+    if d == 2 and any(t.data_ptr() % 8 for t in (V, Xw)):
+        raise ValueError("threshold_ranges: V and Xw must be 8-byte aligned "
+                         "at d = 2 (the kernel reads points and directions "
+                         "as pairs)")
+    return B, m, n, d
+
+
+class RangesSplit(NamedTuple):
+    """How the ranges kernel spreads a call (``csrc/threshold_ranges.cu``):
+    ``warps`` warps make a row group (a block's 8 // warps groups split
+    an instance's rows), a thread takes ``per_thread`` consecutive
+    directions, an instance's directions are split over ``tiles`` blocks,
+    ``chunk`` transcript rows are staged in shared memory at a time, a
+    block stages ``per_block`` instances together (their labels read at
+    once, their points copied at once), and ``per_sm`` blocks are resident
+    on one SM (at the largest chunk and ``per_block``)."""
+    warps: int
+    per_thread: int
+    tiles: int
+    chunk: int
+    per_sm: int
+    per_block: int = 1
+
+
+# (warps a row group, directions a thread), widest tile first; at d = 2
+# and 3 the directions sit in registers, four a thread
+_RANGES_LADDER = ((8, 4), (4, 4), (2, 4), (1, 4), (1, 1))
+_RANGES_LADDER_ANY_D = ((8, 1), (4, 1), (2, 1), (1, 1))
+_RANGES_MAX_CHUNK = 1024     # rows: 256 threads read 4 labels each
+_RANGES_STAGE_FLOATS = 4096  # 16 KB a buffer of staged rows, two buffers
+_RANGES_MAX_BATCH = 3        # instances a block stages together, at most
+_RANGES_RESIDENCY = {}       # d -> (SMs, blocks an SM)
+
+
+def ranges_chunk(d: int, n: int = _RANGES_MAX_CHUNK) -> int:
+    """Transcript rows the ranges kernel stages at a time: as many as 16 KB
+    holds (a row padded to 2 floats at d = 2, else to a multiple of 4), at
+    most 1024, a multiple of 4, and no more than n needs."""
+    xs = 2 if d == 2 else 4 * -(-d // 4)
+    cap = min(_RANGES_MAX_CHUNK, _RANGES_STAGE_FLOATS // xs // 4 * 4)
+    return max(4, min(cap, -(-n // 4) * 4))
+
+
+def _ranges_residency(d: int, per_thread: int) -> Tuple[int, int]:
+    """(SMs, blocks of the kernel for d and per_thread resident on one SM)
+    of the current card, read once for each d."""
+    got = _RANGES_RESIDENCY.get(d)
+    if got is None:
+        _, fn = _build.bind("threshold_ranges", "threshold_ranges_residency",
+                            [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        blocks = ctypes.c_int(0)
+        err = fn(d, per_thread, ranges_chunk(d), _RANGES_MAX_BATCH,
+                 ctypes.byref(blocks))
+        _build.check(_build.load("threshold_ranges"), "threshold_ranges",
+                     err)
+        sms = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+        got = _RANGES_RESIDENCY[d] = (sms, blocks.value)
+    return got
+
+
+@functools.lru_cache(maxsize=1024)
+def _ranges_split(B, m, n, d, sms, per_sm) -> RangesSplit:
+    ladder = _RANGES_LADDER if d in (2, 3) else _RANGES_LADDER_ANY_D
+    # tiles at most twice m (more than half a tile idle otherwise)
+    fit = [s for s in ladder if 32 * s[0] * s[1] < 2 * m] or [ladder[-1]]
+    slots = sms * per_sm
+    for warps, per_thread in fit:
+        tiles = -(-m // (32 * warps * per_thread))
+        if B * tiles >= slots:
+            break
+    chunk = ranges_chunk(d, n)
+    # blocks beyond one wave take several instances each (one chunk each)
+    per_block = (min(_RANGES_MAX_BATCH, -(-B * tiles // slots))
+                 if n <= chunk else 1)
+    return RangesSplit(warps, per_thread, tiles, chunk, per_sm, per_block)
+
+
+def ranges_occupancy(B: int, m: int, n: int, d: int, *, sms: int = None,
+                     per_sm: int = None) -> RangesSplit:
+    """The split of a ranges call: the widest direction tile whose blocks
+    (B × tiles) fill the card once, ``sms`` × ``per_sm`` blocks, else the
+    narrowest (32 directions, 8 row groups of a warp); tiles wider than
+    twice m are passed over.  Where the blocks would fill the card more
+    than once and the transcripts fit one chunk, a block stages up to three
+    instances together.  Given ``sms`` and ``per_sm``, a pure function of
+    its arguments; they default to the current card's, read once."""
+    if sms is None or per_sm is None:
+        ladder = _RANGES_LADDER if d in (2, 3) else _RANGES_LADDER_ANY_D
+        card = _ranges_residency(d, ladder[0][1])
+        sms = card[0] if sms is None else sms
+        per_sm = card[1] if per_sm is None else per_sm
+    return _ranges_split(B, m, n, d, sms, per_sm)
+
+
+_RANGES_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+    [ctypes.c_void_p]
+
+
+def _ranges_launch(V, Xw, yw, split: RangesSplit = None):
+    """Launch the ranges kernel, split by ``split`` (else by
+    :func:`ranges_occupancy`); one allocation holds lo and hi."""
+    B, m, n, d = check_ranges_args(V, Xw, yw)
+    split = split or ranges_occupancy(B, m, n, d)
+    out = torch.empty((2, B, m), dtype=torch.float32, device=Xw.device)
     lib, fn = _build.bind("threshold_ranges", "threshold_ranges_launch",
                           _RANGES_ARGS)
-    err = _build.launch(fn, dev, V.data_ptr(), Xw.data_ptr(), yw.data_ptr(),
-                        lo.data_ptr(), hi.data_ptr(), B, m, n, d)
+    err = _build.launch(fn, Xw.device, V.data_ptr(), Xw.data_ptr(),
+                        yw.data_ptr(), out.data_ptr(), B, m, n, d,
+                        split.warps, split.per_thread, split.chunk,
+                        split.per_block)
     _build.check(lib, "threshold_ranges", err)
     threshold_ranges.launches += 1
-    return lo, hi
+    return out[0], out[1]
+
+
+def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranges of :func:`threshold_ranges_plain`.  CUDA tensors launch
+    the kernel of ``csrc/threshold_ranges.cu``, split by
+    :func:`ranges_occupancy` (and count the launch in
+    ``threshold_ranges.launches``); CPU tensors take the plain version."""
+    if Xw.device.type == "cpu":
+        return threshold_ranges_plain(V, Xw, yw)
+    if Xw.device.type != "cuda":
+        raise ValueError(f"threshold_ranges runs on cuda or cpu, "
+                         f"not {Xw.device}")
+    return _ranges_launch(V, Xw, yw)
 
 
 threshold_ranges.launches = 0

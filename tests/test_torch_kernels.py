@@ -571,6 +571,13 @@ def test_kernel_argument_checks_refuse_what_the_kernels_do_not_take():
             V, torch.ones((1, len(V)), dtype=torch.bool),
             torch.zeros((1, len(V))), torch.zeros((1, len(V))), cut[4][:1],
             cut[5][:1])
+    V, X, y = cut[0], cut[4], cut[5]
+    assert support_margin.check_ranges_args(V, X, y) == (5, 128, 48, 2)
+    with pytest.raises(TypeError):
+        support_margin.check_ranges_args(V, X, y.to(torch.int64))
+    with pytest.raises(ValueError, match="8-byte"):
+        support_margin.check_ranges_args(
+            V, torch.zeros(X.numel() + 1)[1:].view(X.shape), y)
 
 
 # -- the turn kernel's selection: per-lane lists, merged ---------------------
@@ -904,6 +911,227 @@ def test_uncertain_arguments_refuse_what_the_kernel_does_not_take():
     a[0] = torch.zeros(a[0].numel() + 1)[1:].view(a[0].shape)   # 4-byte
     with pytest.raises(ValueError, match="8-byte"):
         check(*a)
+
+
+# -- the ranges kernel: row groups, chunks and its merge order --------------
+
+def _ranges_jax_ok(got, want, Xw):
+    """tests/test_torch_dataplane.py's ``_assert_ranges`` rule, the Pallas
+    kernel's ±1e30 sentinels read as ±inf: the same infinities, finite
+    values to rtol 1e-6 and, since JAX's dot sums the d products in
+    another order (with fused multiply-adds), to d·eps·max‖x‖: two orders
+    of a sum of d products differ by at most d·eps·Σ|v_c x_c|, and
+    Σ|v_c x_c| <= ‖x‖ for a unit direction."""
+    Xw = np.asarray(Xw)
+    atol = (Xw.shape[-1] * np.finfo(np.float32).eps
+            * float(np.linalg.norm(Xw, axis=-1).max(initial=0.0)))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        w = np.where(w <= -5e29, -np.inf, np.where(w >= 5e29, np.inf, w))
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(np.isfinite(g), fin)
+        np.testing.assert_array_equal(g[~fin], w[~fin])
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-6, atol=atol)
+
+
+def _ranges_case(d):
+    """``chip_smoke.crafted_ranges_inputs`` with rows over two or more
+    chunks of the kernel's shared memory (1024 rows at d = 2 and 3, 64 at
+    d = 64)."""
+    n = 392 if d == 64 else 1100
+    V, Xw, yw = chip_smoke.crafted_ranges_inputs("cpu", 0, d, n=n)
+    chunk = support_margin.ranges_chunk(d, n)
+    assert n > chunk
+    return V, Xw, yw, chunk
+
+
+@pytest.mark.parametrize("warps", [8, 2, 1])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("d", [2, 3, 64])
+def test_ranges_kernel_replica_is_exact_on_crafted_edges(d, B, warps):
+    """The replica of the kernel's order (row groups of ``warps`` warps,
+    chunks, the +1 and -1 lists, strict merges) against the plain version
+    under == (infinities and zeros of either sign included) and against
+    JAX's ``ref.threshold_ranges_batch_ref``, batched (B=5) and on each
+    instance alone (B=1): a 384-row transcript beside 4-row ones, rows
+    interleaved with padding, a class absent, padding only, m = 203, rows
+    over several chunks, ±0 maxima and minima."""
+    V, Xw, yw, chunk = _ranges_case(d)
+    jlo, jhi = ref.threshold_ranges_batch_ref(
+        *(jnp.asarray(a.numpy()) for a in (V, Xw, yw)))
+    for b0 in (range(5) if B == 1 else [0]):
+        sl = slice(b0, b0 + B)
+        got = chip_smoke.ranges_replica(V.numpy(), Xw[sl].numpy(),
+                                        yw[sl].numpy(), 8 // warps, chunk)
+        want = kernels.threshold_ranges_plain(V, Xw[sl], yw[sl])
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32
+            np.testing.assert_array_equal(g, w.numpy())
+        _ranges_jax_ok(got, (np.asarray(jlo)[sl], np.asarray(jhi)[sl]),
+                       Xw[sl])
+    if B == 5:
+        assert np.isinf(got[0][[1, 3]]).all()      # no +1 row, padding only
+        assert np.isinf(got[1][3]).all() and np.isfinite(got[1][0]).all()
+        for b in (2, 4):     # ±0 maxima and minima on the first axis
+            assert (got[0][b, [0, 5]] == 0).all()
+            assert (got[1][b, [0, 5]] == 0).all()
+
+
+@pytest.mark.parametrize("d", [2, 3, 64])
+def test_ranges_kernel_replica_matches_pallas_in_interpret_mode(d):
+    """``threshold_ranges_batched`` and, on instance 2 (the ±0 one), the
+    single-instance ``threshold_ranges`` through the JAX package's
+    wrappers in interpret mode, as tests/test_torch_dataplane.py runs
+    them."""
+    from jax.experimental.pallas import tpu as pltpu
+    import contextlib
+    V, Xw, yw, chunk = _ranges_case(d)
+    got = chip_smoke.ranges_replica(V.numpy(), Xw.numpy(), yw.numpy(), 1,
+                                    chunk)
+    ctx = (pltpu.force_tpu_interpret_mode()
+           if hasattr(pltpu, "force_tpu_interpret_mode")
+           else contextlib.nullcontext())
+    with ctx:
+        want = ops.support_ranges_batch(
+            *(jnp.asarray(a.numpy()) for a in (V, Xw, yw)), interpret=True)
+        one = ops.support_ranges(
+            *(jnp.asarray(a.numpy()) for a in (V, Xw[2], yw[2])),
+            interpret=True)
+    _ranges_jax_ok(got, want, Xw)
+    _ranges_jax_ok((got[0][2], got[1][2]), one, Xw[2])
+
+
+def test_ranges_replica_signs_of_zero_follow_the_merge_order():
+    """On direction 0 (the first axis) instance 2's +1 rows project to
+    (negative, +0, negative x 6, -0) and its -1 rows to (positive, -0,
+    positive x 6, +0), all in one chunk: one row group meets the second
+    row first and keeps its zero; with 2, 4 or 8 groups group 0 holds
+    the first and the ninth rows (places 0 and 8) and its zero is met
+    first in the merge.  Equal values under ==, other bits."""
+    V, Xw, yw = (a.numpy() for a in chip_smoke.crafted_ranges_inputs(
+        "cpu", 0, 2))
+    chunk = support_margin.ranges_chunk(2, Xw.shape[1])
+    signs = {}
+    for groups in (1, 2, 4, 8):
+        lo, hi = chip_smoke.ranges_replica(V, Xw, yw, groups, chunk)
+        assert lo[2, 0] == 0 and hi[2, 0] == 0
+        signs[groups] = (bool(np.signbit(lo[2, 0])),
+                         bool(np.signbit(hi[2, 0])))
+    assert signs == {1: (False, True), 2: (True, False), 4: (True, False),
+                     8: (True, False)}
+
+
+@pytest.mark.parametrize("B,m,n,d,want", [
+    (3072, 1024, 392, 2, (8, 4, 1, 392, 3)),    # the SOU path: 1024
+    #                                             blocks of 3 instances
+    (528, 1024, 392, 2, (4, 4, 2, 392, 1)),     # 1056 blocks fill the card
+    (24, 1024, 392, 2, (1, 1, 32, 392, 1)),
+    (1, 1024, 392, 2, (1, 1, 32, 392, 1)),      # 32 blocks an instance
+    (3072, 128, 392, 2, (1, 4, 1, 392, 3)),     # tiles above 2m passed over
+    (5, 203, 1100, 3, (1, 1, 7, 1024, 1)),      # rows over two chunks
+    (5, 203, 392, 64, (1, 1, 7, 64, 1)),        # any d: a direction a
+    #                                             thread
+    (3072, 1024, 392, 5, (8, 1, 4, 392, 3)),    # at most three a block
+    (9000, 1024, 2000, 2, (8, 4, 1, 1024, 1)),  # several chunks: one
+    (1, 10, 0, 2, (1, 1, 1, 4, 1)),             # no rows
+])
+def test_ranges_occupancy_is_a_pure_split(B, m, n, d, want):
+    got = support_margin.ranges_occupancy(B, m, n, d, sms=132, per_sm=8)
+    assert tuple(got[:4]) + (got.per_block,) == want and got.per_sm == 8
+    assert got == support_margin.ranges_occupancy(B, m, n, d, sms=132,
+                                                  per_sm=8)
+
+
+def test_ranges_occupancy_covers_every_direction_and_fills_the_card():
+    """For any shape: the tiles cover m, a tile is one of the kernel's
+    (8, 4, 2 or 1 warps a row group; 4 directions a thread only at d = 2
+    and 3), the chunk is a multiple of 4 no larger than 1024 that holds
+    all of n when the shared memory allows, the blocks fill the card
+    unless the narrowest tile cannot, and a block stages up to three
+    instances together, enough to fit the card once, only where the
+    transcripts fit one chunk."""
+    rng = np.random.default_rng(0)
+    for _ in range(400):
+        B = int(rng.integers(1, 5000))
+        m = int(rng.integers(1, 3000))
+        n = int(rng.integers(0, 3000))
+        d = int(rng.choice([1, 2, 3, 4, 5, 16, 63, 64]))
+        sms, per_sm = int(rng.integers(1, 200)), int(rng.integers(1, 9))
+        s = support_margin.ranges_occupancy(B, m, n, d, sms=sms,
+                                            per_sm=per_sm)
+        tile = 32 * s.warps * s.per_thread
+        assert s.warps in (1, 2, 4, 8)
+        assert s.per_thread == 1 or (s.per_thread == 4 and d in (2, 3))
+        assert s.tiles == -(-m // tile)
+        assert s.chunk % 4 == 0 and 4 <= s.chunk <= 1024
+        cap = support_margin.ranges_chunk(d)
+        assert s.chunk == max(4, min(cap, -(-n // 4) * 4))
+        narrowest = s.warps == 1 and s.per_thread == 1
+        assert B * s.tiles >= sms * per_sm or narrowest or tile >= 2 * m
+        assert 1 <= s.per_block <= 3 and (s.per_block == 1 or n <= s.chunk)
+        blocks = -(-B // s.per_block) * s.tiles
+        assert blocks <= sms * per_sm or s.per_block == 3 or n > s.chunk
+    assert [support_margin.ranges_chunk(d) for d in (2, 3, 5, 64)] == \
+        [1024, 1024, 512, 64]
+
+
+def test_ranges_occupancy_reads_the_card_once(monkeypatch):
+    """Without ``sms`` and ``per_sm`` the split reads the card's residency
+    through the library's ``threshold_ranges_residency`` once for each d,
+    not at every call."""
+    import types
+    calls = []
+
+    def residency(d, per_thread, chunk, per_block, blocks):
+        calls.append((d, per_thread, chunk, per_block))
+        blocks._obj.value = 6
+        return 0
+
+    monkeypatch.setattr(support_margin, "_RANGES_RESIDENCY", {})
+    monkeypatch.setattr(support_margin._build, "bind",
+                        lambda stem, entry, args: (None, residency))
+    monkeypatch.setattr(support_margin._build, "load", lambda stem: None)
+    monkeypatch.setattr(support_margin._build, "check",
+                        lambda lib, stem, err: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(
+                            multi_processor_count=132))
+    for B in (3072, 24, 1, 3072):
+        s = support_margin.ranges_occupancy(B, 1024, 392, 2)
+        assert s == support_margin.ranges_occupancy(B, 1024, 392, 2,
+                                                    sms=132, per_sm=6)
+    support_margin.ranges_occupancy(5, 203, 392, 64)
+    assert calls == [(2, 4, 1024, 3), (64, 1, 64, 3)]
+
+
+def test_ranges_arguments_refuse_what_the_kernel_does_not_take():
+    V, _, _, _, X, y = map(torch.from_numpy, _cut_inputs(0))
+    check = support_margin.check_ranges_args
+    assert check(V, X, y) == (5, 128, 48, 2)
+    for i, bad in [(0, torch.float64), (1, torch.float16), (2, torch.int64)]:
+        a = [V, X, y]
+        a[i] = a[i].to(bad)
+        with pytest.raises(TypeError):
+            check(*a)
+    for i, bad in [(1, X[:, :, :1]), (1, X[:2]), (2, y[:, :5])]:
+        a = [V, X, y]
+        a[i] = bad
+        with pytest.raises(ValueError):
+            check(*a)
+    for args in [(torch.zeros((3, support_margin._MAX_SCAN_D + 1)),
+                  torch.zeros((5, 48, support_margin._MAX_SCAN_D + 1)), y),
+                 (V, X[:0], y[:0]), (V[:0], X, y)]:
+        with pytest.raises(ValueError, match="unsupported shape"):
+            check(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        check(V, X.transpose(0, 1).contiguous().transpose(0, 1), y)
+    X4 = torch.zeros(X.numel() + 1)[1:].view(X.shape)   # 4-byte aligned
+    with pytest.raises(ValueError, match="8-byte"):
+        check(V, X4, y)
+    X3 = torch.zeros(5 * 48 * 3 + 1)[1:].view(5, 48, 3)
+    assert check(torch.zeros((7, 3)), X3, y) == (5, 7, 48, 3)   # pairs
+    assert check(V, X[:, :0], y[:, :0]) == (5, 128, 0, 2)       # no rows
 
 
 def _sass(name, ops):
