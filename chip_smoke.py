@@ -132,7 +132,45 @@ Phases (any failure exits non-zero; none is caught):
    scan launches, no attention launch: the attention layer has a cache);
    then card against CPU in f32 with the same weights at full width cut to
    two layers (rwkv6-7b; Jamba's ``(mamba, mlp), (attn, mlp)``), B=1,
-   prompt 32: loss to 1e-5 and 8 greedy tokens under phase 13's tie rule.
+   prompt 32: loss to 1e-5 and 8 greedy tokens under phase 13's tie rule;
+17. the unified dispatch and the protocol service (``unified_phase``):
+   17a the interleaved MEDIAN / MAXMARG / SAMPLING grid of
+   ``unified_instances`` through one ``run_sweep(unified_dispatch=True)``
+   and again bucketed, launch counts read around the unified call (the
+   cut, extremes and turn scans and the Pegasos stage must launch): MEDIAN
+   rows bit for bit, the others exact in comm, rounds, convergence,
+   sample sizes and warm latches and to a cosine of 1 - 1e-4, every
+   instance's error within ε + 2/n; the unified sweep again at each width
+   policy (linear, geometric, geometric, linear; the same tiers against
+   the geometric run) with the walls printed beside the bucketed one; the
+   kernel calls of the counted unified run are recorded (``_recording``)
+   and, for each wrapper, batch size and option set, the widest is
+   replayed against its plain version on its inputs, every output exact
+   (``_hold_calls``); 17b ``ProtocolService`` over a unified 1024-slot pool
+   (``POOL``) with 3072 sessions, each node's 1000 points streamed through
+   ``open`` / ``feed`` (4 batches) / ``close`` while the pool runs:
+   fault-free, twice under ``POOL_CHAOS``, and fault-free with a
+   checkpoint at half the first run's pool turns restored into a fresh
+   service — survivors, the second chaos run and the restored run bit for
+   bit the fault-free one, quarantined sessions with a reason and no
+   result, one launch shape in ``hotloop.KEY_LOG``, launch counts read
+   around the four runs; every kernel call of fault-free pool turn
+   ``POOL_HOLD_TURN`` (the full 1024-row block at the 1712-wide cap)
+   replayed against its plain version, every output exact; sessions/s,
+   pool turns and the median ms a pool turn (CUDA-synchronised host
+   clock) and the dispatch's share of it printed per run; 17c 24 sessions through ``POOL_SMALL`` pools on the
+   card and the CPU, the classic solver loop on both: statuses, comm,
+   rounds and convergence exact, MEDIAN to 1e-6, the others to the cosine
+   tier.
+
+Unified and service config: the MAXMARG smoke's settings (below) over
+data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
+the three families interleaved (B=1152), plus
+``data_mixed_hardness(n_per_node=100, k=4)`` × ε ∈ {0.05, 0.02} (B=192);
+the service's sessions are the same kind of traffic, 1024 a family, into
+``PoolConfig(selector="unified", slots=1024, k=2, n_pad=1000,
+n_angles=1024, max_epochs=8, admit_block=64, res_cap=1712)`` (1712 rows
+hold the ε=0.01 SAMPLING sessions' ε-net).
 
 MEDIAN smoke config: the shape of the JAX package's engine benchmark grid
 (``benchmarks/engine_sweep.py``: data1/2/3 × ε ∈ {0.2, 0.1, 0.05, 0.025},
@@ -174,6 +212,7 @@ generator on the card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -214,6 +253,20 @@ SERVE_SSM = dict(B=8, prompt=512, cache_len=1024, tokens=64)   # C and D
 # the SSM scans, kernel against plain: max |diff| <= tol * max(1, max |plain|)
 # per output; the states are f32 in either input type
 SSM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
+# phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
+# SAMPLING sessions' 1711-row ε-net (the default sizes it at eps=0.05)
+POOL = dict(selector="unified", slots=1024, k=2, d=2, n_pad=1000,
+            n_angles=1024, max_epochs=8, admit_block=64, res_cap=1712)
+POOL_SESSIONS = 3072
+POOL_STREAM = dict(chunk=256, batches=4)   # sessions closed a pool turn
+POOL_HOLD_TURN = 6     # the fault-free pool turn replayed kernel by kernel
+# tests/test_session_pool.py's chaos schedule
+POOL_CHAOS = dict(seed=3, p_dropout=0.08, p_drop_msg=0.04, p_straggle=0.08,
+                  p_corrupt=0.03)
+# phase 17c: card against CPU, the same (classic) solver loop on both
+POOL_SMALL = dict(selector="unified", slots=8, k=2, d=2, n_pad=64,
+                  n_angles=256, max_epochs=8, solver_kernel=False)
 
 
 def smoke_instances(B, n_per_node, noisy_every, engine, datasets):
@@ -902,6 +955,460 @@ def jamba_dense(cfg):
     return dataclasses.replace(
         cfg, name=cfg.name + "-one-period-dense", n_layers=len(cfg.period),
         period=tuple((m, "mlp") for m, _ in cfg.period), moe=None)
+
+
+def unified_instances(datasets, engine):
+    """Phase 17a's grid: the MAXMARG smoke's first bucket's datasets and ε
+    (data1/2/3 × ε ∈ {0.05, 0.02, 0.01}, n_per_node=1000, k=2) with the
+    three families interleaved, 384 each (B=1152), then a k=4 bucket,
+    ``data_mixed_hardness(n_per_node=100, k=4)`` × ε ∈ {0.05, 0.02}, 64
+    each (B=192): multi-hop Vitter chains and k-party MEDIAN."""
+    gens = (datasets.data1, datasets.data2, datasets.data3)
+    k2 = [engine.ProtocolInstance(
+        gens[(i // 3) % 3](n_per_node=1000, k=2, seed=i // 27),
+        (0.05, 0.02, 0.01)[(i // 9) % 3], FAMILIES[i % 3], i // 27)
+        for i in range(1152)]
+    k4 = [engine.ProtocolInstance(
+        datasets.data_mixed_hardness(n_per_node=100, k=4, seed=i // 6),
+        (0.05, 0.02)[(i // 3) % 2], FAMILIES[i % 3], i // 6)
+        for i in range(192)]
+    return k2 + k4
+
+
+def pool_sessions(datasets, n, n_per_node, epss=(0.05, 0.02, 0.01)):
+    """Phase 17's service traffic as ``(shards, eps, selector, seed)``:
+    session i is family ``FAMILIES[i % 3]`` on data{1,2,3}[(i // 3) % 3]
+    at ε ``epss[(i // 9) % len(epss)]``, k=2, seed i // 27."""
+    gens = (datasets.data1, datasets.data2, datasets.data3)
+    return [(gens[(i // 3) % 3](n_per_node=n_per_node, k=2, seed=i // 27),
+             epss[(i // 9) % len(epss)], FAMILIES[i % 3], i // 27)
+            for i in range(n)]
+
+
+def _serve(svc, sessions, *, chunk, batches, stop_at=None, hold_at=None):
+    """Stream ``sessions`` through ``svc``: before each pool turn, open,
+    feed (every node's rows in ``batches`` pieces) and close the next
+    ``chunk`` sessions; then step the pool, until every session is closed
+    and the pool drained, or until pool turn ``stop_at`` (no handle is
+    open between turns).  Returns the session ids, each pool turn's ms
+    (host clock, CUDA-synchronised), how many sessions were closed and the
+    kernel calls recorded (``_recording``) during pool turn ``hold_at``."""
+    import torch
+    sids, ms, calls = [], [], []
+    i = 0
+    while stop_at is None or svc.pool.pool_turn < stop_at:
+        for shards, eps, sel, seed in sessions[i:i + chunk]:
+            h = svc.open(eps=eps, selector=sel, seed=seed)
+            for node, (X, y) in enumerate(shards):
+                for part in np.array_split(np.arange(len(y)), batches):
+                    svc.feed(h, node, X[part], y[part])
+            sids.append(svc.close(h))
+        i = min(i + chunk, len(sessions))
+        if i == len(sessions) and svc.pool.drained():
+            break
+        hold = svc.pool.pool_turn == hold_at
+        t0 = time.perf_counter()
+        with _recording(lambda: hold) as turn_calls:
+            svc.step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        calls += turn_calls
+    return sids, ms, i, calls
+
+
+def _time_dispatch(pool):
+    """Wrap ``pool``'s turn dispatch so that each call is timed on the
+    host clock between two synchronisations; returns the list the ms go
+    to.  A measuring shim of this script: it replaces the pool's private
+    ``_dispatch`` on this one object and calls it unchanged."""
+    import torch
+    spent = []
+    dispatch = pool._dispatch
+
+    def timed(rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch(rows)
+        torch.cuda.synchronize()
+        spent.append(1e3 * (time.perf_counter() - t0))
+    pool._dispatch = timed
+    return spent
+
+
+def _bitwise(a, b):
+    """Two ProtocolResults equal bit for bit (separator, comm, rounds,
+    convergence)."""
+    return (np.array_equal(a.classifier.w, b.classifier.w)
+            and float(a.classifier.b) == float(b.classifier.b)
+            and (a.comm, a.rounds, a.converged)
+            == (b.comm, b.rounds, b.converged))
+
+
+def _same_decisions(a, b, sel, what, median_atol=None):
+    """Comm, rounds, convergence, sample size and warm latches exact; a
+    MEDIAN separator bit for bit (or to ``median_atol``), the others to a
+    cosine above 1 - COS_TOL.  Returns the cosine (1.0 for MEDIAN)."""
+    keys = ("sample_size", "warm_latches")
+    if ((a.comm, a.rounds, a.converged)
+            != (b.comm, b.rounds, b.converged)
+            or any(a.extra.get(k) != b.extra.get(k) for k in keys)):
+        raise AssertionError(f"{what} ({sel}): {a.comm} {a.rounds} "
+                             f"{a.converged} {a.extra} against {b.comm} "
+                             f"{b.rounds} {b.converged} {b.extra}")
+    va = np.concatenate([a.classifier.w, [a.classifier.b]])
+    vb = np.concatenate([b.classifier.w, [b.classifier.b]])
+    if sel == "median":
+        ok = (np.array_equal(va, vb) if median_atol is None
+              else np.abs(va - vb).max() <= median_atol)
+        if not ok:
+            raise AssertionError(f"{what} (median): separator {va} against "
+                                 f"{vb}")
+        return 1.0
+    cos = _cosine(va, vb)
+    if not cos > 1.0 - COS_TOL:
+        raise AssertionError(f"{what} ({sel}): separator cosine {cos} ({va} "
+                             f"against {vb})")
+    return cos
+
+
+def _path_sites():
+    """Where phase 17's path looks up its four kernel wrappers, as
+    ``(module, attribute, wrapper name)``: the MEDIAN scans and the MAXMARG
+    turn scan through ``engine.dataplane``, the solver's stage through
+    ``kernels.pegasos`` (``core.classifiers`` imports it at each call)."""
+    from repro_torch.engine import dataplane
+    from repro_torch.kernels import pegasos
+    return ((dataplane, "median_cut", "median_cut_scores"),
+            (dataplane, "median_extremes_segments",
+             "median_extremes_segments"),
+            (dataplane, "maxmarg_turn_scan", "maxmarg_turn_scan"),
+            (pegasos, "pegasos_stage", "pegasos_stage"))
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper where the engine looks it up: while
+    ``on()`` holds, each call's arguments are cloned into ``calls``; the
+    wrapper then runs as always, and its launch counts for the path (the
+    wrapper counts through its module-level name, so ``launches`` is
+    forwarded)."""
+
+    def __init__(self, fn, name, calls, on):
+        self.fn, self.name, self.calls, self.on = fn, name, calls, on
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        if self.on():
+            import torch
+            self.calls.append((self.name, tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args),
+                dict(kw)))
+        return self.fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def _recording(on):
+    """While open, the calls the engine makes to phase 17's four kernel
+    wrappers while ``on()`` holds are recorded: yields the list of
+    ``(wrapper name, arguments, options)``."""
+    calls = []
+    sites = _path_sites()
+    saved = [getattr(mod, attr) for mod, attr, _ in sites]
+    try:
+        for (mod, attr, name), fn in zip(sites, saved):
+            setattr(mod, attr, _Recorder(fn, name, calls, on))
+        yield calls
+    finally:
+        for (mod, attr, _), fn in zip(sites, saved):
+            setattr(mod, attr, fn)
+
+
+def _batched(name, args):
+    """A recorded call's first batched input (the cut scan's first
+    argument is the shared direction grid)."""
+    return args[1 if name == "median_cut_scores" else 0]
+
+
+def _widest(calls):
+    """Of the recorded calls of one wrapper with one batch size and the
+    same options, the one with the most input elements."""
+    import torch
+    best = {}
+    for call in calls:
+        name, args, kw = call
+        tensors = [a for a in args if torch.is_tensor(a)]
+        key = (name, _batched(name, args).shape[0],
+               tuple(sorted(kw.items())))
+        size = sum(t.numel() for t in tensors)
+        if key not in best or size > best[key][0]:
+            best[key] = (size, call)
+    return [call for _, call in best.values()]
+
+
+def _hold_calls(calls, what):
+    """Each recorded call again, the kernel against its plain version on
+    the same inputs, every output exactly (the Pegasos stage bit for bit:
+    its plain version sums in the kernel's order).  Returns the largest
+    |kernel - plain| per counted wrapper name (0 where it returns)."""
+    import torch
+    from repro_torch import kernels
+    errs = {}
+    for name, args, kw in calls:
+        shapes = [tuple(a.shape) if torch.is_tensor(a) else a for a in args]
+        got = getattr(kernels, name)(*args, **kw)
+        want = getattr(kernels, name + "_plain")(*args, **kw)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        key = ("median_extremes" if name == "median_extremes_segments"
+               else name)
+        for i, (g, e) in enumerate(zip(got, want)):
+            label = f"{what}: {name} {shapes} {kw}, output {i}"
+            err = (_same_floats(g, e, label) if g.is_floating_point()
+                   else _exact(g, e, label))
+            errs[key] = max(errs.get(key, 0), err)
+    return errs
+
+
+def unified_phase(dev, card):
+    """Phase 17: the unified dispatch and the protocol service.  Returns
+    the launch counts of the unified sweep and of the service runs, and
+    the largest |kernel - plain| of the kernel calls replayed from them."""
+    import tempfile
+    import torch
+    from repro_torch import engine, kernels
+    from repro_torch.core import datasets
+    from repro_torch.engine import hotloop
+    from repro_torch.engine.faults import FaultSchedule
+    from repro_torch.engine.session_pool import SessionPool
+    from repro_torch.serve import PoolConfig, ProtocolService
+
+    t_phase = time.perf_counter()
+    path_kernels = ("median_cut_scores", "median_extremes",
+                    "maxmarg_turn_scan", "pegasos_stage")
+
+    # -- 17a. the unified sweep against the bucketed one, on the card -------
+    insts = unified_instances(datasets, engine)
+    opts = dict(MAXMARG, n_angles=SMOKE["n_angles"])
+    hotloop.KEY_LOG.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with _recording(lambda: True) as ucalls:
+        ures = engine.run_sweep(insts, unified_dispatch=True, device=dev,
+                                **opts)
+    torch.cuda.synchronize()
+    unified_counts = kernels.launches()
+    u_turns = len(hotloop.KEY_LOG)
+    u_widths = sorted({w for _, w, *_ in hotloop.KEY_LOG})
+    for name in path_kernels:
+        if unified_counts[name] <= 0:
+            raise AssertionError(f"the unified sweep never launched {name}")
+    # the same sweep at each width policy, alternated, unrecorded
+    walls, lres = {"geometric": [], "linear": []}, None
+    for policy in ("linear", "geometric", "geometric", "linear"):
+        hotloop.KEY_LOG.clear()
+        t0 = time.perf_counter()
+        res = engine.run_sweep(insts, unified_dispatch=True, device=dev,
+                               width_policy=policy, **opts)
+        torch.cuda.synchronize()
+        walls[policy].append(time.perf_counter() - t0)
+        if policy == "linear":
+            lres, l_turns = res, len(hotloop.KEY_LOG)
+            l_widths = sorted({w for _, w, *_ in hotloop.KEY_LOG})
+    t0 = time.perf_counter()
+    bres = engine.run_sweep(insts, device=dev, **opts)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    worst, bitwise, excess = 1.0, 0, -1.0
+    for i, (inst, u, b, lw) in enumerate(zip(insts, ures, bres, lres)):
+        d = inst.shards[0][0].shape[1]
+        if not (u.extra["unified"] and u.extra["selector"] == inst.selector
+                and u.classifier.w.shape == (d,)
+                and np.isfinite(u.classifier.w).all()
+                and np.isfinite(u.classifier.b)):
+            raise AssertionError(f"unified instance {i}: {u.extra}, "
+                                 f"separator {u.classifier.w}")
+        worst = min(worst, _same_decisions(u, b, inst.selector,
+                                           f"unified instance {i}"))
+        worst = min(worst, _same_decisions(
+            lw, u, inst.selector, f"unified instance {i}, linear widths"))
+        bitwise += _bitwise(u, b)
+        X = np.concatenate([s[0] for s in inst.shards])
+        y = np.concatenate([s[1] for s in inst.shards])
+        err = float(np.mean(u.classifier.predict(X) != y))
+        if not err <= inst.eps + 2.0 / len(y):
+            raise AssertionError(f"unified instance {i} ({inst.selector}): "
+                                 f"error {err} above ε {inst.eps} + 2/n")
+        excess = max(excess, err - inst.eps - 2.0 / len(y))
+    t0 = time.perf_counter()
+    widest = _widest(ucalls)
+    held = _hold_calls(widest, "unified sweep")
+    n_held, n_calls = len(widest), len(ucalls)
+    del widest
+    del ucalls
+    hold_s = time.perf_counter() - t0
+    by_k = {}
+    for inst in insts:
+        by_k[len(inst.shards)] = by_k.get(len(inst.shards), 0) + 1
+    print(f"unified sweep: {len(insts)} instances ("
+          f"{', '.join(f'k={k} B={n}' for k, n in by_k.items())}; "
+          f"{len(insts) // 3} a family), geometric widths (the default) "
+          f"{[round(w, 3) for w in walls['geometric']]} s, {u_turns} turns, "
+          f"widths {u_widths}, launches {unified_counts}; linear widths "
+          f"{[round(w, 3) for w in walls['linear']]} s, {l_turns} turns, "
+          f"widths {l_widths}; bucketed run_sweep {b_wall:.3f} s; against "
+          f"the buckets and across the policies MEDIAN bitwise, the others "
+          f"exact in comm/rounds/convergence/sample sizes/latches, min "
+          f"cosine {worst!r}, {bitwise}/{len(insts)} bitwise to the "
+          f"buckets; every instance's error within ε + 2/n (largest excess "
+          f"{excess!r}) ({card})")
+    print(f"unified sweep kernels against plain: {n_held} of its "
+          f"{n_calls} kernel calls (each wrapper's widest at each batch "
+          f"size and option set) replayed on the recorded inputs, every "
+          f"output exact, in {hold_s:.1f} s")
+
+    # -- 17b. ProtocolService at a service's size ----------------------------
+    cfg = PoolConfig(**POOL)
+    sessions = pool_sessions(datasets, POOL_SESSIONS, POOL["n_pad"])
+    hotloop.KEY_LOG.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runs, dispatch_ms = {}, {}
+    for name, sched in (("fault-free", None),
+                        ("chaos a", FaultSchedule(**POOL_CHAOS)),
+                        ("chaos b", FaultSchedule(**POOL_CHAOS))):
+        svc = ProtocolService(cfg, sched, device=dev)
+        dispatch_ms[name] = _time_dispatch(svc.pool)
+        t0 = time.perf_counter()
+        sids, ms, _, calls = _serve(
+            svc, sessions, hold_at=POOL_HOLD_TURN if sched is None else None,
+            **POOL_STREAM)
+        wall = time.perf_counter() - t0
+        runs[name] = (svc, sids, ms, wall)
+        if sched is None:
+            pcalls = calls
+    svc, sids, ms, wall = runs["fault-free"]
+    half = svc.pool.pool_turn // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        # the rest of the stream goes to the restored service: every shard
+        # is n_pad rows, so each reservoir keeps its rows in order whatever
+        # its handle's seed
+        part = ProtocolService(cfg, device=dev)
+        t0 = time.perf_counter()
+        sids3, ms3, done3, _ = _serve(part, sessions, stop_at=half,
+                                      **POOL_STREAM)
+        part.checkpoint(tmp)
+        resumed = ProtocolService.restore(tmp, device=dev)
+        sids4, ms4, _, _ = _serve(resumed, sessions[done3:], **POOL_STREAM)
+        if sids3 + sids4 != sids:
+            raise AssertionError("the restored service numbered its "
+                                 "sessions otherwise")
+        runs["checkpoint/restore"] = (resumed, sids, ms3 + ms4,
+                                      time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    service_counts = kernels.launches()
+    for name in path_kernels:
+        if service_counts[name] <= 0:
+            raise AssertionError(f"the service runs never launched {name}")
+    keys = set(hotloop.KEY_LOG)
+    if len(keys) != 1:
+        raise AssertionError(f"the service runs launched at {keys}")
+    # one full pool turn's kernel calls, replayed against the plain versions
+    held_names = sorted({name for name, _, _ in pcalls})
+    if len(held_names) != len(path_kernels):
+        raise AssertionError(f"pool turn {POOL_HOLD_TURN} called only "
+                             f"{held_names}")
+    t0 = time.perf_counter()
+    for name, e in _hold_calls(pcalls, f"pool turn {POOL_HOLD_TURN}").items():
+        held[name] = max(held.get(name, 0), e)
+    shapes = sorted({f"{n} {list(max((t for t in a if torch.is_tensor(t)), key=torch.numel).shape)}"
+                     for n, a, _ in pcalls})
+    print(f"service kernels against plain: the {len(pcalls)} kernel calls "
+          f"of fault-free pool turn {POOL_HOLD_TURN} ({', '.join(shapes)}) "
+          f"replayed on the recorded inputs, every output exact, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del pcalls
+    for sid in sids:
+        r = svc.result(sid)
+        if svc.status(sid) not in ("converged", "budget_exhausted") or not (
+                np.isfinite(r.classifier.w).all()
+                and np.isfinite(r.classifier.b)):
+            raise AssertionError(f"fault-free session {sid}: "
+                                 f"{svc.session(sid)}")
+    (ca, _, _, _), (cb, _, _, _) = runs["chaos a"], runs["chaos b"]
+    quarantined = 0
+    for sid in sids:
+        if ca.status(sid) != cb.status(sid) or (
+                (ca.result(sid) is None) != (cb.result(sid) is None)):
+            raise AssertionError(f"chaos runs disagree on session {sid}")
+        if ca.status(sid) == "quarantined":
+            quarantined += 1
+            if ca.result(sid) is not None or not ca.session(sid)[
+                    "quarantine_reason"]:
+                raise AssertionError(f"quarantined session {sid}: "
+                                     f"{ca.session(sid)}")
+            continue
+        if not (_bitwise(ca.result(sid), cb.result(sid))
+                and _bitwise(ca.result(sid), svc.result(sid))):
+            raise AssertionError(f"chaos session {sid} is not bitwise the "
+                                 f"fault-free one")
+    resumed = runs["checkpoint/restore"][0]
+    for sid in sids:
+        if resumed.status(sid) != svc.status(sid) or not _bitwise(
+                resumed.result(sid), svc.result(sid)):
+            raise AssertionError(f"restored session {sid} is not bitwise "
+                                 f"the uninterrupted one")
+    print(f"service: {POOL_SESSIONS} sessions ({POOL_SESSIONS // 3} a "
+          f"family, {POOL['n_pad']} points a node streamed in "
+          f"{POOL_STREAM['batches']} batches), {cfg}; one launch shape "
+          f"{sorted(keys)}; chaos: {quarantined} quarantined, the rest and "
+          f"the second chaos run bitwise the fault-free run; checkpoint at "
+          f"pool turn {half} restored bitwise; launches {service_counts}")
+    for name, (s_, sids_, ms_, wall_) in runs.items():
+        st = s_.stats
+        share = (f", the dispatch {sum(dispatch_ms[name]):.1f} of "
+                 f"{sum(ms_):.1f} ms" if name in dispatch_ms else "")
+        print(f"  service {name}: {len(sids_) / wall_:.1f} sessions/s "
+              f"({wall_:.3f} s), {s_.pool.pool_turn} pool turns, median "
+              f"{float(np.median(ms_)):.3f} ms a pool turn (max "
+              f"{max(ms_):.3f}{share}), converged {st['evicted_converged']}, "
+              f"budget {st['evicted_budget']}, quarantined "
+              f"{st['quarantined']}, dropouts {st['dropouts']}, stragglers "
+              f"{st['straggles']}, corruptions {st['corruptions']} ({card})")
+
+    # -- 17c. card against CPU, the same solver loop -------------------------
+    small = PoolConfig(**POOL_SMALL)
+    sess = pool_sessions(datasets, 24, POOL_SMALL["n_pad"], (0.1, 0.05))
+    pools = {}
+    for where in (dev, "cpu"):
+        pool = SessionPool(small, device=where)
+        for shards, eps, sel, seed in sess:
+            pool.submit(shards, eps=eps, selector=sel, seed=seed)
+        t0 = time.perf_counter()
+        pool.run()
+        pools[str(where)] = (pool, time.perf_counter() - t0)
+    (pc, c_s), (ph, h_s) = pools[str(dev)], pools["cpu"]
+    worst = 1.0
+    for sid, (_sh, _e, sel, _sd) in enumerate(sess):
+        if pc.sessions[sid]["status"] != ph.sessions[sid]["status"]:
+            raise AssertionError(f"pool session {sid}: card "
+                                 f"{pc.sessions[sid]}, cpu "
+                                 f"{ph.sessions[sid]}")
+        worst = min(worst, _same_decisions(pc.results[sid],
+                                           ph.results[sid], sel,
+                                           f"pool session {sid} card vs cpu",
+                                           median_atol=1e-6))
+    print(f"service card vs cpu: 24 sessions, {small}: statuses, comm, "
+          f"rounds and convergence exact, MEDIAN to 1e-6, min cosine "
+          f"{worst!r} (card {c_s:.2f} s, {pc.pool_turn} pool turns; cpu "
+          f"{h_s:.2f} s)")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return unified_counts, service_counts, held
 
 
 def _clocks():
@@ -2734,13 +3241,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     layers.set_attention_impl("plain")
 
+    # -- 17. the unified dispatch and the protocol service ------------------
+    unified_counts, service_counts, held = unified_phase(dev, card)
+    for name, e in held.items():
+        errs[name] = max(errs[name], e)
+
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,
              "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
              "whisper_serving": whisper_counts,
              "card_vs_cpu_f32": f32_counts,
              "rwkv_scoring": rwkv_scoring, "rwkv_serving": rwkv_serving,
-             "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving}
+             "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving,
+             "unified": unified_counts, "service": service_counts}
     print(f"launches per path: {paths}")
     print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}

@@ -62,6 +62,11 @@ class Threshold:
             t = lo + 1.0
         else:
             t = 0.5 * (lo + hi)
+        if not lo < t:
+            # the midpoint of adjacent doubles, or lo + 1.0 once |lo| >=
+            # 2**53, rounds to lo, which predict (x < t) labels -1; hi (or
+            # the next double above lo) is a 0-error threshold instead
+            t = hi if np.isfinite(hi) else np.nextafter(lo, np.inf)
         return Threshold(float(t))
 
 

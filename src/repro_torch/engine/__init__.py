@@ -13,8 +13,13 @@ Three execution paths share the conventions: MEDIAN / k-party
 (:mod:`.median`), MAXMARG (:mod:`.maxmarg`), and the one-way chain
 protocols with the §7 baselines (:mod:`.oneway`: reservoir chain plus
 batched terminal fits).  ``run_sweep`` buckets a mixed grid across all of
-them.  The unified mixed-selector dispatch and the sharded options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+them — or, with ``unified_dispatch=True``, routes MEDIAN + MAXMARG +
+SAMPLING through :mod:`.unified`'s mixed-selector superset state, where
+the selector is per-row data and one step drives any mix.  The session
+pool (:mod:`.session_pool`) streams such sessions through one pinned
+launch shape, with the fault model of :mod:`.faults`.  The sharded
+options raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from repro_torch.engine.state import (
@@ -23,14 +28,26 @@ from repro_torch.engine.state import (
     MaxMargState,
     ProtocolInstance,
     ProtocolState,
+    SELECTOR_CODES,
+    SELECTOR_NAMES,
+    UnifiedState,
     from_reference,
     maxmarg_transcript_capacity,
     pack_instances,
     pack_instances_maxmarg,
+    pack_instances_unified,
     transcript_capacity,
+    unified_transcript_capacity,
 )
 from repro_torch.engine.median import run_compiled, run_instances, step
-from repro_torch.engine import dataplane, hotloop, maxmarg, median, oneway
+from repro_torch.engine import (
+    dataplane,
+    hotloop,
+    maxmarg,
+    median,
+    oneway,
+    unified,
+)
 
 _FIT = ("steps", "stages", "lam", "device")
 # each selector's options, as the JAX package's ``_ALLOWED``
@@ -44,8 +61,12 @@ _ALLOWED = {
     "naive": _FIT,
     "voting": _FIT,
     "mixing": _FIT,
+    "unified": ("eps", "n_angles", "max_epochs", "max_support", "warm",
+                "per_node", "compact", "vc_dim", "c", "solver_kernel",
+                "width_policy") + _FIT,
 }
 _RUNNERS = {"median": run_instances, "maxmarg": maxmarg.run_instances,
+            "unified": unified.run_instances,
             **{sel: oneway.run_instances for sel in oneway.ONEWAY_SELECTORS}}
 # options of the JAX engine that belong to the sharded slice
 _SHARDED_OPTS = ("mesh", "donate", "stats")
@@ -56,12 +77,14 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
 
     Instances bucket by (selector, k, d), one engine dispatch per bucket, as
     in the JAX package: the full paper grid (two-way MEDIAN/MAXMARG,
-    one-way sampling and the §7 baselines) is one call.  Each bucket's
-    runner gets only the options its selector accepts.
-    ``unified_dispatch=True`` or a sharded option raises
-    ``NotImplementedError`` naming its ROADMAP item; an option no selector
-    in the sweep accepts raises ``TypeError``; an unknown selector
-    ``ValueError``.
+    one-way sampling and the §7 baselines) is one call.  With
+    ``unified_dispatch=True`` MEDIAN, MAXMARG and SAMPLING instances bucket
+    by (k, d) only and run through :func:`unified.run_instances`, one
+    dispatch for any mix (the §7 baselines keep their own either way).
+    Each bucket's runner gets only the options its selector accepts.  A
+    sharded option raises ``NotImplementedError`` naming its ROADMAP item;
+    an option no selector in the sweep accepts raises ``TypeError``; an
+    unknown selector ``ValueError``.
 
     Launch-shape contract: each bucket's shapes key on the static scenario
     shape (k, d, n_max and cap rounded to multiples of 8, the selector's
@@ -69,15 +92,13 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
     quantized ``(n_pad, width, use_warm)`` buckets, never on ε, seeds or
     shard contents.
     """
-    if unified_dispatch:
-        raise NotImplementedError(
-            "unified_dispatch is not ported yet: ROADMAP Queue 1 item 9 "
-            "(unified mixed-selector state)")
     buckets = {}
     for i, inst in enumerate(instances):
-        if inst.selector not in _ALLOWED:
+        if inst.selector not in _ALLOWED or inst.selector == "unified":
             raise ValueError(f"unknown selector {inst.selector!r}")
-        key = (inst.selector, len(inst.shards), inst.shards[0][0].shape[1])
+        sel_key = ("unified" if unified_dispatch
+                   and inst.selector in SELECTOR_CODES else inst.selector)
+        key = (sel_key, len(inst.shards), inst.shards[0][0].shape[1])
         buckets.setdefault(key, []).append(i)
     sharded = sorted(set(kwargs) & set(_SHARDED_OPTS))
     if sharded:
@@ -104,6 +125,9 @@ __all__ = [
     "MaxMargState",
     "ProtocolInstance",
     "ProtocolState",
+    "SELECTOR_CODES",
+    "SELECTOR_NAMES",
+    "UnifiedState",
     "dataplane",
     "from_reference",
     "hotloop",
@@ -113,9 +137,12 @@ __all__ = [
     "oneway",
     "pack_instances",
     "pack_instances_maxmarg",
+    "pack_instances_unified",
     "run_compiled",
     "run_instances",
     "run_sweep",
     "step",
     "transcript_capacity",
+    "unified",
+    "unified_transcript_capacity",
 ]

@@ -22,8 +22,8 @@ change between turns:
 
 ``KEY_LOG`` records every compacted dispatch's launch shape
 ``(n_pad, width, use_warm, first_turn)`` exactly as the JAX loop records
-its compile keys.  Sharded dispatch (``shard_skew``/``balanced_index``)
-comes with a later slice.
+its compile keys; the session pool appends its one pinned shape.  Sharded
+dispatch (``shard_skew``/``balanced_index``) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -43,12 +43,27 @@ WIDTH_MULT = 8   # live transcript width rounds up to this
 KEY_LOG: List[Tuple[int, int, bool, bool]] = []
 
 
-def quantize_width(w: int, cap: int) -> int:
-    """Round a live transcript width up to a dispatchable bucket,
-    ``min(cap, round_up(w, WIDTH_MULT))`` — the JAX loop's ``"linear"``
-    policy (its ``"geometric"`` one serves the unified mixed-selector state,
-    not ported yet)."""
-    return min(cap, _round_up(w, WIDTH_MULT))
+def quantize_width(w: int, cap: int, policy: str = "linear") -> int:
+    """Round a live transcript width up to a dispatchable bucket.
+
+    ``"linear"`` is ``min(cap, round_up(w, WIDTH_MULT))``.  ``"geometric"``
+    rounds up to the next bucket of 8, 16, 24, 40, 64, 96, 144, ... (each
+    about 1.5 times the last, re-rounded to ``WIDTH_MULT``), the unified
+    sweep's default: mixed traffic spreads live fills across families that
+    grow at very different rates, and geometric buckets keep the distinct
+    launch shapes to O(log cap) at most 50% padding.  Both keep ``w = 0``
+    exactly (MAXMARG's empty-transcript first turn reads no transcript).
+    The buckets are the JAX loop's, policy for policy.
+    """
+    w = min(cap, _round_up(w, WIDTH_MULT))
+    if policy == "linear" or w <= WIDTH_MULT:
+        return w
+    if policy != "geometric":
+        raise ValueError(f"unknown width policy {policy!r}")
+    b = WIDTH_MULT
+    while b < w:
+        b = _round_up((b * 3) // 2, WIDTH_MULT)
+    return min(cap, b)
 
 
 def tree_map(fn: Callable, *trees):
@@ -142,6 +157,7 @@ def run_hot(
     compact: bool = True,
     width_slack: int = 0,
     width_growth: int = 0,
+    width_policy: str = "linear",
     overlap: bool = False,
 ):
     """The generic host-driven sweep loop over a selector's ``step``.
@@ -154,6 +170,7 @@ def run_hot(
     live instance's warm flag is set: polish only where it can latch.
     ``width_slack`` widens the compacted read past the turn-start fill
     (MEDIAN's stage-5 scan reads transcripts after the S append).
+    ``width_policy`` picks the :func:`quantize_width` rule.
     ``dispatch_full`` runs the whole batch at a compacted
     ``width`` (``None`` on the non-compacted path); ``dispatch_sub``
     gathers the ``idx`` rows, steps them and scatters them back in place.
@@ -197,7 +214,8 @@ def run_hot(
         # where no live instance may latch falls through to the cold anneal
         use_warm = warm and t > 0 and bool(warm_ok[act].any())
         width = quantize_width(int(fills[act].max(initial=0))
-                               + width_slack + growth, cap)
+                               + width_slack + growth, cap,
+                               width_policy)
         return act, width, use_warm
 
     def dispatch(state, act, width, use_warm, t):

@@ -4,8 +4,10 @@
 A *sweep* is B independent protocol instances of one selector (same party
 count k and dimension d, possibly different datasets, shard sizes, error
 budgets and seeds) advanced in lock-step by the selector's ``step``:
-:class:`ProtocolState` for MEDIAN, :class:`MaxMargState` for MAXMARG.  The
-shapes and padding rules are the JAX package's, leaf for leaf:
+:class:`ProtocolState` for MEDIAN, :class:`MaxMargState` for MAXMARG, and
+:class:`UnifiedState`, the superset that one mixed MEDIAN + MAXMARG +
+SAMPLING dispatch advances.  The shapes and padding rules are the JAX
+package's, leaf for leaf:
 
 * shards are padded to a common ``n_max`` with **label-0 rows** — inert in
   every masked reduction;
@@ -22,13 +24,26 @@ run both packages on identical inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.core import prng
 from repro_torch.core.comm import wire_bytes
+from repro_torch.core.sampling import EPSILON_NET_C, epsilon_net_size
+
+# per-instance selector codes of the unified mixed-selector state: data in
+# a (B,) int32 leaf, so a mix never changes the launched program; 0 doubles
+# as the inert value of gathered padding rows (a label-0 MEDIAN row is the
+# engine's no-op instance)
+SEL_MEDIAN = 0
+SEL_MAXMARG = 1
+SEL_SAMPLING = 2
+SELECTOR_CODES = {"median": SEL_MEDIAN, "maxmarg": SEL_MAXMARG,
+                  "sampling": SEL_SAMPLING}
+SELECTOR_NAMES = {v: k for k, v in SELECTOR_CODES.items()}
 
 
 class BatchCommLog(NamedTuple):
@@ -221,13 +236,20 @@ def pack_instances(
     X, y, budget = _pack_shards(instances, 2)
 
     data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
-    state0 = _state_to(dict(
-        dir_ok=np.ones((B, n_angles), bool),
+    state0 = _state_to(_median_state0(B, k, cap, n_angles),
+                       [np.zeros((B,), np.int32)
+                        for _ in BatchCommLog._fields], dev)
+    return data, state0, k, cap
+
+
+def _median_state0(B: int, k: int, cap: int, m: int):
+    return dict(
+        dir_ok=np.ones((B, m), bool),
         wx=np.zeros((B, k, cap, 2), np.float32),
         wy=np.zeros((B, k, cap), np.int32),
         w_fill=np.zeros((B, k), np.int32),
-        lo_w=np.full((B, k, n_angles), -np.inf, np.float32),
-        hi_w=np.full((B, k, n_angles), np.inf, np.float32),
+        lo_w=np.full((B, k, m), -np.inf, np.float32),
+        hi_w=np.full((B, k, m), np.inf, np.float32),
         turn=np.zeros((B,), np.int32),
         done=np.zeros((B,), bool),
         converged=np.zeros((B,), bool),
@@ -235,8 +257,7 @@ def pack_instances(
         h_v=np.zeros((B, 2), np.float32),
         h_t=np.zeros((B,), np.float32),
         h_valid=np.zeros((B,), bool),
-    ), [np.zeros((B,), np.int32) for _ in BatchCommLog._fields], dev)
-    return data, state0, k, cap
+    )
 
 
 def maxmarg_transcript_capacity(k: int, max_epochs: int,
@@ -305,27 +326,190 @@ def pack_instances_maxmarg(
     return data, state0, k, cap
 
 
+class UnifiedState(NamedTuple):
+    """Superset state of a mixed-selector dispatch: the union of
+    :class:`ProtocolState`, :class:`MaxMargState` and the one-way sampling
+    chain's reservoir carry, keyed by a per-instance selector code ``sel``
+    (``SEL_MEDIAN`` / ``SEL_MAXMARG`` / ``SEL_SAMPLING``).
+
+    * the transcripts ``wx``/``wy``/``w_fill`` are shared; a SAMPLING row
+      keeps its Vitter reservoir in node ``k-1``'s transcript, so the
+      terminal fit over shard ``k-1`` ∪ that transcript is the sampling
+      oracle's own ∪ reservoir fit;
+    * the separator ``h_w``/``h_b``/``h_valid`` is shared; a MEDIAN row
+      keeps its direction in ``h_w`` and its threshold in ``h_b``;
+    * the control leaves are shared and per-instance;
+    * selector-private leaves pass untouched through the other families'
+      substeps: the MEDIAN arc (``dir_ok``/``lo_w``/``hi_w``, 1 wide when
+      the mix has no MEDIAN row), the MAXMARG warm carries, and the
+      sampling counters (``seen``/``res_cap``/``hop_keys``).
+
+    ``hop_keys`` holds Threefry words in int64, as every key of the port
+    (:mod:`repro_torch.core.prng`); the JAX package keeps them uint32.
+    """
+
+    sel: torch.Tensor        # (B,) i32 — SEL_* code per instance
+    dir_ok: torch.Tensor     # (B, m) bool — allowed direction arc
+    lo_w: torch.Tensor       # (B, k, m) f32 — running per-node threshold lo
+    hi_w: torch.Tensor       # (B, k, m) f32 — running per-node threshold hi
+    wx: torch.Tensor         # (B, k, cap, d) f32 — transcripts / reservoir
+    wy: torch.Tensor         # (B, k, cap) i32 — labels (0 = empty)
+    w_fill: torch.Tensor     # (B, k) i32 — fill counters
+    turn: torch.Tensor       # (B,) i32 — per-instance turn counter
+    done: torch.Tensor       # (B,) bool
+    converged: torch.Tensor  # (B,) bool
+    epochs: torch.Tensor     # (B,) i32
+    h_w: torch.Tensor        # (B, d) f32 — separator (MEDIAN: h_v)
+    h_b: torch.Tensor        # (B,) f32 — offset (MEDIAN: h_t)
+    h_valid: torch.Tensor    # (B,) bool
+    warm_turn: torch.Tensor  # (B,) bool — MAXMARG warm carries
+    c_w: torch.Tensor        # (B, k, d) f32
+    c_b: torch.Tensor        # (B, k) f32
+    c_valid: torch.Tensor    # (B, k) bool
+    warm_node: torch.Tensor  # (B, k) bool
+    latches: torch.Tensor    # (B,) i32
+    seen: torch.Tensor       # (B,) i32 — valid stream rows ingested so far
+    res_cap: torch.Tensor    # (B,) i32 — per-instance ε-net reservoir size
+    hop_keys: torch.Tensor   # (B, max(k-1, 1), 2) int64 — Vitter hop keys
+    comm: BatchCommLog
+
+
+def unified_transcript_capacity(k: int, max_epochs: int, max_support: int,
+                                res_cap: int = 0,
+                                has_median: bool = True) -> int:
+    """Shared transcript bound of a mixed sweep: the largest of each
+    family's own (:func:`transcript_capacity` for MEDIAN,
+    :func:`maxmarg_transcript_capacity` for MAXMARG, the largest ε-net
+    reservoir for SAMPLING), a multiple of 8."""
+    cap = maxmarg_transcript_capacity(k, max_epochs, max_support)
+    if has_median:
+        cap = max(cap, transcript_capacity(k, max_epochs))
+    return max(cap, _round_up(max(res_cap, 0), 8))
+
+
+def _unified_state0(sels: Sequence[str], k: int, cap: int, d: int, m: int,
+                    res_cap: np.ndarray, seeds: Sequence[int],
+                    done: Optional[np.ndarray] = None):
+    """Fresh superset leaves (numpy) for instances of the given families;
+    SAMPLING rows get their reservoir sizes and their hop keys,
+    ``jax.random.split(jax.random.PRNGKey(seed), k-1)`` as int64 words."""
+    B = len(res_cap)
+    hop_keys = np.zeros((B, max(k - 1, 1), 2), np.int64)
+    samp = [i for i, s in enumerate(sels) if s == "sampling"]
+    if samp and k > 1:
+        hop_keys[samp] = prng.split(
+            prng.prng_key([seeds[i] for i in samp]), k - 1).numpy()
+    sel = np.zeros((B,), np.int32)
+    sel[:len(sels)] = [SELECTOR_CODES[s] for s in sels]
+    return dict(
+        sel=sel,
+        dir_ok=np.ones((B, m), bool),
+        lo_w=np.full((B, k, m), -np.inf, np.float32),
+        hi_w=np.full((B, k, m), np.inf, np.float32),
+        wx=np.zeros((B, k, cap, d), np.float32),
+        wy=np.zeros((B, k, cap), np.int32),
+        w_fill=np.zeros((B, k), np.int32),
+        turn=np.zeros((B,), np.int32),
+        done=np.zeros((B,), bool) if done is None else done,
+        converged=np.zeros((B,), bool),
+        epochs=np.zeros((B,), np.int32),
+        h_w=np.zeros((B, d), np.float32),
+        h_b=np.zeros((B,), np.float32),
+        h_valid=np.zeros((B,), bool),
+        warm_turn=np.zeros((B,), bool),
+        c_w=np.zeros((B, k, d), np.float32),
+        c_b=np.zeros((B, k), np.float32),
+        c_valid=np.zeros((B, k), bool),
+        warm_node=np.zeros((B, k), bool),
+        latches=np.zeros((B,), np.int32),
+        seen=np.zeros((B,), np.int32),
+        res_cap=res_cap.astype(np.int32),
+        hop_keys=hop_keys,
+    )
+
+
+def pack_instances_unified(
+    instances: Sequence[ProtocolInstance],
+    *,
+    n_angles: int,
+    max_epochs: int,
+    max_support: int,
+    vc_dim: Optional[int] = None,
+    c: Optional[float] = None,
+    device="cuda",
+) -> Tuple[EngineData, UnifiedState, int, int]:
+    """Pad a mixed MEDIAN + MAXMARG + SAMPLING sweep onto one static shape,
+    on ``device``.
+
+    Returns ``(data, state0, k, cap)``.  All instances must share k and d;
+    a MEDIAN instance requires d=2 and sizes the arc leaves to
+    ``n_angles`` (a median-free mix carries 1-wide stub arcs).  SAMPLING
+    rows get their ε-net size in ``res_cap`` (``vc_dim`` default d+1,
+    ``c`` default ``EPSILON_NET_C``, as the one-way sweep) and their hop
+    keys split from ``ProtocolInstance.seed``, so each reservoir is the
+    one-way oracle's, row for row.
+    """
+    dev = _device.resolve(device)
+    k, ds = _shared_k_d(instances)
+    if len(ds) != 1:
+        raise ValueError(f"instances must share the dimension, got {ds}")
+    d = ds.pop()
+    sels = [inst.selector for inst in instances]
+    unknown = set(sels) - set(SELECTOR_CODES)
+    if unknown:
+        raise ValueError(
+            f"unified packing covers {sorted(SELECTOR_CODES)}, got "
+            f"{sorted(unknown)}")
+    has_median = "median" in sels
+    if has_median and d != 2:
+        raise ValueError(f"MEDIAN instances require d=2, got d={d}")
+    m = n_angles if has_median else 1
+    vc = vc_dim if vc_dim is not None else d + 1
+    cc = c if c is not None else EPSILON_NET_C
+    res_cap = np.asarray([epsilon_net_size(inst.eps, vc, c=cc)
+                          if inst.selector == "sampling" else 0
+                          for inst in instances], np.int32)
+    cap = unified_transcript_capacity(k, max_epochs, max_support,
+                                      res_cap=int(res_cap.max()),
+                                      has_median=has_median)
+    X, y, budget = _pack_shards(instances, d)
+    data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
+    B = len(instances)
+    state0 = _state_to(
+        _unified_state0(sels, k, cap, d, m, res_cap,
+                        [inst.seed for inst in instances]),
+        [np.zeros((B,), np.int32) for _ in BatchCommLog._fields], dev,
+        UnifiedState)
+    return data, state0, k, cap
+
+
 def from_reference(data, state, V=None, device="cuda"):
     """Carry the JAX package's packed sweep across: ``data`` an
-    ``EngineData`` and ``state`` a MEDIAN ``ProtocolState`` with ``V`` its
-    (m, d) direction grid, or a ``MaxMargState`` (no ``V``), each leaf
+    ``EngineData`` and ``state`` a MEDIAN ``ProtocolState`` or a
+    ``UnifiedState``, each with ``V`` its (m, d) direction grid (the (1, d)
+    stub of a median-free mix), or a ``MaxMargState`` (no ``V``), each leaf
     anything ``np.asarray`` accepts.  Returns the port's ``(EngineData,
     state, V)`` on ``device`` (``V`` None for MAXMARG), leaf for leaf, bit
     for bit — this system's "weights" are its packed state, and the tests
-    run both packages on identical inputs."""
+    run both packages on identical inputs.  The uint32 ``hop_keys`` of a
+    unified state become the port's int64 words, equal in value."""
     dev = _device.resolve(device)
     fields = tuple(f for f in type(state)._fields if f != "comm")
     record = {tuple(f for f in r._fields if f != "comm"): r
-              for r in (ProtocolState, MaxMargState)}.get(fields)
+              for r in (ProtocolState, MaxMargState,
+                        UnifiedState)}.get(fields)
     if record is None:
-        raise TypeError(f"from_reference takes a ProtocolState or a "
-                        f"MaxMargState, got {type(state).__name__}")
-    if (record is ProtocolState) != (V is not None):
-        raise ValueError("a MEDIAN state comes with its direction grid V, "
-                         "a MAXMARG state without one")
+        raise TypeError(f"from_reference takes a ProtocolState, a "
+                        f"MaxMargState or a UnifiedState, got "
+                        f"{type(state).__name__}")
+    if (record is MaxMargState) == (V is not None):
+        raise ValueError("a MEDIAN or unified state comes with its "
+                         "direction grid V, a MAXMARG state without one")
     data_t = EngineData(*(torch.from_numpy(np.array(a)).to(dev)
                           for a in data))
     leaves = {f: np.array(getattr(state, f)) for f in fields}
+    if record is UnifiedState:
+        leaves["hop_keys"] = leaves["hop_keys"].astype(np.int64)
     state_t = _state_to(leaves, [np.array(a) for a in state.comm], dev,
                         record)
     V_t = (None if V is None

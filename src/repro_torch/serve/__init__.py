@@ -1,9 +1,12 @@
-"""Serving package: the token-decode engine over ``repro_torch.models``.
-
-The JAX package's protocol service (``ProtocolService`` over the session
-pool) waits for ROADMAP Queue 1 item 10 and is not exported here.
+"""Serving package.  Primary entry point: :class:`ProtocolService` —
+streaming protocol sessions over the fault-tolerant session pool, on the
+pool's device.  The token-decode engine over ``repro_torch.models`` sits
+beside it under its own names.
 """
 
+from repro_torch.serve.service import ProtocolService  # noqa: F401
+from repro_torch.engine.session_pool import PoolConfig  # noqa: F401
+from repro_torch.engine.faults import FAULT_FREE, FaultSchedule  # noqa: F401
 from repro_torch.serve.engine import (  # noqa: F401
     ServeConfig,
     ServingEngine,

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.serve.engine``: a ``serve_step`` (one token, batched
 requests) plus a minimal greedy host engine over ``repro_torch.models``.
-It has nothing to do with serving the paper's classifier protocols; the
-protocol service waits for ROADMAP Queue 1 item 10.
+It has nothing to do with serving the paper's classifier protocols: that
+is ``ProtocolService`` (:mod:`repro_torch.serve.service`).
 """
 
 from __future__ import annotations

@@ -173,6 +173,24 @@ def test_margins_and_error():
         float(jgeo.classification_error(w, b, X, y)), abs_tol=1e-7)
 
 
+@pytest.mark.parametrize("X,y", [
+    ([0.0, 5e-324], [1, -1]),
+    ([1.0, 1.0000000000000002], [1, -1]),
+    ([3.0, 3.0000000000000004], [1, -1]),
+    ([1e20], [1]),
+], ids=["subnormal", "one", "three", "lone_positive_1e20"])
+def test_threshold_fit_zero_error_on_adjacent_doubles(X, y):
+    """The midpoint of adjacent doubles, and lo + 1.0 above 2**53, round to
+    lo; the port's fit then takes hi (or the next double above lo), so
+    every case has error 0.0 (a difference from the reference, ROADMAP
+    Queue 3)."""
+    from repro_torch.core.classifiers import Threshold
+    X = np.asarray(X)
+    y = np.asarray(y)
+    h = Threshold.fit(X, y)
+    assert h.error(X, y) == 0.0, h.t
+
+
 # -- (g) import hygiene and devices -----------------------------------------
 
 def _port_sources():
@@ -212,7 +230,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.models.config, repro_torch.models.layers, "
         "repro_torch.models.transformer, repro_torch.models.model, "
         "repro_torch.configs, repro_torch.data.pipeline, "
-        "repro_torch.serve, repro_torch.serve.engine;"
+        "repro_torch.serve, repro_torch.serve.engine, "
+        "repro_torch.serve.service, repro_torch.engine.unified, "
+        "repro_torch.engine.session_pool, repro_torch.engine.faults;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ,
@@ -232,6 +252,8 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models import model
     from repro_torch.serve import ServeConfig, TokenServingEngine
+    from repro_torch.serve import PoolConfig, ProtocolService
+    from repro_torch.engine.session_pool import SessionPool
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shards = tdata.data1(n_per_node=20, k=2, seed=0)
@@ -269,6 +291,13 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                  lambda: baselines.mixing(shards),
                  lambda: model.init_lm(lm_cfg),
                  lambda: model.from_reference({}, lm_cfg),
-                 lambda: TokenServingEngine(lm_cfg, lm, ServeConfig(1, 8))):
+                 lambda: TokenServingEngine(lm_cfg, lm, ServeConfig(1, 8)),
+                 lambda: engine.run_sweep(inst + mm, unified_dispatch=True),
+                 lambda: engine.unified.run_instances(inst + mm),
+                 lambda: engine.pack_instances_unified(
+                     inst + mm, n_angles=8, max_epochs=2, max_support=4),
+                 lambda: SessionPool(PoolConfig(slots=2, k=2, n_pad=16)),
+                 lambda: ProtocolService(PoolConfig(slots=2, k=2, n_pad=16,
+                                                    selector="unified"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

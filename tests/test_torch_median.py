@@ -385,16 +385,18 @@ def test_kparty_three_nodes():
 def test_run_sweep_refuses_what_is_not_ported():
     """What later slices port raises naming its ROADMAP item; a typo'd
     option raises ``TypeError``, an unknown selector ``ValueError``.  The
-    MAXMARG and one-way selectors are ported (tests/test_torch_maxmarg.py,
-    tests/test_torch_oneway.py)."""
+    MAXMARG and one-way selectors and the unified dispatch are ported
+    (tests/test_torch_maxmarg.py, tests/test_torch_oneway.py,
+    tests/test_torch_unified.py): ``unified_dispatch=True`` now runs."""
     inst = teng.ProtocolInstance(datasets.data1(n_per_node=20, k=2), 0.1)
     voting = teng.ProtocolInstance(inst.shards, 0.1, "voting")
     with pytest.raises(NotImplementedError, match="item 11"):
         teng.run_sweep([voting], stats={}, device="cpu")
     with pytest.raises(TypeError, match="n_angles"):
         teng.run_sweep([voting], n_angles=8, device="cpu")  # MEDIAN's
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.run_sweep([inst], unified_dispatch=True, device="cpu")
+    res = teng.run_sweep([inst], unified_dispatch=True, n_angles=64,
+                         max_epochs=4, device="cpu")
+    assert res[0].extra["unified"] and res[0].extra["selector"] == "median"
     with pytest.raises(NotImplementedError, match="item 11"):
         teng.run_sweep([inst], mesh=None, device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
