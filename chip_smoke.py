@@ -161,7 +161,31 @@ Phases (any failure exits non-zero; none is caught):
    clock) and the dispatch's share of it printed per run; 17c 24 sessions through ``POOL_SMALL`` pools on the
    card and the CPU, the classic solver loop on both: statuses, comm,
    rounds and convergence exact, MEDIAN to 1e-6, the others to the cosine
-   tier.
+   tier;
+18. the sharded B axis and the two-way host protocols: 18a
+   (``sharded_phase``) the MEDIAN smoke grid (B=3072, and B=3070: born-done
+   padding where S does not divide it) and MAXMARG's first bucket (B=1152)
+   through ``run_sweep(mesh=...)`` over ``make_data_mesh()`` (every card)
+   and over 2 and 4 logical shards on one card, each run bit for bit the
+   unsharded result of phase 3 or 5 (MAXMARG without double buffering, as
+   phase 5 ran, and once at the mesh default against an unsharded run with
+   it), the four turn-loop kernels' launches counted per run, ``stats``
+   and the walls printed beside an unsharded run's; the dispatch settings
+   timed against each other (``shard_settings``: unsharded, S=1 and S=4
+   on one card, donation off and on); and one 4-shard run of each
+   recorded (``_turn_gate``), every kernel call of its first full-batch
+   turn (MEDIAN's first two) and of its first sub-batch turn replayed
+   against the plain versions at the shapes each shard gave it, every
+   output exact; 18b
+   (``two_way_phase``) ``iterative_support_median_bit`` on data1/2/3 at
+   n_per_node=1000, 1024 angles, ε=0.05, and on data3 with 5% label noise
+   at ε=0.02 (all 64 rounds), every ``threshold_ranges_one`` call recorded
+   and replayed against the plain version (lo and hi exact), card against
+   CPU (comm, rounds and convergence exact, separators to 1e-6); 18c
+   ``iterative_support_noisy`` at ``examples/noisy_protocol.py``'s sizes
+   (data3, n_per_node=500, 5% and 10% noise), every B=1 Pegasos stage
+   recorded and replayed against the plain stage bit for bit, card against
+   CPU as in 18b (``best_err`` exact too).
 
 Unified and service config: the MAXMARG smoke's settings (below) over
 data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
@@ -1409,6 +1433,357 @@ def unified_phase(dev, card):
           f"{h_s:.2f} s)")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
     return unified_counts, service_counts, held
+
+
+def _first_diff(got, want, what):
+    """Raise unless two result lists are equal bit for bit (``_bitwise``);
+    returns how many were compared."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, {len(want)} "
+                             f"expected")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not _bitwise(a, b):
+            raise AssertionError(
+                f"{what}: instance {i} differs: {a.comm} {a.rounds} "
+                f"{a.converged} {a.classifier} against {b.comm} {b.rounds} "
+                f"{b.converged} {b.classifier}")
+    return len(got)
+
+
+def _turn_gate(stats, full_turns):
+    """``on()`` for ``_recording`` over one sharded sweep that fills
+    ``stats`` (``hotloop.KEY_LOG`` cleared before it): true while the
+    sweep's first ``full_turns`` turns dispatch and while its first
+    sub-batch turn does (the first of ``stats["shard_dispatches"]``)."""
+    from repro_torch.engine import hotloop
+
+    def on():
+        return (len(hotloop.KEY_LOG) <= full_turns
+                or stats.get("shard_dispatches", 0) == 1)
+    return on
+
+
+def sharded_phase(dev, med_insts, med_res, mm_insts, mm_res):
+    """Phase 18a: the MEDIAN smoke grid and MAXMARG's first bucket sharded
+    over ``make_data_mesh()`` (every card) and over 2 and 4 logical shards
+    on ``dev``, each run bit for bit against the unsharded results of
+    phases 3 and 5 (``med_res``, ``mm_res``), the MEDIAN grid also at
+    B=3070 (padded with born-done rows where S does not divide it); then
+    the dispatch settings timed (``shard_settings``), and one run of each
+    over 4 shards recorded: every kernel call of its first full-batch
+    turn and of its first sub-batch turn, shard by shard, replayed against
+    the plain versions.  Returns the launch counts summed over the sharded
+    runs and the largest |kernel - plain| per wrapper of the replay."""
+    import torch
+    from repro_torch import engine, kernels
+    from repro_torch.engine import hotloop
+    from repro_torch.launch.mesh import make_data_mesh
+
+    cfg, mm = SMOKE, MAXMARG
+    mopts = dict(n_angles=cfg["n_angles"], max_epochs=cfg["max_epochs"])
+    meshes = [("all cards", make_data_mesh()),
+              ("2 on one card", make_data_mesh(device=[dev] * 2)),
+              ("4 on one card", make_data_mesh(device=[dev] * 4))]
+    total = dict.fromkeys(kernels.launches(), 0)
+
+    def timed(fn, rows, what):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        for name in rows:
+            if counts[name] <= 0:
+                raise AssertionError(f"{what} never launched {name}")
+        return out, wall, counts
+
+    def sharded(fn, rows, want, what):
+        stats = {}
+        out, wall, counts = timed(lambda: fn(stats), rows, what)
+        n = _first_diff(out, want, what)
+        for name, c in counts.items():
+            total[name] += c
+        print(f"18a {what}: {n} instances bit for bit the unsharded "
+              f"sweep's, {wall:.3f} s, launches "
+              f"{ {r: counts[r] for r in rows} }, stats {stats}")
+        return wall
+
+    med_rows = ("median_cut_scores", "median_extremes")
+    mm_rows = ("maxmarg_turn_scan", "pegasos_stage")
+    base, base_wall, _ = timed(lambda: engine.run_sweep(
+        med_insts, device=dev, **mopts), med_rows, "18a unsharded MEDIAN")
+    _first_diff(base, med_res, "18a unsharded MEDIAN against phase 3")
+    mm_base, mm_wall, _ = timed(lambda: engine.run_sweep(
+        mm_insts, device=dev, **mm), mm_rows, "18a unsharded MAXMARG")
+    _first_diff(mm_base, mm_res, "18a unsharded MAXMARG against phase 5")
+    print(f"18a unsharded: MEDIAN B={len(med_insts)} {base_wall:.3f} s, "
+          f"MAXMARG B={len(mm_insts)} {mm_wall:.3f} s (both bit for bit "
+          f"phases 3 and 5)")
+    for name, mesh in meshes:
+        S = mesh.shape["data"]
+        for B in (len(med_insts), len(med_insts) - 2):
+            sharded(lambda st: engine.run_sweep(
+                med_insts[:B], mesh=mesh, stats=st, device=dev, **mopts),
+                med_rows, med_res[:B], f"MEDIAN B={B} over {name} (S={S})")
+        # phase 5 ran without double buffering; MAXMARG's polish-skip
+        # choices follow the view, so the comparison runs without it too
+        sharded(lambda st: engine.run_sweep(
+            mm_insts, mesh=mesh, overlap=False, stats=st, device=dev, **mm),
+            mm_rows, mm_res, f"MAXMARG B={len(mm_insts)} over {name} "
+            f"(S={S}), overlap off")
+    # the mesh default (double buffering on) against the unsharded loop
+    # with double buffering
+    ov, ov_wall, _ = timed(lambda: engine.run_sweep(
+        mm_insts, overlap=True, device=dev, **mm), mm_rows,
+        "18a unsharded MAXMARG, overlap")
+    sharded(lambda st: engine.run_sweep(
+        mm_insts, mesh=meshes[1][1], stats=st, device=dev, **mm),
+        mm_rows, ov, f"MAXMARG B={len(mm_insts)} over 2 on one card, "
+        f"overlap on (unsharded with overlap: {ov_wall:.3f} s)")
+    shard_settings(dev, med_insts, med_res, mm_insts, ov)
+
+    # every kernel call of a 4-shard run's first full-batch turn (MEDIAN's
+    # first two: the first folds its cut scan away) and first sub-batch
+    # turn, at the shapes each shard gives it, against the plain versions
+    held = {}
+    four = meshes[2][1]
+    for what, fn, want, rows, full_turns in (
+            ("MEDIAN", lambda st: engine.run_sweep(
+                med_insts, mesh=four, stats=st, device=dev, **mopts),
+             med_res, med_rows, 2),
+            ("MAXMARG", lambda st: engine.run_sweep(
+                mm_insts, mesh=four, overlap=False, stats=st, device=dev,
+                **mm), mm_res, mm_rows, 1)):
+        hotloop.KEY_LOG.clear()
+        stats = {}
+        with _recording(_turn_gate(stats, full_turns)) as calls:
+            out, wall, counts = timed(lambda: fn(stats), rows,
+                                      f"18a recorded {what}")
+        _first_diff(out, want, f"18a recorded {what} over 4 on one card")
+        for name, c in counts.items():
+            total[name] += c
+        sizes = {}
+        for name, args, _kw in calls:
+            sizes.setdefault(name, []).append(_batched(name, args).shape[0])
+        turn1 = len(want) // 4
+        if sorted(sizes) != sorted(
+                "median_extremes_segments" if r == "median_extremes" else r
+                for r in rows):
+            raise AssertionError(f"18a {what}: recorded {sorted(sizes)}")
+        if (any(bs.count(turn1) < 4 for bs in sizes.values())
+                or all(b == turn1 for bs in sizes.values() for b in bs)):
+            raise AssertionError(f"18a {what}: recorded at batch sizes "
+                                 f"{sizes}")
+        t0 = time.perf_counter()
+        for name, e in _hold_calls(calls, f"18a {what} over 4").items():
+            held[name] = max(held.get(name, 0), e)
+        print(f"18a {what} over 4 on one card, recorded ({wall:.3f} s, bit "
+              f"for bit): the {len(calls)} kernel calls of its first "
+              f"{full_turns} turn(s) and first sub-batch turn, shard by shard (batch sizes "
+              f"{ {n: sorted(set(b)) for n, b in sizes.items()} }), "
+              f"replayed against the plain versions, every output exact, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del calls
+    return total, held
+
+
+def shard_settings(dev, med_insts, med_res, mm_insts, mm_ov):
+    """The dispatch settings against each other on one card: the MEDIAN
+    grid and MAXMARG's first bucket, double buffering on, unsharded and
+    over meshes of 1 and 4 shards on ``dev``, each with donation off and
+    on, run in one order and then the reverse; every run bit for bit its
+    reference (``med_res``; ``mm_ov``, the unsharded MAXMARG run with
+    double buffering).  Prints and returns the walls per setting."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.launch.mesh import make_data_mesh
+
+    cfg, mm = SMOKE, MAXMARG
+    mopts = dict(n_angles=cfg["n_angles"], max_epochs=cfg["max_epochs"])
+    layouts = [("unsharded", None), ("S=1", make_data_mesh(device=[dev])),
+               ("S=4", make_data_mesh(device=[dev] * 4))]
+    order = [(lay, mesh, donate) for lay, mesh in layouts
+             for donate in (False, True)]
+    walls = {}
+    for what, insts, want, opts in (("MEDIAN", med_insts, med_res, mopts),
+                                    ("MAXMARG", mm_insts, mm_ov, mm)):
+        for lay, mesh, donate in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.run_sweep(insts, mesh=mesh, donate=donate,
+                                   overlap=True, device=dev, **opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            label = f"donate {'on' if donate else 'off'}"
+            _first_diff(out, want, f"18a {what} {lay} {label}")
+            walls.setdefault((what, lay, label), []).append(wall)
+        print(f"18a settings, {what} B={len(insts)}, overlap on, bit for bit "
+              f"in every run (walls in s, in run order then reversed): "
+              + "; ".join(f"{lay} {label} {[round(w, 3) for w in ws]}"
+                          for (wh, lay, label), ws in walls.items()
+                          if wh == what))
+    return walls
+
+
+def _hold_ranges(calls, what):
+    """Every recorded ``threshold_ranges_one`` call again, the kernel
+    against the plain version on the same inputs, lo and hi exact (signs
+    of zero and infinities included)."""
+    import torch
+    from repro_torch import kernels
+    for i, (V, Xw, yw) in enumerate(calls):
+        got = kernels.threshold_ranges_one(V, Xw, yw)
+        want = kernels.threshold_ranges_plain(V, Xw[None], yw[None])
+        for name, g, e in zip(("lo", "hi"), got, want):
+            _same_floats(g, e[0], f"{what} call {i}: {name}")
+            if not torch.equal(torch.signbit(g), torch.signbit(e[0])):
+                raise AssertionError(f"{what} call {i}: {name} signs")
+    return len(calls)
+
+
+def two_way_phase(dev):
+    """Phases 18b and 18c: §5's MEDIAN with rotation bits and §8.2's noisy
+    MAXMARG on the card, their kernel calls recorded and replayed against
+    the plain versions, and each run card against CPU.  Returns the launch
+    counts of each protocol's card runs."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import datasets
+    from repro_torch.core.protocols import two_way
+    from repro_torch.kernels import pegasos
+
+    counts = {}
+
+    def against_cpu(name, fn, sep_atol, wrapper):
+        """The card run (the launches of ``wrapper`` counted from 0), then
+        the CPU run: comm, rounds, convergence and extras exact, separators
+        to ``sep_atol`` of their scale."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        a = fn(dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = kernels.launches()[wrapper]
+        t0 = time.perf_counter()
+        b = fn("cpu")
+        cpu_s = time.perf_counter() - t0
+        if (a.comm, a.rounds, a.converged, a.extra) != \
+                (b.comm, b.rounds, b.converged, b.extra):
+            raise AssertionError(f"{name}: card {a.comm} {a.rounds} "
+                                 f"{a.converged} {a.extra}, cpu {b.comm} "
+                                 f"{b.rounds} {b.converged} {b.extra}")
+        gap = max(float(np.abs(a.classifier.w - b.classifier.w).max()),
+                  abs(float(a.classifier.b) - float(b.classifier.b)))
+        scale = max(1.0, float(np.abs(b.classifier.w).max()),
+                    abs(float(b.classifier.b)))
+        if not gap <= sep_atol * scale:
+            raise AssertionError(f"{name}: separators {a.classifier} and "
+                                 f"{b.classifier}")
+        return a, wall, cpu_s, gap, launched
+
+    # -- 18b: iterative_support_median_bit ----------------------------------
+    bit_runs = [(f"{g.__name__}", g(n_per_node=1000, k=2, seed=0), 0.05)
+                for g in (datasets.data1, datasets.data2, datasets.data3)]
+    bit_runs.append(("data3 + 5% noise", datasets.add_label_noise(
+        datasets.data3(n_per_node=1000, k=2, seed=0), 0.05, seed=1), 0.02))
+    calls = []
+    recording = [False]
+    real = kernels.threshold_ranges_one
+
+    def record(V, Xw, yw):
+        if recording[0]:
+            calls.append((V.clone(), Xw.clone(), yw.clone()))
+        return real(V, Xw, yw)
+
+    launches_b = 0
+    kernels.threshold_ranges_one = record
+    try:
+        for name, shards, eps in bit_runs:
+            def run(device):
+                recording[0] = device == dev
+                return two_way.iterative_support_median_bit(
+                    shards, eps=eps, n_angles=1024, device=device)
+            ncalls = len(calls)
+            r, wall, cpu_s, gap, launched = against_cpu(
+                f"18b {name}", run, 1e-6, "threshold_ranges")
+            launches_b += launched
+            if launched != len(calls) - ncalls:
+                raise AssertionError(f"18b {name}: {launched} launches for "
+                                     f"{len(calls) - ncalls} calls")
+            print(f"18b median_bit {name} ε={eps}: {r.rounds} rounds, "
+                  f"converged {r.converged}, comm {r.comm}, "
+                  f"{launched} threshold_ranges_one launches, card "
+                  f"{wall:.3f} s ({wall / r.rounds * 1e3:.2f} ms a round), "
+                  f"cpu {cpu_s:.2f} s, separator |card - cpu| {gap}")
+    finally:
+        kernels.threshold_ranges_one = real
+    recording[0] = False
+    counts["median_bit"] = dict(
+        dict.fromkeys(kernels.launches(), 0), threshold_ranges=launches_b)
+    if launches_b <= 0:
+        raise AssertionError("18b never launched threshold_ranges_one")
+    t0 = time.perf_counter()
+    n = _hold_ranges(calls, "18b threshold_ranges_one replay")
+    print(f"18b: {n} recorded threshold_ranges_one calls replayed, kernel "
+          f"and plain version equal in every lo and hi "
+          f"({time.perf_counter() - t0:.2f} s)")
+    del calls
+
+    # -- 18c: iterative_support_noisy ---------------------------------------
+    # the solver looks the stage up in kernels.pegasos at each call; the
+    # recorder forwards the wrapper's launch count (it counts through that
+    # module-level name)
+    recorded = []
+    real_stage = pegasos.pegasos_stage
+    launches_c = 0
+    pegasos.pegasos_stage = _Recorder(real_stage, "pegasos_stage", recorded,
+                                      lambda: recording[0])
+    try:
+        for rate in (0.05, 0.10):
+            noisy = datasets.add_label_noise(
+                datasets.data3(n_per_node=500, k=2, seed=0), rate=rate)
+
+            def run(device):
+                recording[0] = device == dev
+                return two_way.iterative_support_noisy(noisy, eps=0.05,
+                                                       device=device)
+            r, wall, cpu_s, gap, launched = against_cpu(
+                f"18c noisy {rate:.0%}", run, 1e-6, "pegasos_stage")
+            launches_c += launched
+            print(f"18c noisy {rate:.0%}: {r.rounds} rounds, converged "
+                  f"{r.converged}, best_err {r.extra['best_err']}, comm "
+                  f"{r.comm}, {launched} pegasos_stage launches at B=1, card "
+                  f"{wall:.3f} s ({wall / r.rounds * 1e3:.2f} ms a round), "
+                  f"cpu {cpu_s:.2f} s, separator |card - cpu| {gap}")
+    finally:
+        pegasos.pegasos_stage = real_stage
+    recording[0] = False
+    counts["noisy"] = dict(dict.fromkeys(kernels.launches(), 0),
+                           pegasos_stage=launches_c)
+    stage_calls = [(args, kw) for _name, args, kw in recorded]
+    if launches_c != len(stage_calls) or not stage_calls:
+        raise AssertionError(f"18c: {launches_c} stage launches, "
+                             f"{len(stage_calls)} calls")
+    t0 = time.perf_counter()
+    for i, (args, kw) in enumerate(stage_calls):
+        if args[0].shape[0] != 1:
+            raise AssertionError(f"18c call {i}: B={args[0].shape[0]}")
+        got = kernels.pegasos_stage(*args, **kw)
+        want = kernels.pegasos_stage_plain(*args, **kw)
+        for name, g, e in zip(("w", "b", "mmin", "found", "w_best",
+                               "b_best"), got, want):
+            if not torch.equal(g, e):
+                raise AssertionError(f"18c call {i}: {name} differs from "
+                                     f"the plain stage: {g} against {e}")
+    print(f"18c: {len(stage_calls)} recorded pegasos_stage calls (B=1, "
+          f"N={sorted({a[0].shape[1] for a, _ in stage_calls})}, nsteps "
+          f"{sorted({k['nsteps'] for _, k in stage_calls})}) replayed, "
+          f"every output bit for bit the plain stage's "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return counts
 
 
 def _clocks():
@@ -3246,6 +3621,15 @@ def main() -> int:
     for name, e in held.items():
         errs[name] = max(errs[name], e)
 
+    # -- 18. the sharded B axis and the two-way host protocols ---------------
+    t_phase = time.perf_counter()
+    sharded_counts, held = sharded_phase(dev, insts, res, mm_insts,
+                                         mres[:len(mm_insts)])
+    for name, e in held.items():
+        errs[name] = max(errs[name], e)
+    protocol_counts = two_way_phase(dev)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,
              "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
@@ -3253,7 +3637,8 @@ def main() -> int:
              "card_vs_cpu_f32": f32_counts,
              "rwkv_scoring": rwkv_scoring, "rwkv_serving": rwkv_serving,
              "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving,
-             "unified": unified_counts, "service": service_counts}
+             "unified": unified_counts, "service": service_counts,
+             "sharded": sharded_counts, **protocol_counts}
     print(f"launches per path: {paths}")
     print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}

@@ -214,6 +214,38 @@ def _classic_stage(X, y, valid, nv, w, b, lam, nsteps, t0=0.0):
     return w, b
 
 
+def _svm_solve(X: torch.Tensor, y: torch.Tensor, lam: float,
+               steps: int = 2000) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pegasos projected subgradient on  λ/2 ||w||² + mean hinge(w·x+b),
+    one instance: from zeros, ``steps`` steps of size ``1/(λ(i+2))``, the
+    hinge gradient averaged over all n rows, each iterate projected onto
+    the ball of radius ``1/sqrt(λ)`` (``+1e-12`` in the norm).
+
+    It runs as one :func:`repro_torch.kernels.pegasos_stage` call at B=1
+    (``nsteps=steps``, ``t0=0``, the latch outputs discarded): the CUDA
+    kernel for tensors on the card, its plain version on the CPU.  The
+    stage forms the same iteration as the JAX package's ``_svm_solve``
+    with its sums in another order, so the two agree to float rounding,
+    not bit for bit.  X (n, d) and y (n,) are taken in f32; returns
+    ``(w, b)``, (d,) and () f32 on X's device.
+    """
+    from repro_torch.kernels.pegasos import pegasos_stage
+
+    n, d = X.shape
+    dev = X.device
+    f32 = torch.float32
+    X3 = X.to(f32).contiguous()[None]
+    y2 = y.to(f32).contiguous()[None]
+    zw = torch.zeros((1, d), dtype=f32, device=dev)
+    zb = torch.zeros((1,), dtype=f32, device=dev)
+    w, b, *_latch = pegasos_stage(
+        X3, y2, torch.full((1,), float(n), dtype=f32, device=dev), zw, zb,
+        torch.full((1,), lam, dtype=f32, device=dev),
+        torch.zeros((1,), dtype=torch.bool, device=dev), zw, zb,
+        nsteps=steps, t0=0.0)
+    return w[0], b[0]
+
+
 def _svm_solve_batch(
     X: torch.Tensor,               # (B, N, d) f32; label-0 rows are padding
     y: torch.Tensor,               # (B, N) f32 in {+1, -1, 0}

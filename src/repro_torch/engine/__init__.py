@@ -17,9 +17,10 @@ them — or, with ``unified_dispatch=True``, routes MEDIAN + MAXMARG +
 SAMPLING through :mod:`.unified`'s mixed-selector superset state, where
 the selector is per-row data and one step drives any mix.  The session
 pool (:mod:`.session_pool`) streams such sessions through one pinned
-launch shape, with the fault model of :mod:`.faults`.  The sharded
-options raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+launch shape, with the fault model of :mod:`.faults`.  The two-way
+selectors also run sharded over a 1-D ("data",) device mesh
+(``mesh=``, :func:`repro_torch.launch.mesh.make_data_mesh`): each shard's
+slice of the instance axis on its own device.
 """
 
 from repro_torch.engine.state import (
@@ -53,23 +54,22 @@ _FIT = ("steps", "stages", "lam", "device")
 # each selector's options, as the JAX package's ``_ALLOWED``
 _ALLOWED = {
     "median": ("eps", "n_angles", "max_epochs", "cut_kernel",
-               "extremes_kernel", "compact", "overlap", "device"),
+               "extremes_kernel", "compact", "mesh", "donate", "overlap",
+               "stats", "device"),
     "maxmarg": ("eps", "max_epochs", "max_support", "warm", "per_node",
-                "compact", "fused_kernel", "solver_kernel", "overlap")
-    + _FIT,
+                "compact", "fused_kernel", "solver_kernel", "mesh",
+                "donate", "overlap", "stats") + _FIT,
     "sampling": ("eps", "vc_dim", "c") + _FIT,
     "naive": _FIT,
     "voting": _FIT,
     "mixing": _FIT,
     "unified": ("eps", "n_angles", "max_epochs", "max_support", "warm",
                 "per_node", "compact", "vc_dim", "c", "solver_kernel",
-                "width_policy") + _FIT,
+                "width_policy", "stats") + _FIT,
 }
 _RUNNERS = {"median": run_instances, "maxmarg": maxmarg.run_instances,
             "unified": unified.run_instances,
             **{sel: oneway.run_instances for sel in oneway.ONEWAY_SELECTORS}}
-# options of the JAX engine that belong to the sharded slice
-_SHARDED_OPTS = ("mesh", "donate", "stats")
 
 
 def run_sweep(instances, *, unified_dispatch=False, **kwargs):
@@ -81,10 +81,10 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
     ``unified_dispatch=True`` MEDIAN, MAXMARG and SAMPLING instances bucket
     by (k, d) only and run through :func:`unified.run_instances`, one
     dispatch for any mix (the §7 baselines keep their own either way).
-    Each bucket's runner gets only the options its selector accepts.  A
-    sharded option raises ``NotImplementedError`` naming its ROADMAP item;
-    an option no selector in the sweep accepts raises ``TypeError``; an
-    unknown selector ``ValueError``.
+    Each bucket's runner gets only the options its selector accepts
+    (``mesh``/``donate`` reach MEDIAN and MAXMARG, ``stats`` those and the
+    unified dispatch); an option no selector in the sweep accepts raises
+    ``TypeError``; an unknown selector ``ValueError``.
 
     Launch-shape contract: each bucket's shapes key on the static scenario
     shape (k, d, n_max and cap rounded to multiples of 8, the selector's
@@ -100,11 +100,6 @@ def run_sweep(instances, *, unified_dispatch=False, **kwargs):
                    and inst.selector in SELECTOR_CODES else inst.selector)
         key = (sel_key, len(inst.shards), inst.shards[0][0].shape[1])
         buckets.setdefault(key, []).append(i)
-    sharded = sorted(set(kwargs) & set(_SHARDED_OPTS))
-    if sharded:
-        raise NotImplementedError(
-            f"run_sweep option(s) {sharded} are not ported yet: ROADMAP "
-            f"Queue 1 item 11 (sharded B axis)")
     understood = set().union(*(_ALLOWED[sel] for sel, _k, _d in buckets))
     unknown = set(kwargs) - understood
     if unknown:

@@ -12,28 +12,33 @@ change between turns:
 * **width compaction** — per-turn transcript reads run at
   ``round_up(max live fill + slack, 8)`` rows instead of the capacity;
 * **batch compaction** — finished instances drop out of the dispatch: the
-  live set rounds up to a multiple of 4 and pads with the out-of-range
-  index B.  JAX gathers such an index as a zero-filled row and drops it on
+  live set rounds up to a multiple of 4 (at most B) and pads with the
+  out-of-range index B.  JAX gathers such an index as a zero-filled row and drops it on
   scatter; torch would raise, so :func:`take_instances` gathers with a
   clamped index and zero-fills the pad rows, and :func:`put_instances`
   scatters back only the live prefix — the same semantics;
+* **sharded dispatch** (DESIGN.md §sharded hot loop) — the state is a
+  tuple of S per-shard records (``state.device_put_sharded``; S = 1 on
+  one device) and the per-turn sub-batch index is built *per shard*
+  (:func:`balanced_index`): the live set splits into S local slices padded
+  to a common multiple of ``BATCH_MULT``; each shard's turn runs on its
+  own device;
 * **double buffering** (``overlap=True``) — turn t+1 is dispatched from the
   one-turn-stale view before the host waits on turn t's view.
 
 ``KEY_LOG`` records every compacted dispatch's launch shape
 ``(n_pad, width, use_warm, first_turn)`` exactly as the JAX loop records
-its compile keys; the session pool appends its one pinned shape.  Sharded
-dispatch (``shard_skew``/``balanced_index``) comes with a later slice.
+its compile keys; the session pool appends its one pinned shape.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.engine.state import _round_up
+from repro_torch.engine.state import _round_up, shard_specs, tree_map  # noqa: F401 (re-export)
 
 BATCH_MULT = 4   # live batch rounds up to this
 WIDTH_MULT = 8   # live transcript width rounds up to this
@@ -64,14 +69,6 @@ def quantize_width(w: int, cap: int, policy: str = "linear") -> int:
     while b < w:
         b = _round_up((b * 3) // 2, WIDTH_MULT)
     return min(cap, b)
-
-
-def tree_map(fn: Callable, *trees):
-    """Apply ``fn`` leaf-wise over NamedTuple records of tensors."""
-    if isinstance(trees[0], tuple):
-        return type(trees[0])(*(tree_map(fn, *leaves)
-                                for leaves in zip(*trees)))
-    return fn(*trees)
 
 
 def gather_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -137,46 +134,123 @@ def start_view(packed: torch.Tensor) -> PendingView:
     return PendingView(host, ready)
 
 
-def wait_view(pending: PendingView) -> np.ndarray:
-    """Wait for a started view and return it as a (3, B) numpy array."""
+def wait_view(pending) -> np.ndarray:
+    """Wait for a started view and return it as a (3, B) numpy array; a
+    list of per-shard views comes back as one view, the shards' columns in
+    order."""
+    if isinstance(pending, list):
+        return np.concatenate([wait_view(p) for p in pending], axis=1)
     if pending.ready is not None:
         pending.ready.synchronize()
     return pending.host.numpy()
 
 
+def shard_skew(counts: np.ndarray) -> float:
+    """Imbalance of a per-shard live-count vector as the max/mean ratio.
+
+    1.0 is perfectly balanced; S (the shard count) means one shard owns the
+    whole live set.  The common padded length L in :func:`balanced_index`
+    is set by the *max* count, so every shard pays the skewed shard's
+    shapes: the ratio is the padding-waste factor.  An all-dead vector
+    reports 0.0 (no dispatch, no waste)."""
+    counts = np.asarray(counts, dtype=np.float64)
+    mean = counts.mean() if counts.size else 0.0
+    if mean <= 0:
+        return 0.0
+    return float(counts.max() / mean)
+
+
+def balanced_index(act: np.ndarray, B: int, shards: int):
+    """Shard-balanced compacted index for a sharded sub-batch dispatch.
+
+    Splits the sorted global active set into per-shard *local* index slices
+    (shard s owns global rows ``[s·B/S, (s+1)·B/S)``), pads every slice to
+    the common ``L = round_up(max per-shard live count, BATCH_MULT)`` with
+    the out-of-range index B (gather-fill / scatter-drop, the single-device
+    tail's convention), and returns ``(idx, n_act)``: ``idx`` is (S·L,) i32
+    — shard s's slice at ``idx[s·L:(s+1)·L]`` — and ``n_act`` the (S,)
+    per-shard live counts.  Every shard runs the same compacted shapes.
+    """
+    B_loc = B // shards
+    shard_of = act // B_loc
+    counts = np.bincount(shard_of, minlength=shards).astype(np.int32)
+    L = max(BATCH_MULT, _round_up(int(counts.max()), BATCH_MULT))
+    idx = np.full((shards, L), B, np.int32)
+    local = (act - shard_of * B_loc).astype(np.int32)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    for s in range(shards):          # act is sorted -> slices stay ordered
+        idx[s, :counts[s]] = local[offs[s]:offs[s + 1]]
+    return idx.reshape(-1), counts
+
+
+def write_into(dst, src):
+    """Copy every leaf of record ``src`` into ``dst``'s tensor in place
+    (leaves that already are the same tensor are left alone); returns
+    ``dst``.  A donating ``step`` ends with this: the turn lands in its
+    input state's buffers."""
+    def put(d, s):
+        if d is not s:
+            d.copy_(s)
+        return d
+    return tree_map(put, dst, src)
+
+
 def run_hot(
-    state,
+    data: Sequence,
+    state: Sequence,
     *,
     k: int,
     max_turns: int,
     cap: int,
     host_view: Callable,      # (state, ci) -> (3, B) i32 [done, warm, fill]
-    dispatch_full: Callable,  # (state, *, t, width, use_warm) -> state
-    dispatch_sub: Callable,   # (state, idx, n_act, *, t, width, use_warm)
+    dispatch_full: Callable,  # (data, state, *, t, width, use_warm) -> state
+    dispatch_sub: Callable,   # (data, state, idx, n_act, *, t, width,
+                              #  use_warm) -> state
     warm: bool = False,
     compact: bool = True,
     width_slack: int = 0,
     width_growth: int = 0,
     width_policy: str = "linear",
     overlap: bool = False,
-):
+    stats: Optional[dict] = None,
+    donate: bool = False,
+) -> tuple:
     """The generic host-driven sweep loop over a selector's ``step``.
 
-    ``host_view`` returns the packed per-turn host knowledge on the state's
-    device: row 0 done flags, row 1 the upcoming coordinator's warm-latch
-    flags (zero for MEDIAN), row 2 the transcript fills the width
-    compaction keys on; it crosses to the host once per turn.  With
-    ``warm`` a dispatch gets ``use_warm=True`` from turn 1 on whenever a
-    live instance's warm flag is set: polish only where it can latch.
-    ``width_slack`` widens the compacted read past the turn-start fill
-    (MEDIAN's stage-5 scan reads transcripts after the S append).
+    ``data`` and ``state`` are tuples of S per-shard records (S = 1 on one
+    device; ``state.device_put_sharded`` splits a record over a mesh), and
+    the loop returns the S final records.  The callbacks work on one
+    shard's records.  ``host_view`` returns the packed per-turn host
+    knowledge on the shard's device: row 0 done flags, row 1 the upcoming
+    coordinator's warm-latch flags (zero for MEDIAN), row 2 the transcript
+    fills the width compaction keys on; it crosses to the host once per
+    shard and turn, and the S views are read as one, the shards' columns in
+    order.  With ``warm`` a dispatch gets ``use_warm=True`` from turn 1 on
+    whenever a live instance's warm flag is set: polish only where it can
+    latch.  ``width_slack`` widens the compacted read past the turn-start
+    fill (MEDIAN's stage-5 scan reads transcripts after the S append).
     ``width_policy`` picks the :func:`quantize_width` rule.
-    ``dispatch_full`` runs the whole batch at a compacted
-    ``width`` (``None`` on the non-compacted path); ``dispatch_sub``
-    gathers the ``idx`` rows, steps them and scatters them back in place.
+    ``dispatch_full`` runs a shard's whole slice at a compacted ``width``
+    (``None`` on the non-compacted path); ``dispatch_sub`` gathers the
+    shard's local ``idx`` rows (the first ``n_act`` live), steps them and
+    scatters them back in place.  Sub-batch turns index through
+    :func:`balanced_index`, each shard's slice capped at its B/S rows (on
+    one device: at B, the JAX loop's tail); a shard with no live rows is
+    left as it is.
 
-    The loop owns its state chain: it copies the caller's state once on
-    entry, so sub-batch turns may scatter into it in place.
+    Donation contract: the loop owns its state chain.  It copies the
+    caller's state once on entry, so sub-batch turns may scatter into it
+    in place; with ``donate=True`` it takes the caller's tensors as they
+    are (the caller gives them up), and a donating selector writes every
+    turn into them (:func:`write_into`).  Each state is passed to exactly
+    one dispatch, and a turn's host view is enqueued before the dispatch
+    that writes over its state.
+
+    ``stats`` (a dict) collects host-side observability on sharded sweeps
+    (S > 1): each :func:`balanced_index` call folds its skew
+    (:func:`shard_skew`) into ``stats["shard_skew_max"]`` /
+    ``stats["shard_skew_last"]`` and counts in
+    ``stats["shard_dispatches"]``.  It is never read for decisions.
 
     ``overlap=True`` dispatches turn t+1 from the one-turn-stale view
     before waiting on turn t's view.  Stale parameters are sound: ``done``
@@ -186,16 +260,22 @@ def run_hot(
     valid, polish-skip choices (the solver re-checks its warm gate).  At
     most one wasted all-done masked dispatch runs at termination.
     """
-    B = int(state.done.shape[0])
-    device = state.done.device
-    pad_tail = np.full(B, B, dtype=np.int64)
+    S = len(state)
+    if S > 1 and not compact:
+        raise ValueError("sharded sweeps require the compacted hot path")
+    B = sum(int(p.done.shape[0]) for p in state)
+    devices = [p.done.device for p in state]
     # turn is per-instance; a sweep advances every row in lock-step, so the
     # host-side loop counter resumes from the common (max) value
-    t = int(state.turn.max())
-    state = tree_map(torch.clone, state)
+    t = max(int(p.turn.max()) for p in state)
+    if not donate:
+        state = tuple(tree_map(torch.clone, p) for p in state)
 
-    def view(s, ci) -> PendingView:
-        return start_view(host_view(s, ci))
+    def view(s, ci):
+        return [start_view(host_view(p, ci)) for p in s]
+
+    def full(s, **kw):
+        return tuple(dispatch_full(d, p, **kw) for d, p in zip(data, s))
 
     if not compact:
         while t < max_turns:
@@ -204,7 +284,7 @@ def run_hot(
                 break
             act = np.flatnonzero(done == 0)
             use_warm = warm and t > 0 and bool(warm_ok[act].any())
-            state = dispatch_full(state, t=t, width=None, use_warm=use_warm)
+            state = full(state, t=t, width=None, use_warm=use_warm)
             t += 1
         return state
 
@@ -219,17 +299,27 @@ def run_hot(
         return act, width, use_warm
 
     def dispatch(state, act, width, use_warm, t):
-        n_act = len(act)
-        if n_act == B:
+        if len(act) == B:
             KEY_LOG.append((B, width, use_warm, t == 0))
-            return dispatch_full(state, t=t, width=width, use_warm=use_warm)
-        n_pad = min(B, _round_up(n_act, BATCH_MULT))
-        idx = np.concatenate([act, pad_tail[:n_pad - n_act]])
-        KEY_LOG.append((n_pad, width, use_warm, t == 0))
-        return dispatch_sub(state, torch.from_numpy(idx).to(device), n_act,
-                            t=t, width=width, use_warm=use_warm)
+            return full(state, t=t, width=width, use_warm=use_warm)
+        idx, n_vec = balanced_index(act, B, S)
+        if S > 1 and stats is not None:
+            skew = shard_skew(n_vec)
+            stats["shard_skew_last"] = skew
+            stats["shard_skew_max"] = max(stats.get("shard_skew_max", 0.0),
+                                          skew)
+            stats["shard_dispatches"] = stats.get("shard_dispatches", 0) + 1
+        L = len(idx) // S
+        n_pad = min(L, B // S)
+        KEY_LOG.append((S * n_pad, width, use_warm, t == 0))
+        return tuple(
+            dispatch_sub(d, p, torch.from_numpy(
+                idx[s * L:s * L + n_pad].astype(np.int64)).to(dev),
+                int(n_vec[s]), t=t, width=width, use_warm=use_warm)
+            if n_vec[s] else p
+            for s, (d, p, dev) in enumerate(zip(data, state, devices)))
 
-    # one packed transfer per turn for everything the host needs
+    # one packed transfer per shard and turn for everything the host needs
     current = wait_view(view(state, t % k))
     while t < max_turns:
         done, warm_ok, fills = current

@@ -33,12 +33,13 @@ live fill, and finished instances drop out of the dispatch.
 Every protocol decision is the same on both; the separators are two float
 approximations of the same transcript-determined optimum.  Each call runs
 eagerly; ``step`` is functional (it copies the transcript leaves once and
-appends into the copy).
+appends into the copy) unless its state is donated.  The hot path runs over
+a tuple of per-shard records, one on one device; with a ``mesh`` it runs
+sharded over the instance axis, each shard's slice on its own device.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Sequence
 
 import torch
@@ -51,7 +52,9 @@ from repro_torch.engine.state import (
     EngineData,
     MaxMargState,
     ProtocolInstance,
+    as_shards,
     pack_instances_maxmarg,
+    unshard,
 )
 from repro_torch.kernels.support_margin import maxmarg_turn_scan_plain
 
@@ -119,6 +122,7 @@ def step(
     per_node: bool = True,
     fused_kernel: bool = False,
     solver_kernel: Optional[bool] = None,
+    donate: bool = False,
 ) -> MaxMargState:
     """Advance every active instance by one MAXMARG turn.
 
@@ -132,6 +136,9 @@ def step(
     version on the CPU) instead of the plain version; both give the same
     integers.  ``solver_kernel`` picks the refit's inner loop, as
     ``_svm_solve_batch``'s ``kernel`` (None: the kernel path on the card).
+    ``donate=True`` writes the turn into ``state``'s own tensors (the
+    appends land in its transcript buffers, every other leaf is copied in)
+    and returns ``state``; the default leaves ``state`` untouched.
     """
     B = state.done.shape[0]
     dev = state.done.device
@@ -194,8 +201,20 @@ def step(
         rounds=comm.rounds + act_i,
     )
 
-    # the appends write into one copy of the transcript leaves
-    wx, wy, w_fill = (a.clone() for a in (state.wx, state.wy, state.w_fill))
+    track = per_node and k > 2
+    if track:
+        # the carry bookkeeping's scan of every node's pre-append transcript
+        Wx_all = state.wx if trans_width is None \
+            else state.wx[:, :, :trans_width]
+        Wy_all = state.wy if trans_width is None \
+            else state.wy[:, :, :trans_width]
+        mT = Wy_all.to(K.dtype) * decide(Wx_all, w, b)   # (B, k, W)
+        trans_clean = ((Wy_all == 0) | (mT > 0.0)).all(dim=2)
+
+    # the appends write into one copy of the transcript leaves, or into the
+    # state's own when it is donated
+    wx, wy, w_fill = ((a if donate else a.clone())
+                      for a in (state.wx, state.wy, state.w_fill))
     for j in range(k):
         _append_block(wx, wy, w_fill, S_pts, S_lab, active & (ci != j),
                       node=j)
@@ -236,15 +255,9 @@ def step(
     # transcript; the flags then degrade incrementally — the S block is
     # clean under an adopted carry (its own support set), checked row-wise
     # under a kept one, and any violation reply dirties the coordinator's
-    if per_node and k > 2:
+    if track:
         is_ci = node_ids == ci[:, None]                  # (B, k)
         viol_any = fire.any(dim=1)                       # (B,)
-        Wx_all = state.wx if trans_width is None \
-            else state.wx[:, :, :trans_width]            # pre-append rows
-        Wy_all = state.wy if trans_width is None \
-            else state.wy[:, :, :trans_width]
-        mT = Wy_all.to(K.dtype) * decide(Wx_all, w, b)   # (B, k, W)
-        trans_clean = ((Wy_all == 0) | (mT > 0.0)).all(dim=2)
         adopt = active[:, None] & fit_ok[:, None] & (err_k == 0) \
             & trans_clean
         c_w = torch.where(adopt[..., None], w[:, None, :], state.c_w)
@@ -264,7 +277,7 @@ def step(
     else:
         c_w, c_b = state.c_w, state.c_b
         c_valid, warm_node = state.c_valid, state.warm_node
-    return MaxMargState(
+    new = MaxMargState(
         wx=wx, wy=wy, w_fill=w_fill,
         turn=state.turn + 1,
         done=state.done | term,
@@ -280,6 +293,7 @@ def step(
         latches=state.latches + (active & clean0).to(_I32),
         comm=comm,
     )
+    return hotloop.write_into(state, new) if donate else new
 
 
 def run_compiled(
@@ -352,7 +366,10 @@ def run_hot(
     compact: bool = True,
     fused_kernel: bool = False,
     solver_kernel: Optional[bool] = None,
-    overlap: bool = False,
+    mesh=None,
+    donate: bool = False,
+    overlap: Optional[bool] = None,
+    stats: Optional[dict] = None,
 ) -> MaxMargState:
     """The MAXMARG sweep as a host-driven turn loop over ``step`` on the
     shared :mod:`repro_torch.engine.hotloop` machinery:
@@ -368,32 +385,54 @@ def run_hot(
     differ only as two float approximations of the same optimum.
     ``overlap=True`` double-buffers the loop; its stale view widens the
     read by the worst one-turn growth, ``max(max_support, 2(k-1))`` rows.
+    ``donate=True`` writes every turn into the given state's tensors.
+
+    ``mesh`` (a 1-D ("data",) mesh, ``launch.mesh.make_data_mesh``) runs
+    the sweep sharded over the leading B axis, each shard's turn on its own
+    device (``pack_instances_maxmarg(..., mesh=...)`` pads B with
+    born-done dummies and splits the records); sub-batch turns come
+    shard-balanced from ``hotloop.balanced_index``.  On the mesh
+    ``overlap`` defaults on (off otherwise); ``donate`` stays off, as it
+    did not make a sweep faster on the H100 (PERF.md).  It requires
+    ``compact=True`` and returns the per-shard records.  ``stats`` collects
+    the shard skew (``hotloop.run_hot``).
     """
-    cap = int(state.wx.shape[2])
     # the carry bookkeeping runs on every turn of a warm per-node run
     # (polished or not) and on none of a cold or single-carry run
     track = per_node and warm
+    overlap = mesh is not None if overlap is None else overlap
     opts = dict(k=k, max_support=max_support, steps=steps, stages=stages,
                 lam0=lam0, per_node=track, fused_kernel=fused_kernel,
-                solver_kernel=solver_kernel)
+                solver_kernel=solver_kernel, donate=donate)
+    if mesh is None:
+        shards = ((data,), (state,))
+    elif not compact:
+        raise ValueError("sharded sweeps require the compacted hot path")
+    else:
+        shards = (as_shards(data, mesh), as_shards(state, mesh))
 
     def host_view(s, ci):
         return _host_view(s, ci, per_node=track)
 
-    def dispatch_full(s, *, t, width, use_warm):
-        return step(data, s, trans_width=width, warm=use_warm, **opts)
+    def dispatch_full(d, s, *, t, width, use_warm):
+        return step(d, s, trans_width=width, warm=use_warm, **opts)
 
-    def dispatch_sub(s, idx, n_act, *, t, width, use_warm):
-        step_fn = functools.partial(step, trans_width=width, warm=use_warm,
-                                    **opts)
-        return hotloop.gathered_turn(step_fn, _pad_fix, data, s, idx, n_act)
+    def dispatch_sub(d, s, idx, n_act, *, t, width, use_warm):
+        return hotloop.gathered_turn(
+            lambda sub_data, sub: step(sub_data, sub, trans_width=width,
+                                       warm=use_warm, **opts),
+            _pad_fix, d, s, idx, n_act)
 
-    return hotloop.run_hot(state, k=k, max_turns=max_turns, cap=cap,
-                           host_view=host_view, dispatch_full=dispatch_full,
-                           dispatch_sub=dispatch_sub, warm=warm,
-                           compact=compact,
-                           width_growth=max(max_support, VIOL_SHIP * (k - 1)),
-                           overlap=overlap)
+    final = hotloop.run_hot(*shards, k=k, max_turns=max_turns,
+                            cap=int(shards[1][0].wx.shape[2]),
+                            host_view=host_view,
+                            dispatch_full=dispatch_full,
+                            dispatch_sub=dispatch_sub, warm=warm,
+                            compact=compact,
+                            width_growth=max(max_support,
+                                             VIOL_SHIP * (k - 1)),
+                            overlap=overlap, stats=stats, donate=donate)
+    return final if mesh is not None else final[0]
 
 
 def run_instances(
@@ -410,10 +449,10 @@ def run_instances(
     compact: bool = True,
     fused_kernel: Optional[bool] = None,
     solver_kernel: Optional[bool] = None,
-    overlap: bool = False,
     mesh=None,
-    donate=None,
-    stats=None,
+    donate: bool = False,
+    overlap: Optional[bool] = None,
+    stats: Optional[dict] = None,
     device="cuda",
 ):
     """Run a batch of MAXMARG instances as one sweep on ``device``.
@@ -425,9 +464,13 @@ def run_instances(
     the cold ``run_compiled``.  ``per_node`` picks the warm-carry mode.
     ``fused_kernel`` and ``solver_kernel`` route the turn scan and the
     refit's λ stages through the CUDA kernels (default: on for a CUDA
-    device, off on the CPU).  ``mesh``, ``donate`` and ``stats`` belong to
-    the sharded hot loop, which is not ported yet (ROADMAP Queue 1 item
-    11).
+    device, off on the CPU).  ``mesh`` shards the hot path over a 1-D
+    ("data",) device mesh, whose devices take the place of ``device``
+    (requires ``compact=True``; the kernel defaults follow the mesh's
+    first device); ``donate``/``overlap`` opt the per-turn dispatches into
+    writing in place and the double-buffered host loop (mesh default:
+    ``overlap`` on).  ``stats`` (a dict) collects the sharded sweep's shard skew and is
+    never read for decisions.
 
     Launch-shape contract: ``max_epochs``, ``max_support``, ``k`` and ``d``
     fix the state's shapes; the hot path's per-turn shapes take only the
@@ -437,13 +480,9 @@ def run_instances(
     from repro_torch.core import classifiers as clf
     from repro_torch.core.protocols.one_way import ProtocolResult
 
-    given = [n for n, v in (("mesh", mesh), ("donate", donate),
-                            ("stats", stats)) if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"option(s) {given} are not ported yet: ROADMAP Queue 1 item 11 "
-            f"(sharded B axis)")
-    dev = _device.resolve(device)
+    if mesh is not None and not compact:
+        raise ValueError("sharded sweeps require the compacted hot path")
+    dev = _device.resolve(device if mesh is None else mesh.devices[0])
     if eps is not None:
         instances = [ProtocolInstance(inst.shards, eps, "maxmarg")
                      for inst in instances]
@@ -452,15 +491,17 @@ def run_instances(
     solver_kernel = on_card if solver_kernel is None else solver_kernel
     data, state0, k, _cap = pack_instances_maxmarg(
         instances, max_epochs=max_epochs, max_support=max_support,
-        device=dev)
+        mesh=mesh, device=dev)
     opts = dict(k=k, max_turns=k * max_epochs, max_support=max_support,
                 steps=steps, stages=stages, lam0=lam, per_node=per_node,
                 fused_kernel=fused_kernel, solver_kernel=solver_kernel)
     if warm or compact:
-        final = run_hot(data, state0, warm=warm, compact=compact,
-                        overlap=overlap, **opts)
+        final = run_hot(data, state0, warm=warm, compact=compact, mesh=mesh,
+                        donate=donate, overlap=overlap, stats=stats, **opts)
     else:
         final = run_compiled(data, state0, **opts)
+    if mesh is not None:
+        final, data = unshard(final), data[0]
 
     converged = final.converged.cpu().numpy()
     epochs = final.epochs.cpu().numpy()
@@ -472,6 +513,8 @@ def run_instances(
     extra = {"engine": True, "batch": len(instances),
              "selector": "maxmarg", "warm": warm, "compact": compact,
              "per_node": per_node, "device": str(dev)}
+    if mesh is not None:
+        extra["devices"] = int(mesh.shape["data"])
     results: List[ProtocolResult] = []
     for i in range(len(instances)):
         h = clf.LinearSeparator(h_w[i], float(h_b[i]))

@@ -27,13 +27,16 @@ compare with the same point's projection exactly as in the reference.
 :mod:`repro_torch.engine.hotloop`, capping every transcript read at the live
 fill and dropping finished instances; ``run_compiled`` is the cold model, a
 plain turn loop at full capacity.  Both are bit-exact against each other.
-Each call runs eagerly: there is no ``jit``, and ``step`` is functional (it
-copies the transcript leaves once and appends into the copy).
+Each call runs eagerly: there is no ``jit``.  ``step`` is functional (it
+copies the transcript leaves once and appends into the copy) unless its
+state is donated (``donate=True``: the turn lands in the state's own
+tensors).  The hot path runs over a tuple of per-shard records, one on
+one device; with a ``mesh`` it runs sharded over the instance axis, each
+shard's slice on its own device.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Optional, Sequence
 
@@ -47,7 +50,9 @@ from repro_torch.engine.state import (
     EngineData,
     ProtocolInstance,
     ProtocolState,
+    as_shards,
     pack_instances,
+    unshard,
 )
 from repro_torch.kernels.median_cut import median_cut_scores_plain
 from repro_torch.kernels.support_margin import (
@@ -120,6 +125,7 @@ def step(
     cut_kernel: bool = False,
     extremes_kernel: bool = False,
     trans_width: Optional[int] = None,
+    donate: bool = False,
 ) -> ProtocolState:
     """Advance every active instance by one protocol turn.
 
@@ -137,6 +143,10 @@ def step(
     the card, their plain versions on the CPU; off, the plain versions run
     on whatever device the state lives on.  All four give identical
     integers, so the flag never changes a result.
+
+    ``donate=True`` writes the turn into ``state``'s own tensors (the
+    appends land in its transcript buffers, every other leaf is copied in)
+    and returns ``state``; the default leaves ``state`` untouched.
     """
     B, m = state.dir_ok.shape
     dev = state.dir_ok.device
@@ -196,8 +206,9 @@ def step(
     )
 
     # S lands in every transcript (the coordinator's own sent-ledger
-    # included); the appends write into one copy of the transcript leaves
-    wx, wy, w_fill, lo_w, hi_w = (a.clone() for a in (
+    # included); the appends write into one copy of the transcript leaves,
+    # or into the state's own when it is donated
+    wx, wy, w_fill, lo_w, hi_w = ((a if donate else a.clone()) for a in (
         state.wx, state.wy, state.w_fill, state.lo_w, state.hi_w))
 
     def append_node(j, pts, labs, do):
@@ -288,7 +299,7 @@ def step(
     h_valid = state.h_valid | any_set
 
     newly = term_eps | fire_band
-    return ProtocolState(
+    new = ProtocolState(
         dir_ok=dir_ok,
         wx=wx, wy=wy, w_fill=w_fill, lo_w=lo_w, hi_w=hi_w,
         turn=state.turn + 1,
@@ -298,6 +309,7 @@ def step(
         h_v=h_v, h_t=h_t, h_valid=h_valid,
         comm=comm,
     )
+    return hotloop.write_into(state, new) if donate else new
 
 
 def run_compiled(
@@ -347,7 +359,10 @@ def run_hot(
     cut_kernel: bool = False,
     extremes_kernel: bool = False,
     compact: bool = True,
-    overlap: bool = False,
+    mesh=None,
+    donate: bool = False,
+    overlap: Optional[bool] = None,
+    stats: Optional[dict] = None,
 ) -> ProtocolState:
     """The MEDIAN sweep as a host-driven turn loop over ``step`` on the
     shared :mod:`repro_torch.engine.hotloop` machinery: per-turn band and
@@ -355,28 +370,58 @@ def run_hot(
     finished instances dropped from the dispatch.  Both compactions are
     bit-exact against ``run_compiled``.  ``overlap=True`` double-buffers
     the loop (``2k+2`` rows cover one turn's worst fill growth: the S
-    block, ≤2 reply rows from each of k-1 peers, and the pivot pair)."""
-    cap = int(state.wx.shape[2])
-    opts = dict(k=k, cut_kernel=cut_kernel, extremes_kernel=extremes_kernel)
+    block, ≤2 reply rows from each of k-1 peers, and the pivot pair).
+    ``donate=True`` writes every turn into the given state's tensors
+    instead of a copy of them.
+
+    ``mesh`` (a 1-D ("data",) mesh, ``launch.mesh.make_data_mesh``) runs
+    the sweep sharded over the leading B axis: ``data`` and ``state`` are
+    split over it (``pack_instances(..., mesh=...)`` gives them split and
+    B padded with born-done dummies; a whole record must have B a multiple
+    of the axis size), each shard's turn runs on its own device, and
+    sub-batch turns come shard-balanced from ``hotloop.balanced_index``.
+    A shard runs the unchanged ``step`` on its own slice: MEDIAN decisions
+    are per-instance, so no shard reads another's rows.  On the mesh
+    ``overlap`` defaults on (off otherwise); ``donate`` stays off, as it
+    did not make a sweep faster on the H100 (PERF.md).  It requires
+    ``compact=True`` and returns the per-shard records.  ``stats`` collects
+    the shard skew (``hotloop.run_hot``).  Every setting is bit-exact:
+    MEDIAN is per-instance and any covering width is exact.
+    """
+    overlap = mesh is not None if overlap is None else overlap
+    opts = dict(k=k, cut_kernel=cut_kernel, extremes_kernel=extremes_kernel,
+                donate=donate)
+    if mesh is None:
+        shards = ((data,), (state,))
+    elif not compact:
+        raise ValueError("sharded sweeps require the compacted hot path")
+    else:
+        shards = (as_shards(data, mesh), as_shards(state, mesh))
+    Vs = {}     # one copy of the direction grid a device
+    for d in shards[0]:
+        Vs.setdefault(d.X.device, V.to(d.X.device))
 
     # MEDIAN has no warm carry: run_hot(warm=False) passes use_warm=False
-    def dispatch_full(s, *, t, width, use_warm):
-        return step(data, V, s, first_turn=(t == 0), trans_width=width,
-                    **opts)
+    def dispatch_full(d, s, *, t, width, use_warm):
+        return step(d, Vs[d.X.device], s, first_turn=(t == 0),
+                    trans_width=width, **opts)
 
-    def dispatch_sub(s, idx, n_act, *, t, width, use_warm):
-        step_fn = functools.partial(step, first_turn=(t == 0),
-                                    trans_width=width, **opts)
+    def dispatch_sub(d, s, idx, n_act, *, t, width, use_warm):
+        v = Vs[d.X.device]
         return hotloop.gathered_turn(
-            lambda sub_data, sub: step_fn(sub_data, V, sub),
-            _pad_fix, data, s, idx, n_act)
+            lambda sub_data, sub: step(sub_data, v, sub, first_turn=(t == 0),
+                                       trans_width=width, **opts),
+            _pad_fix, d, s, idx, n_act)
 
-    return hotloop.run_hot(state, k=k, max_turns=max_turns, cap=cap,
-                           host_view=_host_view,
-                           dispatch_full=dispatch_full,
-                           dispatch_sub=dispatch_sub,
-                           compact=compact, width_slack=WIDTH_SLACK,
-                           width_growth=2 * k + 2, overlap=overlap)
+    final = hotloop.run_hot(*shards, k=k, max_turns=max_turns,
+                            cap=int(shards[1][0].wx.shape[2]),
+                            host_view=_host_view,
+                            dispatch_full=dispatch_full,
+                            dispatch_sub=dispatch_sub,
+                            compact=compact, width_slack=WIDTH_SLACK,
+                            width_growth=2 * k + 2, overlap=overlap,
+                            stats=stats, donate=donate)
+    return final if mesh is not None else final[0]
 
 
 def run_instances(
@@ -388,7 +433,10 @@ def run_instances(
     cut_kernel: Optional[bool] = None,
     extremes_kernel: Optional[bool] = None,
     compact: bool = True,
-    overlap: bool = False,
+    mesh=None,
+    donate: bool = False,
+    overlap: Optional[bool] = None,
+    stats: Optional[dict] = None,
     device="cuda",
 ):
     """Run a batch of MEDIAN/k-party instances as one sweep on ``device``.
@@ -399,31 +447,45 @@ def run_instances(
     ``compact=True`` (the default) runs the host-driven hot path; ``False``
     the cold ``run_compiled``.  ``cut_kernel``/``extremes_kernel`` route the
     per-turn scans through the CUDA kernels (default: on for a CUDA device,
-    off on the CPU).
+    off on the CPU).  ``mesh`` shards the hot path over a 1-D ("data",)
+    device mesh, whose devices take the place of ``device`` (requires
+    ``compact=True``; the kernel defaults follow the mesh's first device);
+    ``donate``/``overlap`` opt the per-turn dispatches into writing in
+    place and the double-buffered host loop (mesh default: ``overlap``
+    on).
+    ``stats`` (a dict) collects host-side observability — on sharded
+    sweeps the per-dispatch shard skew (``hotloop.shard_skew``) — and is
+    never read for decisions.
 
-    Launch-shape contract: ``n_angles``, ``max_epochs``, ``k`` and ``d`` fix
-    the state's shapes; the hot path's per-turn shapes take only the
+    Launch-shape contract: ``n_angles``, ``max_epochs``, ``k`` and ``d``
+    fix the state's shapes; the hot path's per-turn shapes take only the
     quantized ``(n_pad, width)`` buckets that ``hotloop.KEY_LOG`` records.
     """
     from repro_torch.core import classifiers as clf
     from repro_torch.core import geometry as geo
     from repro_torch.core.protocols.one_way import ProtocolResult
 
-    dev = _device.resolve(device)
+    if mesh is not None and not compact:
+        raise ValueError("sharded sweeps require the compacted hot path")
+    dev = _device.resolve(device if mesh is None else mesh.devices[0])
     if eps is not None:
         instances = [ProtocolInstance(inst.shards, eps) for inst in instances]
     on_card = dataplane.use_kernels_default(dev)
     cut_kernel = on_card if cut_kernel is None else cut_kernel
     extremes_kernel = on_card if extremes_kernel is None else extremes_kernel
     data, state0, k, _cap = pack_instances(
-        instances, n_angles=n_angles, max_epochs=max_epochs, device=dev)
+        instances, n_angles=n_angles, max_epochs=max_epochs, mesh=mesh,
+        device=dev)
     V = geo.direction_grid(n_angles, device=dev)
     opts = dict(k=k, max_turns=k * max_epochs, cut_kernel=cut_kernel,
                 extremes_kernel=extremes_kernel)
     if compact:
-        final = run_hot(data, V, state0, overlap=overlap, **opts)
+        final = run_hot(data, V, state0, mesh=mesh, donate=donate,
+                        overlap=overlap, stats=stats, **opts)
     else:
         final = run_compiled(data, V, state0, **opts)
+    if mesh is not None:
+        final = unshard(final)
 
     converged = final.converged.cpu().numpy()
     epochs = final.epochs.cpu().numpy()
@@ -433,6 +495,8 @@ def run_instances(
     comm_np = BatchCommLog(*(a.cpu().numpy() for a in final.comm))
     extra = {"engine": True, "batch": len(instances),
              "selector": "median", "compact": compact, "device": str(dev)}
+    if mesh is not None:
+        extra["devices"] = int(mesh.shape["data"])
     results: List[ProtocolResult] = []
     for b in range(len(instances)):
         h = clf.LinearSeparator(-h_v[b], float(h_t[b]))

@@ -16,14 +16,18 @@ package's, leaf for leaf:
 * communication is accounted in :class:`BatchCommLog`, one int32 counter per
   instance, lowered to ``CommLog.summary()``-shaped dicts at the end.
 
-Every record lives on one explicit device.  :func:`from_reference` turns the
-JAX package's packed records (as numpy arrays) into the port's, so the tests
-run both packages on identical inputs.
+Every record lives on one explicit device, or — packed with ``mesh=`` — is
+split over a 1-D ``("data",)`` device mesh (:func:`device_put_sharded`): a
+tuple of S records of the same type, shard s's slice of every batched leaf
+on ``mesh.devices[s]``.  :func:`from_reference` turns the JAX package's
+packed records (as numpy arrays) into the port's, so the tests run both
+packages on identical inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -160,6 +164,104 @@ def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf-wise over NamedTuple records of tensors."""
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*(tree_map(fn, *leaves)
+                                for leaves in zip(*trees)))
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [a for t in tree for a in _leaves(t)]
+    return [tree]
+
+
+def shard_specs(tree):
+    """The engine's one sharding rule, leaf for leaf as the JAX package's
+    ``PartitionSpec`` pytree: axis 0 of every batched leaf splits over the
+    mesh's "data" axis (``("data", None, ...)``), scalar leaves replicate
+    (``()``).  Works on any engine record — :class:`EngineData`,
+    :class:`ProtocolState`, :class:`MaxMargState` — of tensors or numpy
+    arrays."""
+    return tree_map(lambda a: () if np.ndim(a) == 0
+                    else ("data",) + (None,) * (np.ndim(a) - 1), tree)
+
+
+def _shard_leaf(a, s: int, b_loc: int, dev: torch.device) -> torch.Tensor:
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    if t.ndim:
+        t = t[s * b_loc:(s + 1) * b_loc]
+    return t.to(dev, copy=True).contiguous()
+
+
+def device_put_sharded(tree, mesh) -> tuple:
+    """Split an engine record over ``mesh`` under :func:`shard_specs`: a
+    tuple of S records of the same type, shard s holding rows ``[s·B/S,
+    (s+1)·B/S)`` of every batched leaf (and a copy of every scalar leaf) on
+    ``mesh.devices[s]``.  Host (numpy) leaves upload straight to their
+    shards, so a packed sweep is born sharded.  Every shard gets tensors of
+    its own, also where the mesh repeats a device: no shard is a view of
+    another's buffer or of the input."""
+    S = int(mesh.shape["data"])
+    B = next(np.shape(a)[0] for a in _leaves(tree) if np.ndim(a))
+    if B % S:
+        raise ValueError(f"B={B} not divisible by mesh axis {S}; pack with "
+                         f"mesh=")
+    return tuple(tree_map(functools.partial(_shard_leaf, s=s, b_loc=B // S,
+                                            dev=dev), tree)
+                 for s, dev in enumerate(mesh.devices))
+
+
+def as_shards(tree, mesh) -> tuple:
+    """An engine record split over ``mesh``: as it is when it already is
+    (a plain tuple of per-shard records), else :func:`device_put_sharded`."""
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        if len(tree) != int(mesh.shape["data"]):
+            raise ValueError(f"{len(tree)} shards for a mesh of "
+                             f"{mesh.shape['data']}")
+        return tree
+    return device_put_sharded(tree, mesh)
+
+
+def unshard(parts, device="cpu"):
+    """The one record that the shards of :func:`device_put_sharded` split:
+    batched leaves concatenated in shard order on ``device``, scalar leaves
+    from shard 0."""
+    dev = torch.device(device)
+    return tree_map(lambda *ls: ls[0].to(dev) if ls[0].ndim == 0
+                    else torch.cat([a.to(dev) for a in ls]), *parts)
+
+
+def _mesh_batch(B: int, mesh) -> int:
+    """Pad the instance count to a multiple of the mesh's "data" axis so
+    every shard carries an equal slice; the pad rows are *born-done* dummy
+    instances (zero data, zero budget) that never join a dispatch's active
+    set and accrue nothing."""
+    if mesh is None:
+        return B
+    return _round_up(B, int(mesh.shape["data"]))
+
+
+def _born_done(state_np: Dict[str, np.ndarray], B: int):
+    """Mark the mesh padding rows past the B real instances finished."""
+    state_np["done"][B:] = True
+    return state_np
+
+
+def _packed(record, data_np, state_np, comm_np, mesh, device):
+    """The packed ``(data, state0)``: on ``device``, or split over ``mesh``
+    (whose devices then take its place)."""
+    if mesh is not None:
+        return (device_put_sharded(EngineData(*data_np), mesh),
+                device_put_sharded(record(comm=BatchCommLog(*comm_np),
+                                          **state_np), mesh))
+    dev = _device.resolve(device)
+    return (EngineData(*(torch.from_numpy(a).to(dev) for a in data_np)),
+            _state_to(state_np, comm_np, dev, record))
+
+
 def transcript_capacity(k: int, max_epochs: int) -> int:
     """Static per-node transcript bound.  Per epoch a node appends at most
     ``8k - 4`` rows: one coordinator turn (its own ≤2 band points, ≤2 extreme
@@ -179,11 +281,12 @@ def _state_to(state_np: Dict[str, np.ndarray], comm_np, dev,
     return record(comm=comm, **leaves)
 
 
-def _pack_shards(instances, d: int):
+def _pack_shards(instances, d: int, B: Optional[int] = None):
     """The (X, y, budget) numpy arrays of a sweep: shards padded to n_max
-    (rounded up to 8) with label-0 rows, budget = floor(ε · n_total)."""
+    (rounded up to 8) with label-0 rows, budget = floor(ε · n_total); ``B``
+    (default: the instance count) adds all-zero rows past the instances."""
     k = len(instances[0].shards)
-    B = len(instances)
+    B = len(instances) if B is None else B
     n_max = _round_up(max(s[0].shape[0] for inst in instances
                           for s in inst.shards), 8)
     X = np.zeros((B, k, n_max, d), np.float32)
@@ -217,6 +320,7 @@ def pack_instances(
     *,
     n_angles: int,
     max_epochs: int,
+    mesh=None,
     device="cuda",
 ) -> Tuple[EngineData, ProtocolState, int, int]:
     """Pad a sweep onto the engine's static shapes, on ``device``.
@@ -225,20 +329,21 @@ def pack_instances(
     count k and dimension d=2; shard sizes may be ragged (label-0 padding).
     ``n_max`` and ``cap`` are rounded up to multiples of 8.  The arrays are
     built in numpy exactly as the JAX package builds them and uploaded
-    once.
+    once.  With ``mesh`` the batch pads to a multiple of the data-axis size
+    with born-done dummy rows and uploads born-sharded
+    (:func:`device_put_sharded`; ``data`` and ``state0`` are then tuples of
+    per-shard records).
     """
-    dev = _device.resolve(device)
     k, ds = _shared_k_d(instances)
     if ds != {2}:
         raise ValueError(f"MEDIAN engine is specified for R^2, got d={ds}")
-    B = len(instances)
+    B = _mesh_batch(len(instances), mesh)
     cap = transcript_capacity(k, max_epochs)
-    X, y, budget = _pack_shards(instances, 2)
-
-    data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
-    state0 = _state_to(_median_state0(B, k, cap, n_angles),
-                       [np.zeros((B,), np.int32)
-                        for _ in BatchCommLog._fields], dev)
+    data, state0 = _packed(
+        ProtocolState, _pack_shards(instances, 2, B),
+        _born_done(_median_state0(B, k, cap, n_angles), len(instances)),
+        [np.zeros((B,), np.int32) for _ in BatchCommLog._fields],
+        mesh, device)
     return data, state0, k, cap
 
 
@@ -301,6 +406,7 @@ def pack_instances_maxmarg(
     *,
     max_epochs: int,
     max_support: int,
+    mesh=None,
     device="cuda",
 ) -> Tuple[EngineData, MaxMargState, int, int]:
     """Pad a MAXMARG sweep onto the engine's static shapes, on ``device``.
@@ -309,20 +415,21 @@ def pack_instances_maxmarg(
     count k and the dimension d (any d — MAXMARG has no direction grid);
     shard sizes may be ragged (label-0 padding).  ``n_max`` and ``cap`` are
     rounded up to multiples of 8; the arrays are built in numpy exactly as
-    the JAX package builds them and uploaded once.
+    the JAX package builds them and uploaded once.  With ``mesh`` the batch
+    pads to a multiple of the data-axis size with born-done dummy rows and
+    uploads born-sharded (:func:`device_put_sharded`).
     """
-    dev = _device.resolve(device)
     k, ds = _shared_k_d(instances)
     if len(ds) != 1:
         raise ValueError(f"instances must share the dimension, got {ds}")
     d = ds.pop()
+    B = _mesh_batch(len(instances), mesh)
     cap = maxmarg_transcript_capacity(k, max_epochs, max_support)
-    X, y, budget = _pack_shards(instances, d)
-    data = EngineData(*(torch.from_numpy(a).to(dev) for a in (X, y, budget)))
-    state0 = _state_to(
-        _maxmarg_state0(len(instances), k, cap, d),
-        [np.zeros((len(instances),), np.int32) for _ in BatchCommLog._fields],
-        dev, MaxMargState)
+    data, state0 = _packed(
+        MaxMargState, _pack_shards(instances, d, B),
+        _born_done(_maxmarg_state0(B, k, cap, d), len(instances)),
+        [np.zeros((B,), np.int32) for _ in BatchCommLog._fields],
+        mesh, device)
     return data, state0, k, cap
 
 

@@ -280,6 +280,7 @@ def run_hot(
     fused_kernel: bool = False,
     solver_kernel: Optional[bool] = None,
     width_policy: str = "geometric",
+    stats: Optional[dict] = None,
 ) -> UnifiedState:
     """The mixed sweep as a host-driven turn loop over ``step`` on the
     shared :mod:`repro_torch.engine.hotloop` machinery.  One loop drives
@@ -290,7 +291,8 @@ def run_hot(
     policy ran ``chip_smoke.py`` phase 17a's mixed sweep faster (PERF.md);
     geometric buckets keep the distinct launch shapes to O(log cap), the
     count that CUDA graphs captured per ``hotloop.KEY_LOG`` key would
-    pay for."""
+    pay for.  ``stats`` is threaded to ``hotloop.run_hot`` as in the JAX
+    package; with no mesh on this path it records nothing."""
     cap = int(state.wx.shape[2])
     track = per_node and warm
     opts = dict(k=k, max_support=max_support, steps=steps, stages=stages,
@@ -303,21 +305,22 @@ def run_hot(
     def host_view(s, ci):
         return _host_view(s, ci, per_node=track)
 
-    def dispatch_full(s, *, t, width, use_warm):
-        return step(data, V, s, first_turn=(t == 0), trans_width=width,
+    def dispatch_full(d, s, *, t, width, use_warm):
+        return step(d, V, s, first_turn=(t == 0), trans_width=width,
                     warm=use_warm, **opts)
 
-    def dispatch_sub(s, idx, n_act, *, t, width, use_warm):
-        return hot_turn(data, V, s, idx, n_act, first_turn=(t == 0),
+    def dispatch_sub(d, s, idx, n_act, *, t, width, use_warm):
+        return hot_turn(d, V, s, idx, n_act, first_turn=(t == 0),
                         trans_width=width, warm=use_warm, **opts)
 
-    return hotloop.run_hot(state, k=k, max_turns=max_turns, cap=cap,
-                           host_view=host_view,
-                           dispatch_full=dispatch_full,
-                           dispatch_sub=dispatch_sub, warm=warm,
-                           compact=compact, width_slack=width_slack,
-                           width_growth=width_growth,
-                           width_policy=width_policy)
+    (final,) = hotloop.run_hot((data,), (state,), k=k, max_turns=max_turns,
+                               cap=cap, host_view=host_view,
+                               dispatch_full=dispatch_full,
+                               dispatch_sub=dispatch_sub, warm=warm,
+                               compact=compact, width_slack=width_slack,
+                               width_growth=width_growth,
+                               width_policy=width_policy, stats=stats)
+    return final
 
 
 def run_instances(
@@ -350,8 +353,8 @@ def run_instances(
     ε-net ``sample_size`` with ``rounds = k-1`` and ``converged=True``.
     The scans, the turn scan and the solver run as the CUDA kernels on a
     CUDA device (flags resolved once here), their plain versions on the
-    CPU.  ``stats`` belongs to the sharded hot loop, which is not ported
-    yet (ROADMAP Queue 1 item 11).
+    CPU.  ``stats`` (a dict) is the hot loop's observability hook, as in
+    the JAX package; this path has no mesh, so it records nothing.
 
     Launch-shape contract: the state's shapes key on k, d, the padded
     shard size, ``n_angles`` (1 for a median-free mix) and the shared
@@ -362,10 +365,6 @@ def run_instances(
     from repro_torch.core import geometry as geo
     from repro_torch.core.protocols.one_way import ProtocolResult
 
-    if stats is not None:
-        raise NotImplementedError(
-            "option(s) ['stats'] are not ported yet: ROADMAP Queue 1 item 11 "
-            "(sharded B axis)")
     dev = _device.resolve(device)
     if eps is not None:
         instances = [ProtocolInstance(inst.shards, eps, inst.selector,
@@ -385,7 +384,7 @@ def run_instances(
                     has_median=has_median, compact=compact,
                     cut_kernel=on_card, extremes_kernel=on_card,
                     fused_kernel=on_card, solver_kernel=solver_kernel,
-                    width_policy=width_policy)
+                    width_policy=width_policy, stats=stats)
 
     converged = final.converged.cpu().numpy()
     epochs = final.epochs.cpu().numpy()

@@ -8,8 +8,9 @@ stacks every period's parameters on a leading ``n_periods`` axis for
 loop walks it.  Caches are one dict per layer, preallocated and written in
 place.  The JAX package pins the residual stream's batch axis to the data
 mesh axes between layers (``constrain_batch_dim``, the identity without a
-mesh); sharding waits for ROADMAP Queue 1 item 11, so nothing stands in
-for it here.
+mesh); the model stack's meshes and constraints wait for ROADMAP Queue 1
+item 14 (the engine's data mesh is ``repro_torch.launch.mesh``), so
+nothing stands in for it here.
 
 Attention, Mamba and RWKV-6 mixers and the SwiGLU, GELU and RWKV
 channel-mix FFNs are ported (the SSM states are caches like the attention

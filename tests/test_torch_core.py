@@ -232,7 +232,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.configs, repro_torch.data.pipeline, "
         "repro_torch.serve, repro_torch.serve.engine, "
         "repro_torch.serve.service, repro_torch.engine.unified, "
-        "repro_torch.engine.session_pool, repro_torch.engine.faults;"
+        "repro_torch.engine.session_pool, repro_torch.engine.faults, "
+        "repro_torch.launch, repro_torch.launch.mesh;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ,
@@ -254,6 +255,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from repro_torch.serve import ServeConfig, TokenServingEngine
     from repro_torch.serve import PoolConfig, ProtocolService
     from repro_torch.engine.session_pool import SessionPool
+    from repro_torch.launch.mesh import make_data_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     shards = tdata.data1(n_per_node=20, k=2, seed=0)
@@ -298,6 +300,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                      inst + mm, n_angles=8, max_epochs=2, max_support=4),
                  lambda: SessionPool(PoolConfig(slots=2, k=2, n_pad=16)),
                  lambda: ProtocolService(PoolConfig(slots=2, k=2, n_pad=16,
-                                                    selector="unified"))):
+                                                    selector="unified")),
+                 lambda: make_data_mesh(),
+                 lambda: two_way.iterative_support_median_bit(shards),
+                 lambda: two_way.iterative_support_noisy(shards)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -384,8 +384,17 @@ def test_run_sweep_mixed_selectors_in_input_order():
             > 1.0 - COS
     with pytest.raises(TypeError, match="n_angle"):
         teng.run_sweep(_port(insts[:1]), n_angle=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmm.run_instances(_port(insts[:1]), donate=True, device="cpu")
+    # donation runs on one device as in JAX: every turn written into the
+    # state's own tensors, the results bit for bit the copying run's
+    mm = [_port(insts)[i] for i in (0, 3)]
+    don = tmm.run_instances(mm, donate=True, max_epochs=6, steps=STEPS,
+                            device="cpu")
+    cop = tmm.run_instances(mm, max_epochs=6, steps=STEPS, device="cpu")
+    for a, b in zip(don, cop):
+        assert (a.comm, a.rounds, a.converged) == \
+            (b.comm, b.rounds, b.converged)
+        np.testing.assert_array_equal(a.classifier.w, b.classifier.w)
+        assert a.classifier.b == b.classifier.b
 
 
 def test_iterative_support_maxmarg_b1_delegation():

@@ -383,25 +383,32 @@ def test_kparty_three_nodes():
 
 
 def test_run_sweep_refuses_what_is_not_ported():
-    """What later slices port raises naming its ROADMAP item; a typo'd
-    option raises ``TypeError``, an unknown selector ``ValueError``.  The
-    MAXMARG and one-way selectors and the unified dispatch are ported
-    (tests/test_torch_maxmarg.py, tests/test_torch_oneway.py,
-    tests/test_torch_unified.py): ``unified_dispatch=True`` now runs."""
+    """The options each selector takes are the JAX package's ``_ALLOWED``
+    table: ``stats`` on a VOTING-only sweep is a ``TypeError`` in both
+    packages (no selector of that sweep takes it), while ``mesh=None`` on
+    MEDIAN and ``stats`` on MAXMARG run (single-device: the dict stays
+    empty); a typo'd option raises ``TypeError``, an unknown selector
+    ``ValueError``.  ``unified_dispatch=True`` runs."""
     inst = teng.ProtocolInstance(datasets.data1(n_per_node=20, k=2), 0.1)
     voting = teng.ProtocolInstance(inst.shards, 0.1, "voting")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="stats"):
         teng.run_sweep([voting], stats={}, device="cpu")
+    with pytest.raises(TypeError, match="stats"):
+        jeng.run_sweep([jeng.ProtocolInstance(inst.shards, 0.1, "voting")],
+                       stats={})
     with pytest.raises(TypeError, match="n_angles"):
         teng.run_sweep([voting], n_angles=8, device="cpu")  # MEDIAN's
     res = teng.run_sweep([inst], unified_dispatch=True, n_angles=64,
                          max_epochs=4, device="cpu")
     assert res[0].extra["unified"] and res[0].extra["selector"] == "median"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.run_sweep([inst], mesh=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "maxmarg")],
-                       stats={}, device="cpu")
+    plain = teng.run_sweep([inst], n_angles=64, max_epochs=4, device="cpu")
+    res = teng.run_sweep([inst], mesh=None, n_angles=64, max_epochs=4,
+                         device="cpu")
+    assert res[0].comm == plain[0].comm and "devices" not in res[0].extra
+    stats = {}
+    res = teng.run_sweep([teng.ProtocolInstance(inst.shards, 0.1, "maxmarg")],
+                         stats=stats, max_epochs=4, steps=200, device="cpu")
+    assert res[0].converged and stats == {}
     with pytest.raises(TypeError, match="max_epoch"):
         teng.run_sweep([inst], max_epoch=4, device="cpu")
     with pytest.raises(TypeError, match="steps"):

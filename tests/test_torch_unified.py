@@ -280,14 +280,19 @@ def test_readme_quick_start_mix_runs():
 
 
 def test_unified_refuses_what_is_not_ported():
-    """``stats`` belongs to the sharded hot loop (item 11); the baselines
-    are not unified families; an unknown width policy raises."""
+    """``stats`` is taken as in the JAX package (the unified path has no
+    mesh, so the dict stays empty and the results are those of a run
+    without it); the baselines are not unified families; an unknown width
+    policy raises."""
     insts = _port(_mixed_instances(3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teng.run_sweep(insts, unified_dispatch=True, stats={},
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tuni.run_instances(insts, stats={}, device="cpu")
+    stats = {}
+    with_stats = teng.run_sweep(insts, unified_dispatch=True, stats=stats,
+                                device="cpu")
+    assert stats == {}
+    _assert_results(tuni.run_instances(insts, device="cpu"), with_stats,
+                    median_bitwise=True)
+    tuni.run_instances(insts, stats=stats, device="cpu")
+    assert stats == {}
     with pytest.raises(ValueError, match="unified packing covers"):
         teng.pack_instances_unified(
             [teng.ProtocolInstance(insts[0].shards, 0.1, "voting")],
