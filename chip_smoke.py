@@ -112,8 +112,9 @@ Phases (any failure exits non-zero; none is caught):
    32, the scan at S 31 and 33 (ragged against its chunk) and di 1000 and
    1001 (ragged against its 128-channel block; 1001 stages scalar), and
    the decay extremes 0.02 and 0.999; the
-   flash-attention kernel at Jamba's scoring shape (H 64, KV 8, hd 128,
-   bf16, causal; ``tc``), held and timed; each scan timed at its path's
+   flash-attention kernel at the scoring shapes of Jamba (H 64, KV 8),
+   grok-1 (H 48, KV 8) and qwen2-vl-2b (H 12, KV 2; each hd 128, B 8,
+   S 2048, bf16, causal; ``tc``), held and timed; each scan timed at its path's
    shape and at decode beside
    its plain version and its bound (bytes, or operations with the scan's
    exponentials split between the special-function units and FMA-pipe
@@ -185,7 +186,38 @@ Phases (any failure exits non-zero; none is caught):
    ``iterative_support_noisy`` at ``examples/noisy_protocol.py``'s sizes
    (data3, n_per_node=500, 5% and 10% noise), every B=1 Pegasos stage
    recorded and replayed against the plain stage bit for bit, card against
-   CPU as in 18b (``best_err`` exact too).
+   CPU as in 18b (``best_err`` exact too);
+19. the MoE, MLA and VLM families (``families_phase``), each at its
+   published widths in bf16 under the kernel backend, weights drawn on
+   the card, freed before the next: 19a grok-1 cut to 2 layers
+   (``forward_train`` B=8 S=2048, exactly 2 attention launches, both
+   ``tc``; serving B=8, prompt 512, cache 1024, 64 greedy tokens, no
+   launch, every decoded token's MoE on the gather path); 19b DeepSeek-V2
+   cut to 2 layers (scoring B=4 S=2048 and serving, no launch: MLA passes
+   an explicit scale), served with the faithful and the absorbed decode,
+   then the two decodes fed the same tokens in lockstep (their caches
+   stay equal), every step's logits compared: in bf16 printed (a
+   rounding can move one of 160 experts' top-6 picks, and the output with
+   it), in f32 at the same widths held: a pick may differ only where
+   either run's top two logits lie within 2e-3; 19c Jamba with its
+   experts (``jamba_moe``: in-period layers 4-5, one MoE layer of 16
+   experts), scoring exactly 1 ``tc`` and 1 scan launch, serving 1 + 64
+   scans and no attention launch; 19d qwen2-vl-2b at full width and depth,
+   64 patch embeddings spliced over the first positions with M-RoPE ids on
+   a patch grid (scoring exactly 28 ``tc`` launches, serving none); each
+   with tokens/s, prefill ms, ms a token and the MoE FFN's share of a
+   scoring pass from CUDA events (qwen2-vl: the attention kernel's, its
+   device time at that shape from phase 14 over the pass); 19e
+   ``moe.route`` card against CPU in f32 at grok-1's and DeepSeek-V2's
+   full width, B=8 S=512 (capacity 160 and 24, slots dropped): expert
+   ids, ``keep`` and ``dest`` equal (on the batch rows where no pick
+   differs, at least half of them), a pick differing only at a near-tie
+   (adjacent top-(k+1) probabilities within 1e-6 on the CPU), gates to
+   1e-5 and the aux loss to rtol 1e-5; 19f card
+   against CPU in f32 with the same weights (grok-1 and DeepSeek-V2 at one
+   layer, qwen2-vl at two; B=1, prompt 32): loss to 1e-5 and 8 greedy
+   tokens under phase 13's tie rule, DeepSeek-V2 in both decodes,
+   exactly 3 ``simt`` launches.
 
 Unified and service config: the MAXMARG smoke's settings (below) over
 data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
@@ -231,7 +263,11 @@ without experts (``configs/jamba_1_5_large_398b.py`` at every published
 width, cut to one period of its 9 and with each MoE FFN replaced by a
 dense SwiGLU of d_expert's 24576: one period of the MoE model holds four
 layers of 16 experts, over 80 GB in bf16).  Random weights from a seeded
-generator on the card.
+generator on the card.  Phase 19: grok-1 (``configs/grok_1_314b.py``)
+and DeepSeek-V2 (``configs/deepseek_v2_236b.py``) at every published
+width cut to 2 layers (~11.4 B and ~9.3 B parameters with their
+untied embeddings and heads), Jamba with its experts (``jamba_moe``, ~11.9
+B) and qwen2-vl-2b (``configs/qwen2_vl_2b.py``) at full width and depth.
 """
 
 from __future__ import annotations
@@ -277,6 +313,16 @@ SERVE_SSM = dict(B=8, prompt=512, cache_len=1024, tokens=64)   # C and D
 # the SSM scans, kernel against plain: max |diff| <= tol * max(1, max |plain|)
 # per output; the states are f32 in either input type
 SSM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# phase 19: the MoE, MLA and VLM families at their published widths in bf16,
+# depth cut (grok-1 and DeepSeek-V2 to 2 layers, Jamba to in-period layers
+# 4-5 with its experts); scoring shapes, then serving at SERVE_FAMILIES
+FAMILY_SCORING = {"grok-1-314b": dict(layers=2, B=8, S=2048),
+                  "deepseek-v2-236b": dict(layers=2, B=4, S=2048),
+                  "jamba": dict(B=8, S=2048),
+                  "qwen2-vl-2b": dict(B=8, S=2048)}
+SERVE_FAMILIES = dict(B=8, prompt=512, cache_len=1024, tokens=64)
+ROUTE_SHAPE = dict(B=8, S=512)     # 19e: prefill's routing, card against CPU
+ABSORB_TIE = 2e-3     # tests/test_mla_absorb.py's tier for the two decodes
 FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
 # phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
 # SAMPLING sessions' 1711-row ε-net (the default sizes it at eps=0.05)
@@ -979,6 +1025,442 @@ def jamba_dense(cfg):
     return dataclasses.replace(
         cfg, name=cfg.name + "-one-period-dense", n_layers=len(cfg.period),
         period=tuple((m, "mlp") for m, _ in cfg.period), moe=None)
+
+
+def jamba_moe(cfg):
+    """Jamba with its experts at every published width: the published
+    config cut to its in-period layers 4 and 5, ``(attn, mlp), (mamba,
+    moe)``: the attention layer, a Mamba layer and one MoE FFN of 16
+    experts at d_expert 24576 (~11.9 B parameters; a whole period's four
+    MoE layers are over 77 GB in bf16)."""
+    import dataclasses
+    return dataclasses.replace(cfg, name=cfg.name + "-layers-4-5",
+                               n_layers=2, period=cfg.period[4:6])
+
+
+def _vlm_grid(batch, width=8, n=None):
+    """The M-RoPE ids of the batch's first ``n`` patch positions (all
+    patches by default) on a grid ``width`` wide (temporal 0, height
+    i // width, width i % width); the other positions keep their own
+    position in all three planes, as decode gives it."""
+    if "vision_embed" in batch:
+        n = batch["vision_embed"].shape[1] if n is None else n
+        i = np.arange(n)
+        pos = batch["rope_pos"].copy()
+        pos[:, :, :n] = np.stack([np.zeros(n), i // width,
+                                  i % width])[:, None, :]
+        batch["rope_pos"] = pos
+    return batch
+
+
+def _prompt_of(batch, S):
+    """The first S tokens with the patches and M-RoPE ids that go with
+    them."""
+    out = {"tokens": batch["tokens"][:, :S]}
+    if "vision_embed" in batch:
+        out["vision_embed"] = batch["vision_embed"]
+        out["rope_pos"] = batch["rope_pos"][:, :, :S]
+    return out
+
+
+def _host_free_gb():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def families_phase(dev, attn_ms=None):
+    """Phase 19: grok-1 (MoE), DeepSeek-V2 (MoE with MLA, both decodes),
+    Jamba with its experts and qwen2-vl (the patch splice) at their
+    published widths on the card, scoring and serving through the entry
+    points with every launch counted, routing and whole models card
+    against CPU in f32.  ``attn_ms`` maps a config's name to the attention
+    kernel's device time for one call at its scoring shape (held and timed
+    in phase 14; without it qwen2-vl's attention share is not printed).
+    Returns (launches per path, attention routes per
+    path)."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.kernels import flash_attention as fa_module
+    from repro_torch.models import layers, model as lm_model, moe as moe_mod
+    from repro_torch.serve import ServeConfig, TokenServingEngine
+
+    t_phase = time.perf_counter()
+    # the f32 checks hold f32 products: PyTorch's default, checked
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on for f32 matmuls")
+    bf16, f32 = torch.bfloat16, torch.float32
+    zero = dict.fromkeys(kernels.launches(), 0)
+    no_routes = dict.fromkeys(fa_module.ROUTES, 0)
+    paths, routes = {}, {}
+    sv = SERVE_FAMILIES
+    torch.cuda.empty_cache()
+    layers.set_attention_impl("kernel")
+
+    def drawn(name, mcfg, dtype):
+        t0 = time.perf_counter()
+        lm = lm_model.init_lm(mcfg, seed=0, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in lm.parameters())
+        print(f"{name}: {n} parameters ({n * dtype.itemsize / 1e9:.2f} GB "
+              f"in {dtype}; param_count {mcfg.param_count()}), drawn on the "
+              f"card in {time.perf_counter() - t0:.2f} s")
+        return lm
+
+    def batch_of(mcfg, B, S, seed=0):
+        return _vlm_grid(next(synthetic_stream(
+            mcfg, DataConfig(seq_len=S, global_batch=B, seed=seed))))
+
+    def check(what, got, got_routes, expect, want_routes=None):
+        want = dict(zero, **expect)
+        want_r = dict(no_routes, **(want_routes or {}))
+        if got != want or got_routes != want_r:
+            raise AssertionError(f"{what} launched {got}, routes "
+                                 f"{got_routes}; expected {want}, routes "
+                                 f"{want_r}")
+
+    def moe_events(run):
+        """Run ``run`` with CUDA events around every call of
+        ``moe.apply_moe``; returns (summed event ms, wall ms, calls)."""
+        spans, original = [], moe_mod.apply_moe
+
+        def timed(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = original(*a, **kw)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
+        moe_mod.apply_moe = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            moe_mod.apply_moe = original
+        return (sum(a.elapsed_time(b) for a, b in spans), wall * 1e3,
+                len(spans))
+
+    def score(name, key, mcfg, lm, batch, attn=0, scans=0):
+        """Warm up, one counted ``forward_train`` (exactly ``attn`` tc and
+        ``scans`` scan launches), 3 timed, one with CUDA events around
+        every MoE FFN (without experts, the attention kernel's share from
+        its time at this shape in ``attn_ms``)."""
+        lm_model.forward_train(lm, mcfg, batch)            # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        loss, met = lm_model.forward_train(lm, mcfg, batch)
+        torch.cuda.synchronize()
+        got, got_routes = kernels.launches(), dict(kernels.attention.routes)
+        expect = {k: v for k, v in (("attention", attn),
+                                    ("mamba_scan", scans)) if v}
+        check(f"{name} scoring", got, got_routes, expect,
+              dict(tc=attn) if attn else None)
+        aux = float(met["aux_loss"])
+        if not (torch.isfinite(loss) and 0 <= float(met["acc"]) <= 1
+                and (aux > 0) == (mcfg.moe is not None)):
+            raise AssertionError(f"{name} scoring loss {loss}, acc "
+                                 f"{met['acc']}, aux {aux}")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_model.forward_train(lm, mcfg, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        if mcfg.moe is not None:
+            span_ms, ev_ms, calls = moe_events(
+                lambda: lm_model.forward_train(lm, mcfg, batch))
+            share = (f"the {calls} MoE FFN calls take {span_ms:.2f} ms of a "
+                     f"{ev_ms:.2f} ms pass ({span_ms / ev_ms:.1%})")
+        elif mcfg.name not in (attn_ms or {}):
+            share = "the attention kernel's share not timed (phase 14)"
+        else:
+            span_ms = attn * attn_ms[mcfg.name]
+            share = (f"the {attn} attention kernel calls take {attn} x "
+                     f"{attn_ms[mcfg.name]:.4f} ms (its device time at this "
+                     f"shape, phase 14) = {span_ms:.2f} ms of the median pass "
+                     f"({span_ms / (wall * 1e3):.1%})")
+        B, S = batch["tokens"].shape
+        print(f"{name} scoring B={B} S={S} bf16: loss {float(loss)!r} (aux "
+              f"{aux!r}), acc {float(met['acc']):.4f}, launches "
+              f"{ {k: v for k, v in got.items() if v} }, routes "
+              f"{ {k: v for k, v in got_routes.items() if v} }; "
+              f"{wall * 1e3:.2f} ms a pass (median of 3: "
+              f"{[round(w * 1e3, 2) for w in walls]}), {B * S / wall:.0f} "
+              f"tokens/s; {share}")
+        paths[f"{key}_scoring"] = got
+        if attn:
+            routes[f"{key}_scoring"] = got_routes
+        return float(loss)
+
+    def prompt_of(mcfg):
+        """A serving prompt: ``sv["prompt"]`` tokens of a batch of its own
+        (with 64 patch embeddings for the VLM)."""
+        return _prompt_of(batch_of(mcfg, sv["B"], sv["prompt"], seed=1),
+                          sv["prompt"])
+
+    def serve(name, key, mcfg, lm, prompt, expect, flags=lm_model.RunFlags()):
+        """Warm up, then prefill and greedy-decode ``sv["tokens"]`` with
+        the launch counts set to 0 just before (exactly ``expect``, no
+        attention launch) and the gather path's calls counted (every MoE
+        layer at every decoded token: B=8 tokens a step).  Returns the
+        tokens."""
+        sc = ServeConfig(batch=sv["B"], cache_len=sv["cache_len"],
+                         flags=flags)
+        warm = TokenServingEngine(mcfg, lm, sc, device=dev)
+        warm.generate(warm.prefill_prompt(prompt)[:, -1].argmax(-1), 2)
+        del warm
+        eng = TokenServingEngine(mcfg, lm, sc, device=dev)
+        gathers, original = [0], moe_mod._moe_gather_path
+
+        def counted(*a, **kw):
+            gathers[0] += 1
+            return original(*a, **kw)
+
+        moe_mod._moe_gather_path = counted
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            first = eng.prefill_prompt(prompt)[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pre_gathers = gathers[0]
+            toks = eng.generate(first, sv["tokens"])
+            t2 = time.perf_counter()
+        finally:
+            moe_mod._moe_gather_path = original
+        got = kernels.launches()
+        check(f"{name} serving", got, dict(kernels.attention.routes), expect)
+        n_moe = sum(f == "moe" for _, f in mcfg.period) * mcfg.n_periods
+        if (pre_gathers, gathers[0]) != (0, n_moe * sv["tokens"]):
+            raise AssertionError(f"{name} serving: {pre_gathers} gather-path "
+                                 f"calls at prefill, {gathers[0]} in all; "
+                                 f"expected 0 and {n_moe * sv['tokens']}")
+        if not (toks.shape == (sv["B"], sv["tokens"])
+                and ((toks >= 0) & (toks < mcfg.vocab)).all()):
+            raise AssertionError(f"{name} served tokens {toks}")
+        pre_ms, tok_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / sv["tokens"]
+        print(f"{name} serving B={sv['B']} prompt {sv['prompt']} cache "
+              f"{sv['cache_len']} bf16{' mla_absorb' if flags.mla_absorb else ''}"
+              f": prefill {pre_ms:.2f} ms, {tok_ms:.3f} ms per decoded token "
+              f"({sv['tokens']} tokens, {sv['B'] * 1e3 / tok_ms:.0f} "
+              f"tokens/s), launches { {k: v for k, v in got.items() if v} }, "
+              f"{gathers[0]} gather-path MoE calls")
+        paths[f"{key}_serving"] = got
+        return toks
+
+    def lockstep(what, mcfg, lm, prompt, dtype, tie):
+        """MLA's faithful and absorbed decodes fed the same tokens (the
+        faithful one's greedy picks), so their caches stay equal: every
+        step's logits compared, and where the picks differ both runs' top
+        two logits must lie within ``tie`` (None: printed only)."""
+        engs = [TokenServingEngine(mcfg, lm, ServeConfig(
+            batch=sv["B"], cache_len=sv["cache_len"], dtype=dtype,
+            flags=lm_model.RunFlags(mla_absorb=a)), device=dev)
+            for a in (False, True)]
+        tok = [e.prefill_prompt(prompt) for e in engs][0][:, -1].argmax(-1)
+        tok = tok.to(torch.int32).reshape(-1, 1)
+        worst, parted = 0.0, []
+        for t in range(sv["tokens"]):
+            logits = []
+            for e in engs:
+                lg, e.caches = e.step(e.params, e.caches, tok, e.pos)
+                e.pos += 1
+                logits.append(lg[:, -1].float())
+            worst = max(worst, float((logits[0] - logits[1]).abs().max()))
+            picks = [lg.argmax(-1) for lg in logits]
+            top2 = [lg.topk(2, -1).values for lg in logits]
+            gaps = [(v[:, 0] - v[:, 1]).cpu().numpy() for v in top2]
+            for r in torch.nonzero(picks[0] != picks[1]).flatten().tolist():
+                parted.append((t, r, float(gaps[0][r]), float(gaps[1][r])))
+            tok = picks[0].to(torch.int32).reshape(-1, 1)
+        print(f"{what} faithful and absorbed decodes in lockstep, B="
+              f"{sv['B']} prompt {sv['prompt']}, {sv['tokens']} steps: max "
+              f"|logit diff| {worst!r}, {len(parted)} of "
+              f"{sv['B'] * sv['tokens']} picks differ "
+              f"{parted[:8]}{' ...' if len(parted) > 8 else ''}")
+        if tie is not None:
+            far = [p for p in parted if min(p[2], p[3]) > tie]
+            if far:
+                raise AssertionError(f"{what}: picks differ at (step, row, "
+                                     f"gaps) {far} with both top-2 gaps "
+                                     f"above {tie}")
+
+    # -- 19a. grok-1 cut to 2 layers -----------------------------------------
+    t0 = time.perf_counter()
+    gfull = get_config("grok-1-314b")
+    gs = FAMILY_SCORING["grok-1-314b"]
+    gcfg = dataclasses.replace(gfull, n_layers=gs["layers"])
+    lm = drawn(f"19a grok-1-314b at {gcfg.n_layers} layers", gcfg, bf16)
+    batch = batch_of(gcfg, gs["B"], gs["S"])
+    score("19a grok-1", "grok", gcfg, lm, batch, attn=gcfg.n_layers)
+    serve("19a grok-1", "grok", gcfg, lm, prompt_of(gcfg), {})
+    del lm, batch
+    torch.cuda.empty_cache()
+    print(f"19a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19b. DeepSeek-V2 cut to 2 layers, both decodes ----------------------
+    t0 = time.perf_counter()
+    dfull = get_config("deepseek-v2-236b")
+    ds = FAMILY_SCORING["deepseek-v2-236b"]
+    dcfg = dataclasses.replace(dfull, n_layers=ds["layers"])
+    lm = drawn(f"19b deepseek-v2-236b at {dcfg.n_layers} layers", dcfg, bf16)
+    batch = batch_of(dcfg, ds["B"], ds["S"])
+    # MLA passes an explicit scale: the plain pass, no attention launch
+    score("19b deepseek-v2", "deepseek", dcfg, lm, batch)
+    prompt = prompt_of(dcfg)
+    serve("19b deepseek-v2", "deepseek", dcfg, lm, prompt, {})
+    serve("19b deepseek-v2", "deepseek_absorbed", dcfg, lm, prompt, {},
+          flags=lm_model.RunFlags(mla_absorb=True))
+    # the two decodes in lockstep, in bf16 (printed) and in f32 (held)
+    lockstep("19b bf16", dcfg, lm, prompt, bf16, tie=None)
+    del lm, batch
+    torch.cuda.empty_cache()
+    lm = drawn(f"19b deepseek-v2-236b at {dcfg.n_layers} layers", dcfg, f32)
+    lockstep("19b f32", dcfg, lm, prompt, f32, tie=ABSORB_TIE)
+    del lm
+    torch.cuda.empty_cache()
+    print(f"19b: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19c. Jamba with its experts (in-period layers 4-5) ------------------
+    t0 = time.perf_counter()
+    jcfg = jamba_moe(get_config("jamba-1.5-large-398b"))
+    lm = drawn(f"19c {jcfg.name} {jcfg.period}", jcfg, bf16)
+    js = FAMILY_SCORING["jamba"]
+    batch = batch_of(jcfg, js["B"], js["S"])
+    n_mamba = sum(m == "mamba" for m, _ in jcfg.period)
+    score("19c jamba with experts", "jamba_moe", jcfg, lm, batch,
+          attn=jcfg.n_layers - n_mamba, scans=n_mamba)
+    serve("19c jamba with experts", "jamba_moe", jcfg, lm, prompt_of(jcfg),
+          dict(mamba_scan=n_mamba * (1 + sv["tokens"])))
+    del lm, batch
+    torch.cuda.empty_cache()
+    print(f"19c: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19d. qwen2-vl-2b at full width and depth, patches spliced -----------
+    t0 = time.perf_counter()
+    qcfg = get_config("qwen2-vl-2b")
+    lm = drawn("19d qwen2-vl-2b", qcfg, bf16)
+    qs = FAMILY_SCORING["qwen2-vl-2b"]
+    batch = batch_of(qcfg, qs["B"], qs["S"])
+    print(f"19d: {batch['vision_embed'].shape[1]} patch embeddings spliced, "
+          f"M-RoPE ids (3, B, S) {batch['rope_pos'].shape}")
+    score("19d qwen2-vl-2b", "qwen2vl", qcfg, lm, batch, attn=qcfg.n_layers)
+    serve("19d qwen2-vl-2b", "qwen2vl", qcfg, lm, prompt_of(qcfg), {})
+    del lm, batch
+    torch.cuda.empty_cache()
+    print(f"19d: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19e. routing card against CPU, f32, full width ----------------------
+    t0 = time.perf_counter()
+    for mcfg in (gfull, dfull):
+        mo, d = mcfg.moe, mcfg.d_model
+        B, S, K = ROUTE_SHAPE["B"], ROUTE_SHAPE["S"], mo.top_k
+        gen = torch.Generator(device=dev).manual_seed(19)
+        w = torch.randn((d, mo.n_experts), generator=gen, device=dev) * 0.02
+        # a per-row offset leans each row's tokens toward some experts
+        x = (torch.randn((B, S, d), generator=gen, device=dev)
+             + 0.5 * torch.randn((B, 1, d), generator=gen, device=dev))
+        rc = moe_mod.route({"router": w}, mcfg, x)
+        wh, xh = w.cpu(), x.cpu()
+        rh = moe_mod.route({"router": wh}, mcfg, xh)
+        top = torch.softmax((xh @ wh).float(), -1).topk(K + 1, -1).values
+        near = ((top[..., :-1] - top[..., 1:]) <= 1e-6).any(-1)   # (B, S)
+        ids = rc.expert_ids.cpu()
+        differ = (ids != rh.expert_ids).any(-1)
+        if bool((differ & ~near).any()):
+            raise AssertionError(f"19e {mcfg.name}: expert picks differ at "
+                                 f"{int((differ & ~near).sum())} tokens "
+                                 f"without a near-tie")
+        rows = ~differ.any(-1)       # batch rows where no pick differs
+        if int(rows.sum()) < B // 2:
+            raise AssertionError(f"19e {mcfg.name}: picks differ in "
+                                 f"{B - int(rows.sum())} of {B} rows, too "
+                                 f"few left to hold keep and dest")
+        for what, a, b in (("keep", rc.keep, rh.keep),
+                           ("dest", rc.dest, rh.dest)):
+            _exact(a.cpu()[rows], b[rows], f"19e {mcfg.name} {what}")
+        gate_err = float((rc.gate_vals.cpu() - rh.gate_vals)[~differ].abs()
+                         .max())
+        aux_err = abs(float(rc.aux) - float(rh.aux)) / abs(float(rh.aux))
+        dropped = int((~rh.keep).sum())
+        # the router product sums d terms in another order on each side
+        if not (dropped > 0 and gate_err <= 1e-5 and aux_err <= 1e-5):
+            raise AssertionError(f"19e {mcfg.name}: {dropped} dropped "
+                                 f"slots, gate error {gate_err}, aux "
+                                 f"relative error {aux_err}")
+        print(f"19e {mcfg.name} routing B={B} S={S} f32 card vs cpu: cap "
+              f"{moe_mod.moe_capacity(mcfg, S)}, {dropped} of {B * S * K} "
+              f"slots dropped, {int(differ.sum())} tokens' picks differ "
+              f"(near-ties within 1e-6: {int(near.sum())} tokens), expert "
+              f"ids, keep and dest equal on {int(rows.sum())} of {B} rows, "
+              f"gates max |diff| {gate_err!r}, aux relative {aux_err!r}")
+        del w, x, wh, xh, rc, rh
+    print(f"19e: {time.perf_counter() - t0:.1f} s")
+
+    # -- 19f. card against CPU, f32, the same weights ------------------------
+    t0 = time.perf_counter()
+    print(f"19f: host memory available {_host_free_gb():.1f} GB")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for mcfg, modes in ((dataclasses.replace(gfull, n_layers=1), (False,)),
+                        (dataclasses.replace(dfull, n_layers=1),
+                         (False, True)),
+                        (dataclasses.replace(qcfg, n_layers=2), (False,))):
+        name = f"19f {mcfg.name} at {mcfg.n_layers} layer(s)"
+        params = drawn(name, mcfg, f32)
+        on_cpu = lm_model.cast_params(params, f32, device="cpu")
+        b1 = batch_of(mcfg, 1, 32, seed=1)
+        lc, _ = lm_model.forward_train(params, mcfg, b1, dtype=f32)
+        lh, _ = lm_model.forward_train(on_cpu, mcfg, b1, dtype=f32)
+        if not abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh)):
+            raise AssertionError(f"{name} loss card {float(lc)!r}, cpu "
+                                 f"{float(lh)!r}")
+        prompt = _prompt_of(b1, 32)
+        for absorb in modes:
+            sc = ServeConfig(batch=1, cache_len=40, dtype=f32,
+                             flags=lm_model.RunFlags(mla_absorb=absorb))
+            cpu_eng = TokenServingEngine(mcfg, on_cpu, sc, device="cpu")
+            lgh = cpu_eng.prefill_prompt(prompt)
+            want, gaps = _greedy(cpu_eng, lgh[:, -1].argmax(-1), 8)
+            eng = TokenServingEngine(mcfg, params, sc, device=dev)
+            lgc = eng.prefill_prompt(prompt)
+            got = eng.generate(lgh[:, -1].argmax(-1), 8)
+            _same_tokens(got, want, gaps, f"{name} card vs cpu")
+            print(f"{name} card vs cpu, B=1 prompt 32, f32"
+                  f"{' mla_absorb' if absorb else ''}: loss {float(lc)!r} "
+                  f"and {float(lh)!r}, prefill logits max |diff| "
+                  f"{float((lgc.cpu() - lgh).abs().max())!r}, 8 greedy "
+                  f"tokens card {got.tolist()} cpu {want.tolist()}")
+            del eng, cpu_eng
+        del params, on_cpu
+        torch.cuda.empty_cache()
+    got, got_routes = kernels.launches(), dict(kernels.attention.routes)
+    # f32 scoring at 32 rows takes the simt route: grok-1's one attention
+    # layer and qwen2-vl's two; serving's attention has a cache
+    simt = 1 + 2
+    check("19f card vs cpu", got, got_routes, dict(attention=simt),
+          dict(simt=simt))
+    paths["families_card_vs_cpu_f32"] = got
+    routes["families_card_vs_cpu_f32"] = got_routes
+    print(f"19f: {time.perf_counter() - t0:.1f} s, attention routes "
+          f"{ {k: v for k, v in got_routes.items() if v} }")
+    layers.set_attention_impl("plain")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return paths, routes
 
 
 def unified_instances(datasets, engine):
@@ -3344,6 +3826,22 @@ def main() -> int:
     time_attention(attention_row("tc", what, jamba_qkv, True, PEAK_BF16))
     del jamba_qkv
     torch.cuda.empty_cache()
+    # grok-1's and qwen2-vl's attention layers at their phase-19 scoring
+    # shapes, as those paths launch them: held and timed (printed; the
+    # device time gives qwen2-vl's attention share in phase 19)
+    family_attn_ms = {}
+    for name in ("grok-1-314b", "qwen2-vl-2b"):
+        fcfg, fs = get_config(name), FAMILY_SCORING[name]
+        fqkv = qkv(((fs["B"], fs["S"], fcfg.n_heads, fcfg.hd),
+                    (fs["B"], fs["S"], fcfg.n_kv, fcfg.hd)), bf16)
+        what = (f"{name} scoring (H {fcfg.n_heads}, KV {fcfg.n_kv}, hd "
+                f"{fcfg.hd})")
+        hold_attention(f"{what}, bf16", fqkv, causal=True)
+        r = attention_row("tc", what, fqkv, True, PEAK_BF16)
+        time_attention(r)
+        family_attn_ms[name] = r["graph_ms"]
+        del fqkv, r
+        torch.cuda.empty_cache()
     rB, rS, rH, rhd = rw_args[0].shape
     sB, sS, sdi = sc_args[0].shape
     ssm_rows = [
@@ -3630,6 +4128,10 @@ def main() -> int:
     protocol_counts = two_way_phase(dev)
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 19. the MoE, MLA and VLM families ------------------------------------
+    family_counts, family_routes = families_phase(dev, family_attn_ms)
+    route_counts.update(family_routes)
+
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,
              "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
@@ -3638,7 +4140,7 @@ def main() -> int:
              "rwkv_scoring": rwkv_scoring, "rwkv_serving": rwkv_serving,
              "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving,
              "unified": unified_counts, "service": service_counts,
-             "sharded": sharded_counts, **protocol_counts}
+             "sharded": sharded_counts, **protocol_counts, **family_counts}
     print(f"launches per path: {paths}")
     print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}

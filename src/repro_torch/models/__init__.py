@@ -1,11 +1,11 @@
-# Counterpart of repro.models for the dense, encoder-decoder, SSM and
-# hybrid families: config is a verbatim copy (data only); layers, ssm,
-# transformer and model are torch.  MoE, MLA and the VLM front end raise
-# NotImplementedError naming the ROADMAP item that ports them.
+# Counterpart of repro.models for every family (dense, MoE with MLA, SSM,
+# hybrid, audio, VLM): config is a verbatim copy (data only); layers, moe,
+# ssm, transformer and model are torch.
 from repro_torch.models import (  # noqa: F401
     config,
     layers,
     model,
+    moe,
     ssm,
     transformer,
 )

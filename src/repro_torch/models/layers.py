@@ -1,13 +1,13 @@
-"""Shared neural layers: norms, RoPE / M-RoPE, GQA attention, MLPs.
+"""Shared neural layers: norms, RoPE / M-RoPE, GQA + MLA attention, MLPs.
 
-Counterpart of ``repro.models.layers`` for the dense and encoder-decoder
-families.  Functional, as there: ``init_*`` builds a dict of tensors from an
-explicit ``torch.Generator`` (on the generator's device), ``apply_*``
-consumes one.  Attention takes a query-block pass in plain PyTorch that
-never holds more than (block_q, Skv) scores per head, or, on the calls the
-JAX package routes to its Pallas kernel, the hand-written flash kernel
-(:func:`set_attention_impl`).  MLA waits for the MLA part of ROADMAP
-Queue 1 item 14.
+Counterpart of ``repro.models.layers``.  Functional, as there: ``init_*``
+builds a dict of tensors from an explicit ``torch.Generator`` (on the
+generator's device), ``apply_*`` consumes one.  Attention takes a
+query-block pass in plain PyTorch that never holds more than (block_q, Skv)
+scores per head, or, on the calls the JAX package routes to its Pallas
+kernel, the hand-written flash kernel (:func:`set_attention_impl`).  MLA
+passes an explicit scale, so it always takes the plain pass, as in the JAX
+package; its absorbed decode attends in the latent space, in f32.
 """
 
 from __future__ import annotations
@@ -264,6 +264,134 @@ def apply_attention(
                              block_q=block_q)
 
     out = out.reshape(B, S, H * hd) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    p: Params = {}
+    if m.q_lora:
+        p["wdq"] = dense_init(gen, d, m.q_lora, dtype)
+        p["q_norm"] = torch.ones((m.q_lora,), dtype=dtype, device=gen.device)
+        p["wuq"] = dense_init(gen, m.q_lora, H * qk, dtype)
+    else:
+        p["wq"] = dense_init(gen, d, H * qk, dtype)
+    p["wdkv"] = dense_init(gen, d, m.kv_lora, dtype)
+    p["kv_norm"] = torch.ones((m.kv_lora,), dtype=dtype, device=gen.device)
+    # separate K-up / V-up weights, as the JAX package keeps them
+    p["wuk"] = dense_init(gen, m.kv_lora, H * m.qk_nope_dim, dtype)
+    p["wuv"] = dense_init(gen, m.kv_lora, H * m.v_head_dim, dtype)
+    p["wkr"] = dense_init(gen, d, m.qk_rope_dim, dtype)
+    p["wo"] = dense_init(gen, H * m.v_head_dim, d, dtype)
+    return p
+
+
+def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    m = cfg.mla
+    B, S, _ = x.shape
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    if "wdq" in p:
+        q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
+    else:
+        q = x @ p["wq"]
+    return q.reshape(B, S, cfg.n_heads, qk)
+
+
+def apply_mla(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                     # (B, S, d)
+    positions: torch.Tensor,             # (B, S)
+    *,
+    window: Optional[int] = None,
+    cache: Optional[Params] = None,      # {"ckv": (B,Sc,kv_lora), "krope": (B,Sc,rope)}
+    cache_index: Optional[int] = None,
+    absorb: bool = False,
+    block_q: int = 1024,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA.  With a ``cache`` the new latents and rope keys are written into
+    it in place (at ``cache_index``, a ring buffer under ``window``) and
+    the returned cache is the same dict.  ``absorb`` attends in the
+    latent space (score = (q_nope · W_ukᵀ) · ckvᵀ, W_uv folded into the
+    output), in f32 as the JAX package computes it."""
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.n_heads
+    nope, rope_d, hdv = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(nope + rope_d)
+
+    q = _mla_q(p, cfg, x)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope_apply(q_rope, positions, cfg.rope_theta)
+
+    ckv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)  # (B, S, kv_lora)
+    krope = rope_apply((x @ p["wkr"]).reshape(B, S, 1, rope_d), positions,
+                       cfg.rope_theta).reshape(B, S, rope_d)
+
+    new_cache = None
+    q_offset = 0
+    kv_valid = None
+    causal = True
+    if cache is not None:
+        cc, cr = cache["ckv"], cache["krope"]
+        Sc = cc.shape[1]
+        if window is not None:
+            # ring buffer: every filled slot is attendable
+            slot, causal = cache_index % Sc, False
+        else:
+            slot = cache_index
+        slot = min(max(slot, 0), Sc - S)   # clamped as dynamic_update_slice
+        cc[:, slot:slot + S] = ckv.to(cc.dtype)
+        cr[:, slot:slot + S] = krope.to(cr.dtype)
+        ckv, krope = cc, cr
+        new_cache = cache
+        q_offset = cache_index
+        kv_valid = min(cache_index + S, Sc)
+
+    Skv = ckv.shape[1]
+    wuk = p["wuk"].reshape(m.kv_lora, H, nope)
+    wuv = p["wuv"].reshape(m.kv_lora, H, hdv)
+
+    if absorb:
+        # ---- absorbed decode: attention in the kv_lora-dim latent space --
+        q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), wuk.float())
+        ckv32 = ckv.float()
+        s = torch.einsum("bqhl,bsl->bhqs", q_lat * scale, ckv32)
+        s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float() * scale,
+                             krope.float())
+        kv_idx = torch.arange(Skv, device=x.device)
+        rows = q_offset + torch.arange(S, device=x.device)
+        mask = torch.ones((S, Skv), dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= kv_idx[None, :] <= rows[:, None]
+        if kv_valid is not None:
+            mask &= kv_idx[None, :] < kv_valid
+        s = s.masked_fill(~mask, -math.inf)
+        pw = torch.softmax(s, dim=-1)
+        pw = torch.where(torch.isnan(pw), 0.0, pw)
+        o_lat = torch.einsum("bhqs,bsl->bqhl", pw, ckv32)       # (B,S,H,kvl)
+        out = torch.einsum("bqhl,lhv->bqhv", o_lat, wuv.float())
+        out = out.reshape(B, S, H * hdv).to(x.dtype) @ p["wo"]
+        return out, new_cache
+
+    # ---- faithful reconstruct path ----------------------------------------
+    k_nope = torch.einsum("bsl,lhe->bshe", ckv, wuk.to(ckv.dtype))
+    v = torch.einsum("bsl,lhe->bshe", ckv, wuv.to(ckv.dtype))
+    # K: the reconstructed k_nope joined to krope shared by every head; its
+    # width nope + rope differs from V's hdv
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(B, Skv, H, rope_d)
+                   .to(k_nope.dtype)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_core(qfull, k, v, causal=causal, q_offset=q_offset,
+                         kv_valid_len=kv_valid, block_q=block_q, scale=scale)
+    out = out.reshape(B, S, H * hdv) @ p["wo"]
     return out, new_cache
 
 

@@ -1,25 +1,28 @@
 """Top-level language model: embedding → layer stack → norm → head.
 
-Counterpart of ``repro.models.model`` for the dense, audio
-(encoder-decoder), SSM (RWKV-6) and hybrid (Mamba + attention, dense FFNs)
-families:
+Counterpart of ``repro.models.model`` for every family of the JAX package:
+dense, MoE (grok-1; DeepSeek-V2 with MLA), SSM (RWKV-6), hybrid (Jamba:
+Mamba and attention, dense and MoE FFNs), audio (encoder-decoder) and VLM:
 
 * ``init_lm``            — an :class:`LM` with seeded random weights
 * ``from_reference``     — an :class:`LM` holding the JAX package's weights
-* ``forward_train``      — tokens → loss and accuracy (chunked vocab
-  cross-entropy), forward only
+* ``forward_train``      — tokens → loss (plus the MoE aux loss) and
+  accuracy (chunked vocab cross-entropy), forward only
 * ``prefill``            — tokens → (last-position logits, filled caches)
-* ``decode_step``        — one token with caches (serve_step's core)
+* ``decode_step``        — one token with caches (serve_step's core);
+  ``RunFlags(mla_absorb=True)`` takes MLA's latent-space decode
 * ``make_caches``        — per-layer decode state for (cfg, batch,
-  cache_len): attention keys and values, the SSM mixers' states
+  cache_len): attention keys and values, MLA's latents, the SSM mixers'
+  states
 
+VLM (qwen2-vl): precomputed patch embeddings are spliced over the first
+``n_vis`` token positions and M-RoPE takes (3, B, S) position ids.
 Audio (whisper): precomputed frame embeddings feed a bidirectional encoder;
 the decoder cross-attends (the frontend is stubbed, as in the JAX package).
-The VLM family's patch splice, MoE and MLA layers, activation checkpointing
-and MLA's absorbed decode raise ``NotImplementedError`` naming their
-ROADMAP item.  The model runs forward only: its parameters hold no
-gradients, and training waits for the training part of ROADMAP Queue 1
-item 14.
+The model runs forward only: its parameters hold no gradients, and
+activation checkpointing (``RunFlags(remat=True)``) raises
+``NotImplementedError``: training waits for the training part of ROADMAP
+Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -57,19 +60,11 @@ class RunFlags:
 
 
 def _check(cfg: ModelConfig, flags: RunFlags) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision patch splice is not ported yet; it "
-            f"waits for the VLM part of ROADMAP Queue 1 item 14")
     check_ported(cfg)
     if flags.remat:
         raise NotImplementedError(
             "RunFlags(remat=True): activation checkpointing waits for the "
             "training part of ROADMAP Queue 1 item 14")
-    if flags.mla_absorb:
-        raise NotImplementedError(
-            "RunFlags(mla_absorb=True): MLA waits for the MLA part of "
-            "ROADMAP Queue 1 item 14")
 
 
 class ParamTree(nn.Module):
@@ -167,7 +162,11 @@ def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
     nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``),
     every leaf carried across (the SSM mixers' ``mu_*``, ``w0``, ``wA``,
     ``wB``, ``u``, ``ln_scale``, ``conv_*``, ``x_proj``, ``dt_*``,
-    ``A_log`` and ``D`` as the attention weights).
+    ``A_log`` and ``D``, MLA's ``wdq``, ``q_norm``, ``wuq`` / ``wq``,
+    ``wdkv``, ``kv_norm``, ``wuk``, ``wuv``, ``wkr`` and ``wo``, and the
+    MoE FFN's ``router``, ``we_*`` and ``shared_*`` as the attention
+    weights; a stacked ``(n_periods, E, d, d_expert)`` expert leaf gives
+    each layer its ``(E, d, d_expert)`` slice).
     The JAX stacks (``blocks`` / ``enc_blocks``, ``pos{j}`` leaves with a
     leading ``n_periods`` axis) are unstacked into one entry per layer,
     period ``i``'s position ``j`` at ``i * len(period) + j``."""
@@ -195,11 +194,13 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
            vision_embed: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """Token embeddings, the first ``nv`` positions replaced (not
+    extended) by ``vision_embed`` (B, nv, d) when given."""
+    x = p["embed"][tokens.long()].to(dtype)
     if vision_embed is not None:
-        raise NotImplementedError(
-            "vision_embed: the patch splice waits for the VLM part of "
-            "ROADMAP Queue 1 item 14")
-    return p["embed"][tokens.long()].to(dtype)
+        nv = vision_embed.shape[1]
+        x = torch.cat([vision_embed.to(dtype), x[:, nv:, :]], dim=1)
+    return x
 
 
 def _head(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -249,7 +250,8 @@ def forward_train(
     dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (loss, metrics), forward only, on the device the weights lie
-    on.  batch: tokens, targets [, audio_embed], numpy arrays or tensors."""
+    on.  batch: tokens, targets [, vision_embed, rope_pos, audio_embed],
+    numpy arrays or tensors."""
     _check(cfg, flags)
     p = cast_params(p, dtype)
     batch = _on(batch, p["embed"].device)
@@ -303,7 +305,8 @@ def prefill(
     dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, List[Params]]:
     """Run the prompt through the model, filling ``caches`` in place from
-    index 0.  Returns (logits at last position, caches)."""
+    index 0.  batch: tokens [, vision_embed, rope_pos, audio_embed].
+    Returns (logits at last position, caches)."""
     _check(cfg, flags)
     p = cast_params(p, dtype)
     batch = _on(batch, p["embed"].device)
@@ -344,5 +347,6 @@ def decode_step(
         positions = torch.full((B, 1), pos, device=dev)
     x, caches, _ = apply_stack(
         p["blocks"], cfg, x, positions, causal=True, window=flags.window,
-        caches=caches, cache_index=pos, block_q=flags.block_q)
+        caches=caches, cache_index=pos, mla_absorb=flags.mla_absorb,
+        block_q=flags.block_q)
     return _head(p, cfg, x), caches

@@ -1,0 +1,204 @@
+"""Mixture-of-Experts FFN: top-k routing, capacity-bounded sort-based
+dispatch, optional shared experts (DeepSeek-V2 style), load-balance
+auxiliary loss.
+
+Counterpart of ``repro.models.moe``.  Tokens are expanded top-k ways, sorted
+by expert id per batch row (a stable sort, as ``jnp.argsort``), ranked within
+their expert's segment and written into a dense (B, E, capacity, d) buffer
+that feeds one batched product per projection; slots past an expert's
+capacity are dropped, the earliest tokens of a segment kept.  The JAX
+package pins the buffers to its mesh axes (``constrain`` / ``batch_axes``,
+the identity without a mesh); the port's model stack has no mesh, so
+nothing stands in for them.  The expert products are plain PyTorch matmuls,
+as the JAX package computes them outside any Pallas kernel.
+
+Few-token calls (``B·S <= 16``, decode) take the gather path: each token's
+top-k experts applied to it directly.  The JAX package gathers a
+(T, K, d, d_expert) copy of the picked weights; here each distinct picked
+expert's weights are applied, as they lie, to the tokens that picked it,
+the same per-(token, pick) products without the copy.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init
+
+Params = Dict[str, Any]
+
+
+class Routing(NamedTuple):
+    """The dispatch plan of one :func:`route` call, batch rows first.
+
+    ``gate_vals`` (B, S, K) f32 renormalised top-k probabilities and
+    ``expert_ids`` (B, S, K) their experts, highest first; ``order`` (B,
+    S·K) the stable sort of the flattened picks by expert; ``keep`` and
+    ``dest`` (B, S·K), in that sorted order, whether a slot fits its
+    expert's capacity and its row in the (E·cap) buffer (0 within the
+    expert's block where dropped); ``aux`` the load-balance loss."""
+    gate_vals: torch.Tensor
+    expert_ids: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    aux: torch.Tensor
+    order: torch.Tensor
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    mo = cfg.moe
+    if n_tokens * mo.top_k <= 256:
+        # tiny sequences (smoke tests, small decode batches): drop-free
+        # capacity so the dense dispatch agrees exactly with the gather path
+        return n_tokens * mo.top_k
+    cap = int(math.ceil(n_tokens * mo.top_k / mo.n_experts
+                        * mo.capacity_factor))
+    # round up to a lane-friendly multiple
+    return max(8, -(-cap // 8) * 8)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig,
+             dtype=torch.float32) -> Params:
+    mo = cfg.moe
+    d, ffe, E = cfg.d_model, mo.d_expert, mo.n_experts
+
+    def experts(d_in, d_out):
+        w = torch.randn((E, d_in, d_out), generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return (w / math.sqrt(d_in)).to(dtype)
+
+    # separate gate / up per expert, as the JAX package keeps them; down
+    # (E, ffe, d)
+    p = {"router": dense_init(gen, d, E, dtype, scale=0.02),
+         "we_g": experts(d, ffe), "we_u": experts(d, ffe),
+         "we_o": experts(ffe, d)}
+    if mo.n_shared:
+        p["shared_wg"] = dense_init(gen, d, ffe * mo.n_shared, dtype)
+        p["shared_wu"] = dense_init(gen, d, ffe * mo.n_shared, dtype)
+        p["shared_wo"] = dense_init(gen, ffe * mo.n_shared, d, dtype)
+    return p
+
+
+def _top_k(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Router softmax over the last axis; returns (probs, renormalised
+    top-k gates, expert ids), the gates and probabilities in f32."""
+    logits = (x @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, expert_ids
+
+
+def route(p: Params, cfg: ModelConfig, x: torch.Tensor) -> Routing:
+    """Top-k routing of ``x`` (B, S, d) and its per-row dispatch into
+    ``moe_capacity(cfg, S)`` slots an expert (see :class:`Routing`)."""
+    mo = cfg.moe
+    B, S, _ = x.shape
+    E, K = mo.n_experts, mo.top_k
+    cap = moe_capacity(cfg, S)
+    probs, gate_vals, expert_ids = _top_k(p, cfg, x)
+
+    # load-balance aux loss (Switch/GShard form), global means
+    me = probs.mean(dim=(0, 1))                                # (E,)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
+    ce.index_add_(0, expert_ids.reshape(-1),
+                  torch.full((B * S * K,), 1.0 / (B * S * K),
+                             dtype=torch.float32, device=x.device))
+    aux = E * torch.sum(me * ce) * mo.router_aux_weight
+
+    # per-row sort of the S·K slots by expert; the sort is stable, so a
+    # segment keeps its tokens in order and drops the latest past ``cap``
+    TK = S * K
+    flat_e = expert_ids.reshape(B, TK)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = flat_e.gather(1, order)
+    seg_start = torch.searchsorted(
+        se, torch.arange(E, device=x.device).expand(B, E).contiguous())
+    pos_in_e = (torch.arange(TK, device=x.device)[None]
+                - seg_start.gather(1, se))
+    keep = pos_in_e < cap
+    dest = se * cap + torch.where(keep, pos_in_e, 0)
+    return Routing(gate_vals, expert_ids, keep, dest, aux, order)
+
+
+def apply_moe(p: Params, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, d), aux load-balance loss scalar).
+
+    Dispatch is per batch row: each row sorts its own S·top_k slots into an
+    (E, cap, d) buffer, as in the JAX package."""
+    mo = cfg.moe
+    B0, S0, d = x.shape
+    if S0 == 1 and B0 > 1:
+        # decode: the batch *is* the token stream — dispatch it as one row so
+        # expert buffers stay (E, cap≈B·K/E) instead of B separate buffers
+        x = x.reshape(1, B0, d)
+    B, S, _ = x.shape
+    E, K = mo.n_experts, mo.top_k
+    cap = moe_capacity(cfg, S)
+
+    if B * S <= 16:
+        out, aux = _moe_gather_path(p, cfg, x)
+        return out.reshape(B0, S0, d), aux
+
+    r = route(p, cfg, x)
+    TK = S * K
+    st = torch.div(r.order, K, rounding_mode="floor")          # token of slot
+    sg = r.gate_vals.reshape(B, TK).gather(1, r.order)
+
+    # dispatch: every slot adds its token (zero where dropped) at its row;
+    # a kept row receives exactly one token, so the adds' order is moot
+    src = x.gather(1, st[..., None].expand(B, TK, d))
+    src = torch.where(r.keep[..., None], src, 0)
+    rows = (torch.arange(B, device=x.device)[:, None] * (E * cap)
+            + r.dest).reshape(-1)
+    xe = torch.zeros((B * E * cap, d), dtype=x.dtype, device=x.device)
+    xe.index_add_(0, rows, src.reshape(B * TK, d))
+    xe = xe.reshape(B, E, cap, d)
+
+    g = torch.einsum("becd,edf->becf", xe, p["we_g"])          # (B, E, cap, ffe)
+    u = torch.einsum("becd,edf->becf", xe, p["we_u"])
+    ye = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_o"])
+    ye = ye.reshape(B, E * cap, d)
+
+    contrib = ye.gather(1, r.dest[..., None].expand(B, TK, d))
+    contrib = contrib * (sg * r.keep)[..., None].to(ye.dtype)
+    # combine: the slots back in (token, pick) order, each token's K summed
+    per_tok = torch.empty_like(contrib).scatter_(
+        1, r.order[..., None].expand(B, TK, d), contrib)
+    out = per_tok.reshape(B, S, K, d).sum(2).to(x.dtype)
+
+    if mo.n_shared:
+        out = out + _shared(p, x)
+    return out.reshape(B0, S0, d), r.aux
+
+
+def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["shared_wg"]) * (x @ p["shared_wu"])) @ p["shared_wo"]
+
+
+def _moe_gather_path(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Few-token path (e.g. batch-1 long-context decode): each token's top-k
+    experts applied to it instead of the dense (E, cap) dispatch — E/K× less
+    work when almost every expert slot would be padding.  Each distinct
+    picked expert's weights are read once, for the tokens that picked it
+    (the JAX package gathers a (T, K, d, d_expert) copy instead)."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    _, gate_vals, expert_ids = _top_k(p, cfg, xt)              # (T, K)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ye = torch.empty((*expert_ids.shape, d), dtype=x.dtype, device=x.device)
+    for e in torch.unique(expert_ids).tolist():
+        t, k = (expert_ids == e).nonzero(as_tuple=True)
+        xs = xt[t]
+        h = F.silu(xs @ p["we_g"][e]) * (xs @ p["we_u"][e])
+        ye[t, k] = h @ p["we_o"][e]
+    out = (ye * gate_vals.to(ye.dtype)[..., None]).sum(1)
+    if cfg.moe.n_shared:
+        out = out + _shared(p, xt)
+    return out.reshape(B, S, d), aux

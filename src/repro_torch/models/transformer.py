@@ -12,11 +12,11 @@ mesh); the model stack's meshes and constraints wait for ROADMAP Queue 1
 item 14 (the engine's data mesh is ``repro_torch.launch.mesh``), so
 nothing stands in for it here.
 
-Attention, Mamba and RWKV-6 mixers and the SwiGLU, GELU and RWKV
-channel-mix FFNs are ported (the SSM states are caches like the attention
-keys and values, written in place); MLA and MoE layers raise
-``NotImplementedError`` naming the part of ROADMAP Queue 1 item 14 that
-ports them.
+Every layer kind of the JAX package is ported: attention, MLA, Mamba and
+RWKV-6 mixers, and SwiGLU, GELU, MoE and RWKV channel-mix FFNs (the SSM
+states and MLA's latents are caches like the attention keys and values,
+written in place).  A layer returns its MoE aux loss (0 for other FFNs)
+and the stack sums them, as the JAX package's scan does.
 """
 
 from __future__ import annotations
@@ -25,35 +25,29 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_attention,
+    apply_mla,
     apply_mlp,
     init_attention,
+    init_mla,
     init_mlp,
     rmsnorm,
 )
 
 Params = Dict[str, Any]
 
-_WAITS = {
-    "mla": "the MLA part of ROADMAP Queue 1 item 14",
-    "moe": "the MoE part of ROADMAP Queue 1 item 14 (models/moe.py)",
-}
-_MIXERS = ("attn", "mamba", "rwkv")
-_FFNS = ("mlp", "gelu_mlp", "rwkv_cmix")
+_MIXERS = ("attn", "mla", "mamba", "rwkv")
+_FFNS = ("mlp", "gelu_mlp", "moe", "rwkv_cmix")
 
 
 def check_ported(cfg: ModelConfig, period=None) -> None:
-    """Raise ``NotImplementedError`` if a layer of ``period`` (default the
-    config's) is of a kind this package does not run yet."""
+    """Raise ``ValueError`` if a layer of ``period`` (default the config's)
+    is of a kind the JAX package does not know either."""
     for mixer, ffn in (period if period is not None else cfg.period):
-        for kind in (mixer, ffn):
-            if kind in _WAITS:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind!r} layers are not ported yet; they "
-                    f"wait for {_WAITS[kind]}")
         if mixer not in _MIXERS or ffn not in _FFNS:
             raise ValueError(f"{cfg.name}: unknown layer ({mixer}, {ffn})")
 
@@ -70,11 +64,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
     p: Params = {"mixer_norm": ones(), "ffn_norm": ones()}
     if mixer == "attn":
         p["mixer"] = init_attention(gen, cfg, dtype)
+    elif mixer == "mla":
+        p["mixer"] = init_mla(gen, cfg, dtype)
     elif mixer == "mamba":
         p["mixer"] = ssm.init_mamba(gen, cfg, dtype)
     else:
         p["mixer"] = ssm.init_rwkv_tmix(gen, cfg, dtype)
-    if ffn == "rwkv_cmix":
+    if ffn == "moe":
+        p["ffn"] = moe_mod.init_moe(gen, cfg, dtype)
+    elif ffn == "rwkv_cmix":
         p["ffn"] = ssm.init_rwkv_cmix(gen, cfg, dtype)
     else:
         p["ffn"] = init_mlp(gen, d, cfg.d_ff, ffn, dtype)
@@ -88,7 +86,8 @@ def layer_cache_init(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
                      cache_len: int, dtype, with_cross: bool = False,
                      enc_len: int = 0, device=None) -> Params:
     """Decode-time state for one layer (zeros, written in place later):
-    keys and values for attention, ``conv`` / ``h`` for Mamba,
+    keys and values for attention, the latents ``ckv`` and rope keys
+    ``krope`` for MLA, ``conv`` / ``h`` for Mamba,
     ``tmix_shift`` / ``tmix_wkv`` for the RWKV time mix and ``cmix_shift``
     for its channel mix; the recurrent states ``h`` and ``tmix_wkv`` in
     f32, the rest in ``dtype``."""
@@ -98,6 +97,12 @@ def layer_cache_init(cfg: ModelConfig, mixer: str, ffn: str, batch: int,
         shape = (batch, cache_len, cfg.n_kv, cfg.hd)
         c["k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    elif mixer == "mla":
+        m = cfg.mla
+        c["ckv"] = torch.zeros((batch, cache_len, m.kv_lora), dtype=dtype,
+                               device=device)
+        c["krope"] = torch.zeros((batch, cache_len, m.qk_rope_dim),
+                                 dtype=dtype, device=device)
     elif mixer == "mamba":
         c.update(ssm.mamba_state_init(cfg, batch, dtype, device))
     else:
@@ -126,6 +131,7 @@ def apply_layer(
     cache: Optional[Params] = None,
     cache_index: Optional[int] = None,
     cross_y: Optional[torch.Tensor] = None,
+    mla_absorb: bool = False,
     block_q: int = 1024,
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Pre-norm residual layer.  Returns (x, cache, aux_loss); the cache is
@@ -137,6 +143,10 @@ def apply_layer(
         h, _ = apply_attention(p["mixer"], cfg, h, positions, causal=causal,
                                window=window, cache=cache,
                                cache_index=cache_index, block_q=block_q)
+    elif mixer == "mla":
+        h, _ = apply_mla(p["mixer"], cfg, h, positions, window=window,
+                         cache=cache, cache_index=cache_index,
+                         absorb=mla_absorb, block_q=block_q)
     elif mixer == "mamba":
         st = None if cache is None else {"conv": cache["conv"],
                                          "h": cache["h"]}
@@ -166,7 +176,9 @@ def apply_layer(
         x = x + h
 
     h = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    if ffn == "rwkv_cmix":
+    if ffn == "moe":
+        h, aux = moe_mod.apply_moe(p["ffn"], cfg, h)
+    elif ffn == "rwkv_cmix":
         st = None if cache is None else {"shift": cache["cmix_shift"]}
         h, _ = ssm.apply_rwkv_cmix(p["ffn"], cfg, h, st)
     else:
@@ -211,6 +223,7 @@ def apply_stack(
     caches: Optional[List[Params]] = None,
     cache_index: Optional[int] = None,
     cross_y: Optional[torch.Tensor] = None,
+    mla_absorb: bool = False,
     block_q: int = 1024,
 ) -> Tuple[torch.Tensor, Optional[List[Params]], torch.Tensor]:
     """Run every layer in order.  Returns (x, caches, aux); the caches are
@@ -222,6 +235,7 @@ def apply_stack(
         x, _, a = apply_layer(
             layer_p, cfg, mixer, ffn, x, positions, causal=causal,
             window=window, cache=caches[i] if caches is not None else None,
-            cache_index=cache_index, cross_y=cross_y, block_q=block_q)
+            cache_index=cache_index, cross_y=cross_y, mla_absorb=mla_absorb,
+            block_q=block_q)
         aux = aux + a
     return x, caches, aux

@@ -50,9 +50,9 @@ class TokenServingEngine:
 
     Runs on ``device`` (the card unless ``device="cpu"``).  The weights are
     cast to ``sc.dtype`` and moved there once, at construction; the caches
-    (attention keys and values, the SSM mixers' states) are preallocated
-    per layer and written in place by every prefill and decode step (the
-    JAX package's engine returns new arrays and donates the old).
+    (attention keys and values, MLA's latents, the SSM mixers' states) are
+    preallocated per layer and written in place by every prefill and decode
+    step (the JAX package's engine returns new arrays and donates the old).
     ``generate`` keeps the decoded tokens on the device and reads them
     back once, at the end.
     """
@@ -68,6 +68,9 @@ class TokenServingEngine:
         self.pos = 0
 
     def prefill_prompt(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """Prefill ``batch`` (tokens [, vision_embed, rope_pos,
+        audio_embed]); decoding continues at position ``S``, where
+        ``sc.flags.mla_absorb`` selects MLA's latent-space decode."""
         logits, self.caches = prefill(self.params, self.cfg, batch,
                                       self.caches, self.sc.flags,
                                       dtype=self.sc.dtype)

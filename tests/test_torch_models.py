@@ -1,14 +1,18 @@
 """The port's token-model stack (``repro_torch.models``, ``configs``,
 ``data``, ``serve``) against the JAX package's, on the CPU, at the reduced
-variants (two periods, d_model 256, vocab 1024; Jamba without experts one
-period of 8 layers), the SSM families (rwkv6-7b, Jamba's Mamba layers)
-included.
+variants (two periods, d_model 256, vocab 1024, 4 experts top-2; Jamba one
+period of 8 layers, with its experts and without), every configuration of
+the repo: dense (smollm-135m, qwen2.5-14b, deepseek-7b, qwen1.5-110b),
+MoE (grok-1; DeepSeek-V2 with MLA), SSM (rwkv6-7b), hybrid (Jamba),
+audio (whisper-medium) and VLM (qwen2-vl-2b, its patch embeddings spliced
+over the first positions and M-RoPE positions on a patch grid).
 
 Tolerances: configs and ``synthetic_stream`` exact; norms, RoPE and MLPs
 rtol 1e-5 / atol 1e-6 of the output's scale in f32 (sums over d_model
 round in another order); the ``forward_train`` loss rtol 1e-5 in f32 under
 both backends (port ``"plain"`` against JAX ``"xla"``, port ``"kernel"``
-against JAX ``"pallas"`` in interpret mode) and 2e-2 in bf16; prefill and
+against JAX ``"pallas"`` in interpret mode) and 2e-2 in bf16, its MoE aux
+loss rtol 1e-5 (0 without experts); prefill and
 decode logits atol 1e-4; greedy tokens equal, except where JAX's top two
 logits at that step lie within 1e-4 of each other.  JAX's weights are
 carried across with ``from_reference``, with norms, biases and the SSM
@@ -34,7 +38,7 @@ from repro.data import pipeline as jpipe  # noqa: E402
 from repro.models import layers as JL, model as JM  # noqa: E402
 from repro.serve import engine as jserve  # noqa: E402
 
-from chip_smoke import jamba_dense  # noqa: E402
+from chip_smoke import _vlm_grid, jamba_dense, jamba_moe  # noqa: E402
 from repro_torch import configs as TC, kernels  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -46,9 +50,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # FFN a dense SwiGLU (chip_smoke.py's path D), here at its reduced variant
 JAMBA_DENSE = "jamba-1.5-large-398b/dense"
 PORTED = ["smollm-135m", "qwen2.5-14b", "whisper-medium", "rwkv6-7b",
-          JAMBA_DENSE]
-UNPORTED = ["deepseek-v2-236b", "jamba-1.5-large-398b", "qwen2-vl-2b",
-            "grok-1-314b"]
+          JAMBA_DENSE, "deepseek-v2-236b", "grok-1-314b",
+          "jamba-1.5-large-398b", "qwen2-vl-2b", "deepseek-7b",
+          "qwen1.5-110b"]
 _MODELS = {}
 
 
@@ -94,9 +98,16 @@ def _models(arch):
 
 
 def _batch(cfg, seed=0):
+    """A ``synthetic_stream`` batch; for the VLM its first nv/2 positions'
+    M-RoPE ids on a patch grid (temporal 0, height i // 4, width i % 4),
+    the rest the text's own position in all three planes, as decode
+    gives them."""
     dc = tpipe.DataConfig(seq_len=64 if cfg.enc_dec else 32, global_batch=2,
                           seed=seed)
-    return next(tpipe.synthetic_stream(cfg, dc))
+    batch = next(tpipe.synthetic_stream(cfg, dc))
+    if cfg.family == "vlm":
+        _vlm_grid(batch, width=4, n=batch["vision_embed"].shape[1] // 2)
+    return batch
 
 
 def _jnp(batch):
@@ -204,10 +215,14 @@ def test_forward_train_loss_matches(arch, backends, impls):
     batch = _batch(cfg)
     jl, jm = JM.forward_train(jp, jcfg, _jnp(batch), dtype=jnp.float32)
     tl, tm = M.forward_train(lm, cfg, batch, dtype=torch.float32)
-    print(f"{arch} {backends}: loss jax {float(jl)!r} port {float(tl)!r}")
+    print(f"{arch} {backends}: loss jax {float(jl)!r} port {float(tl)!r}, "
+          f"aux jax {float(jm['aux_loss'])!r} port {float(tm['aux_loss'])!r}")
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert float(tm["acc"]) == pytest.approx(float(jm["acc"]), abs=1e-6)
-    assert tl.dtype == torch.float32 and float(tm["aux_loss"]) == 0.0
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(float(tm["aux_loss"]), float(jm["aux_loss"]),
+                               rtol=1e-5)
+    assert (float(tm["aux_loss"]) > 0) == (cfg.moe is not None)
 
 
 def test_forward_train_bf16_matches():
@@ -232,9 +247,14 @@ def test_ssm_forward_train_bf16_matches(arch):
 
 
 def _prompt(cfg, batch, S):
+    """The batch's first S tokens with what goes with them: whisper's
+    frames, or the VLM's first S // 2 patch embeddings and M-RoPE ids."""
     out = {"tokens": batch["tokens"][:, :S]}
     if cfg.enc_dec:
         out["audio_embed"] = batch["audio_embed"]
+    if cfg.family == "vlm":
+        out["vision_embed"] = batch["vision_embed"][:, :S // 2]
+        out["rope_pos"] = batch["rope_pos"][:, :, :S]
     return out
 
 
@@ -341,10 +361,13 @@ def test_from_reference_carries_every_leaf():
 
 
 def test_kernel_backend_routes_the_jax_calls(monkeypatch, impls):
-    """Under ``"kernel"`` the wrapper is called once per layer for smollm's
-    scoring pass and never for its serving; for whisper once per encoder
-    layer and per cross-attention at prefill, and per cross-attention at
-    every decode step.  Under ``"plain"`` never."""
+    """Under ``"kernel"`` the wrapper is called once per layer for the
+    scoring pass of smollm, grok-1 and qwen2-vl (once for Jamba's one
+    attention layer, with its experts or without) and never for their
+    serving; for whisper once per encoder layer and per cross-attention at
+    prefill, and per cross-attention at every decode step; never for
+    DeepSeek-V2, whose MLA passes an explicit scale.  Under ``"plain"``
+    never."""
     calls = []
     real = fa.attention
     monkeypatch.setattr(fa, "attention",
@@ -354,7 +377,11 @@ def test_kernel_backend_routes_the_jax_calls(monkeypatch, impls):
         for arch, (fwd, pre, dec) in (("smollm-135m", (2, 0, 0)),
                                       ("whisper-medium", (6, 4, 2)),
                                       ("rwkv6-7b", (0, 0, 0)),
-                                      (JAMBA_DENSE, (1, 0, 0))):
+                                      (JAMBA_DENSE, (1, 0, 0)),
+                                      ("grok-1-314b", (2, 0, 0)),
+                                      ("deepseek-v2-236b", (0, 0, 0)),
+                                      ("jamba-1.5-large-398b", (1, 0, 0)),
+                                      ("qwen2-vl-2b", (2, 0, 0))):
             cfg, _, _, _, lm = _models(arch)
             batch = _batch(cfg)
             Se = batch["audio_embed"].shape[1] if cfg.enc_dec else 0
@@ -391,7 +418,9 @@ def test_ssm_kernels_run_every_recurrence(monkeypatch):
             return _real(*a, **kw)
         monkeypatch.setattr(kernels, name, counted)
     for arch, name, layers_per_pass in (("rwkv6-7b", "rwkv6", 2),
-                                        (JAMBA_DENSE, "mamba_scan", 7)):
+                                        (JAMBA_DENSE, "mamba_scan", 7),
+                                        ("jamba-1.5-large-398b",
+                                         "mamba_scan", 7)):
         cfg, _, _, _, lm = _models(arch)
         batch = _batch(cfg)
         eng = TokenServingEngine(
@@ -412,23 +441,33 @@ def test_ssm_kernels_run_every_recurrence(monkeypatch):
         assert all(c[other] == 0 for c in counts), arch
 
 
-def test_jamba_with_experts_still_raises_naming_moe():
-    cfg = TC.get_config("jamba-1.5-large-398b").reduced()
-    with pytest.raises(NotImplementedError, match="'moe' layers"):
-        M.init_lm(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_their_item(arch):
-    cfg = TC.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        M.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        M.from_reference({}, cfg, device="cpu")
+def test_jamba_moe_cut_matches():
+    """``chip_smoke.jamba_moe`` (phase 19c's Jamba with experts): the
+    published config's in-period layers 4-5, every width kept; at its
+    reduced variant the port's loss and aux loss equal JAX's."""
+    cfg, jcfg = (jamba_moe(pkg.get_config("jamba-1.5-large-398b"))
+                 for pkg in (TC, JC))
+    full = TC.get_config("jamba-1.5-large-398b")
+    assert cfg.period == (("attn", "mlp"), ("mamba", "moe"))
+    assert cfg.n_layers == 2 and cfg.moe == full.moe
+    assert (cfg.d_model, cfg.d_ff, cfg.vocab) == (full.d_model, full.d_ff,
+                                                  full.vocab)
+    cfg, jcfg = cfg.reduced(), jcfg.reduced()
+    npp = _perturb(jax.tree.map(
+        np.asarray, JM.init_lm(jax.random.PRNGKey(2), jcfg)),
+        np.random.default_rng(3))
+    lm = M.from_reference(npp, cfg, device="cpu")
+    batch = _batch(cfg)
+    jl, jm = JM.forward_train(jax.tree.map(jnp.asarray, npp), jcfg,
+                              _jnp(batch), dtype=jnp.float32)
+    tl, tm = M.forward_train(lm, cfg, batch, dtype=torch.float32)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["aux_loss"]), float(jm["aux_loss"]),
+                               rtol=1e-5)
 
 
 def test_unported_flags_raise():
     cfg, _, _, _, lm = _models("smollm-135m")
-    for flags in (M.RunFlags(remat=True), M.RunFlags(mla_absorb=True)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            M.forward_train(lm, cfg, _batch(cfg), flags, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        M.forward_train(lm, cfg, _batch(cfg), M.RunFlags(remat=True),
+                        dtype=torch.float32)
