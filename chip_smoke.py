@@ -217,7 +217,27 @@ Phases (any failure exits non-zero; none is caught):
    against CPU in f32 with the same weights (grok-1 and DeepSeek-V2 at one
    layer, qwen2-vl at two; B=1, prompt 32): loss to 1e-5 and 8 greedy
    tokens under phase 13's tie rule, DeepSeek-V2 in both decodes,
-   exactly 3 ``simt`` launches.
+   exactly 3 ``simt`` launches;
+20. training (``training_phase``) through ``repro_torch.train``, the plain
+   attention (the flash kernel has no backward): 20a smollm-135m at full
+   width and depth, ``Trainer`` B=8 S=2048 bf16 over f32 masters, 20 steps
+   (every loss and gradient norm finite, the loss falling; median step,
+   training tokens/s, peak memory), then from the same weights
+   ``RunFlags(remat=True)`` (step-1 loss equal, peak memory lower),
+   microbatches 1 and 2 in f32 one update apart at JAX's tier (and every
+   first moment within ``MB_MU_TOL`` of its leaf's scale), a checkpoint
+   saved, loaded into a fresh trainer and two more steps equal to two
+   more without the reload, and ``python -m
+   repro_torch.launch.train`` in-process (5 steps, f32); 20b rwkv6-7b and
+   20c Jamba without experts (``(mamba, mlp), (attn, mlp)``) at every
+   published width, 2 layers, bf16, 3 steps: exactly 2 WKV and 1 scan
+   launches a step (the forward's; the chunked backward launches none),
+   gradients finite; 20d every leaf's gradient card against CPU in f32
+   (rwkv6-7b and that Jamba at full width, grok-1 and DeepSeek-V2
+   reduced; B=1 S=128, two chunks of the scans' backward) within
+   ``GRAD_TOL`` of its scale, losses to 1e-5; 20e the raw ``rwkv6``,
+   ``mamba_scan`` and ``attention`` wrappers raise on an input that
+   requires a gradient.
 
 Unified and service config: the MAXMARG smoke's settings (below) over
 data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
@@ -268,6 +288,9 @@ and DeepSeek-V2 (``configs/deepseek_v2_236b.py``) at every published
 width cut to 2 layers (~11.4 B and ~9.3 B parameters with their
 untied embeddings and heads), Jamba with its experts (``jamba_moe``, ~11.9
 B) and qwen2-vl-2b (``configs/qwen2_vl_2b.py``) at full width and depth.
+Phase 20 trains smollm-135m at full width and depth, rwkv6-7b (~0.94 B
+parameters by ``param_count``) and Jamba without experts (~2.85 B) at
+every published width cut to 2 layers, weights drawn on the card in f32.
 """
 
 from __future__ import annotations
@@ -322,6 +345,14 @@ FAMILY_SCORING = {"grok-1-314b": dict(layers=2, B=8, S=2048),
                   "qwen2-vl-2b": dict(B=8, S=2048)}
 SERVE_FAMILIES = dict(B=8, prompt=512, cache_len=1024, tokens=64)
 ROUTE_SHAPE = dict(B=8, S=512)     # 19e: prefill's routing, card against CPU
+# phase 20: training (bf16 over f32 masters); 20d card against CPU in f32
+TRAIN_SMOLLM = dict(arch="smollm-135m", B=8, S=2048, steps=20, warmup=2,
+                    lr=1e-3)
+TRAIN_RWKV = dict(layers=2, B=4, S=2048, steps=3)
+TRAIN_JAMBA = dict(B=2, S=2048, steps=3)
+TRAIN_CHECK = dict(B=1, S=128)     # two 64-token chunks of the scans
+GRAD_TOL = 2e-5       # 20d: max |g_card - g_cpu| <= GRAD_TOL max(1, max |g|)
+MB_MU_TOL = 1e-5      # 20a: first moments of microbatches 1 and 2, of scale
 ABSORB_TIE = 2e-3     # tests/test_mla_absorb.py's tier for the two decodes
 FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
 # phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
@@ -2268,6 +2299,384 @@ def two_way_phase(dev):
     return counts
 
 
+def _grads(lm, mcfg, batch):
+    """(loss, gradient of every parameter in ``lm.named_parameters()``
+    order) of ``forward_train`` in f32 on the weights' device."""
+    import torch
+    from repro_torch.models import model as lm_model
+    lm.requires_grad_()
+    loss, _ = lm_model.forward_train(lm, mcfg, batch, dtype=torch.float32)
+    return loss.detach(), torch.autograd.grad(loss, list(lm.parameters()))
+
+
+def _worst_leaf(lm, got, want):
+    """The parameter whose gradient lies farthest from ``want`` in units of
+    max(1, max |want|): (name, that ratio)."""
+    worst = (-1.0, "")
+    for (name, _), g, w in zip(lm.named_parameters(), got, want):
+        err = float((g.cpu() - w).abs().max()) / max(1.0,
+                                                     float(w.abs().max()))
+        worst = max(worst, (err, name))
+    return worst[1], worst[0]
+
+
+def training_phase(dev):
+    """Phase 20: training on the card through ``repro_torch.train``.
+
+    20a smollm-135m at full width and depth (``Trainer``, bf16 over f32
+    masters, plain attention): every step's loss and gradient norm finite
+    and the loss falling; remat's step-1 loss equal and its peak memory
+    lower; microbatches 1 and 2 in f32 one update apart at JAX's tier,
+    their first moments (the gradients) within ``MB_MU_TOL``; a save, load and two more steps equal to two steps without; then
+    ``python -m repro_torch.launch.train`` in-process.  20b rwkv6-7b and 20c
+    Jamba without experts at every published width, depth cut (2 WKV
+    launches a step, 1 scan launch a step: the forward's, none in
+    backward).  20d gradients card against CPU in f32.  20e the raw
+    wrappers refuse inputs that require a gradient.  Returns the launches
+    per path."""
+    import copy
+    import dataclasses
+    import itertools
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers, model as lm_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import adamw_update, leaves
+    from repro_torch.train import (TrainConfig, Trainer, load_checkpoint,
+                                   make_train_step, save_checkpoint)
+
+    t_phase = time.perf_counter()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on for f32 matmuls")
+    bf16, f32 = torch.bfloat16, torch.float32
+    zero = dict.fromkeys(kernels.launches(), 0)
+    paths = {}
+    layers.set_attention_impl("plain")    # no flash backward, as in JAX
+    torch.cuda.empty_cache()
+
+    def check(what, got, expect):
+        if got != dict(zero, **expect):
+            raise AssertionError(f"{what} launched {got}; expected {expect}")
+
+    def stream(mcfg, B, S, seed=0):
+        return synthetic_stream(mcfg, DataConfig(seq_len=S, global_batch=B,
+                                                 seed=seed))
+
+    def gb(n_bytes):
+        return f"{n_bytes / 1e9:.2f} GB"
+
+    def params_equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                    b.parameters()))
+
+    # -- 20a. smollm-135m: the Trainer at full width and depth ---------------
+    t0 = time.perf_counter()
+    ts = TRAIN_SMOLLM
+    cfg = get_config(ts["arch"])
+    B, S = ts["B"], ts["S"]
+    base = lm_model.init_lm(cfg, seed=0, device=dev)
+    tc = TrainConfig(steps=ts["steps"], warmup=ts["warmup"], log_every=1,
+                     dtype=bf16, optim=AdamWConfig(lr=ts["lr"]))
+    tr = Trainer(cfg, tc, stream(cfg, B, S), params=copy.deepcopy(base))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    tr.run()
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    check("20a smollm-135m training", got, {})
+    paths["train_smollm"] = got
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    gnorms = [h["grad_norm"] for h in tr.history]
+    if not (len(losses) == ts["steps"]
+            and np.isfinite(losses + gnorms).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"20a losses {losses}, grad norms {gnorms}")
+    steps_s = np.diff([0.0] + [h["wall_s"] for h in tr.history])
+    step_ms = float(np.median(steps_s)) * 1e3
+    print(f"20a {cfg.name} training B={B} S={S} bf16 over f32 masters, "
+          f"{ts['steps']} steps, lr {ts['lr']} warmup {ts['warmup']}: loss "
+          f"{losses[0]!r} -> {losses[-1]!r}, grad norm {gnorms[0]:.4f} -> "
+          f"{gnorms[-1]:.4f}; median step {step_ms:.2f} ms (steps "
+          f"{[round(float(s) * 1e3, 1) for s in steps_s]}), "
+          f"{B * S / (step_ms / 1e3):.0f} training tokens/s, peak "
+          f"{gb(peak)} (max_memory_allocated)")
+
+    def wall_ms(fn, reps=3):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return float(np.median(walls)) * 1e3
+
+    # where a step goes: the forward alone (no autograd) and the update
+    # alone (the weights' own values standing in for gradients)
+    batch = next(stream(cfg, B, S, seed=1))
+    with torch.no_grad():
+        fwd_ms = wall_ms(lambda: lm_model.forward_train(tr.params, cfg,
+                                                        batch, tc.flags))
+    fake = tr.params.tree()
+    upd_ms = wall_ms(lambda: adamw_update(tc.optim, tr.params, fake,
+                                          tr.opt_state, 1.0))
+    print(f"20a step {step_ms:.2f} ms: forward alone (no autograd) "
+          f"{fwd_ms:.2f} ms, AdamW update alone {upd_ms:.2f} ms "
+          f"({len(leaves(fake))} leaves), the rest (backward with the recomputed "
+          f"attention blocks and loss chunks) {step_ms - fwd_ms - upd_ms:.2f}"
+          f" ms")
+    del tr, fake
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()
+    step_loss, step_peak = {}, {}
+    for remat in (False, True):
+        lm = copy.deepcopy(base)
+        opt = adamw_init(lm)
+        step = make_train_step(cfg, dataclasses.replace(
+            tc, flags=lm_model.RunFlags(remat=remat)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, met = step(lm, opt, batch)
+        torch.cuda.synchronize()
+        step_loss[remat] = float(met["loss"])
+        step_peak[remat] = torch.cuda.max_memory_allocated()
+        del lm, opt, met
+    if not (abs(step_loss[True] - step_loss[False])
+            <= 1e-6 * abs(step_loss[False])
+            and step_peak[True] < step_peak[False]):
+        raise AssertionError(f"20a remat: losses {step_loss}, peaks "
+                             f"{step_peak}")
+    same = step_loss[True] == step_loss[False]
+    print(f"20a remat: step-1 loss {step_loss[False]!r} without, "
+          f"{step_loss[True]!r} with ({'' if same else 'not '}bit for bit); "
+          f"peak {gb(step_peak[False])} -> {gb(step_peak[True])}")
+
+    # microbatches 1 and 2 in f32 at JAX's test_microbatch_grad_equivalence
+    # tier (its optimiser: AdamWConfig()); where the first step's gradient
+    # lies within 100 eps of 0, lr g / (|g| + eps) turns on its last bits:
+    # those weights are held to the update's range instead, and every
+    # weight's gradient through the first moment (0.1 · clip · g) of the
+    # two runs, to MB_MU_TOL of each leaf's scale
+    runs = []
+    for mb in (1, 2):
+        lm = copy.deepcopy(base)
+        tcm = dataclasses.replace(tc, dtype=f32, microbatches=mb,
+                                  optim=AdamWConfig())
+        _, opt, met = make_train_step(cfg, tcm)(lm, adamw_init(lm), batch)
+        runs.append((lm, opt, met))
+    (l1, o1, m1), (l2, o2, m2) = runs
+    lr = tcm.optim.lr * float(m1["lr_scale"])
+    worst, tiny_n, mu_worst = -1.0, 0, 0.0
+    with torch.no_grad():
+        for a, b, mu, mu2 in zip(leaves(l2), leaves(l1), leaves(o1["mu"]),
+                                 leaves(o2["mu"])):
+            rel = float((mu2 - mu).abs().max()) / max(
+                float(mu.abs().max()), 1e-30)
+            mu_worst = max(mu_worst, rel)
+            if not rel <= MB_MU_TOL:
+                raise AssertionError(f"20a microbatches: a first moment "
+                                     f"{rel:.3g} of its scale apart")
+            tiny = mu.abs() < 0.1 * 100 * tcm.optim.eps   # mu = 0.1 clip g
+            diff = (a - b).abs()
+            excess = torch.where(tiny, -1.0, diff - (1e-5 + 1e-4 * b.abs()))
+            worst = max(worst, float(excess.max()))
+            if bool((diff[tiny] > 2 * lr).any()):
+                raise AssertionError("20a microbatches: an update beyond lr")
+            tiny_n += int(tiny.sum())
+    if worst > 0 or abs(float(m1["loss"]) - float(m2["loss"])) > 1e-4 * abs(
+            float(m1["loss"])):
+        raise AssertionError(f"20a microbatches: weights beyond rtol 1e-4 "
+                             f"atol 1e-5 by {worst}, losses {m1['loss']} "
+                             f"and {m2['loss']}")
+    print(f"20a microbatches 1 and 2, f32, one step: loss "
+          f"{float(m1['loss'])!r} and {float(m2['loss'])!r}, every weight "
+          f"within rtol 1e-4 atol 1e-5 ({tiny_n} of "
+          f"{sum(t.numel() for t in leaves(l1))} with |g| < 100 eps: within "
+          f"lr); every first moment within {mu_worst:.3g} of its leaf's "
+          f"scale (tier {MB_MU_TOL})")
+    del runs, l1, l2, o1, o2
+    torch.cuda.empty_cache()
+
+    # save, load into a fresh trainer, two more steps: equal to two more
+    # steps without the reload
+    batches = list(itertools.islice(stream(cfg, B, S, seed=2), 4))
+    tc32 = dataclasses.replace(tc, dtype=f32)
+    with tempfile.TemporaryDirectory() as tmp:
+        a = Trainer(cfg, tc32, iter(batches), params=copy.deepcopy(base))
+        a.run(2)
+        save_checkpoint(tmp, a.params, a.opt_state,
+                        step=int(a.opt_state["step"]))
+        a.run(2)
+        lm, opt, step = load_checkpoint(tmp, cfg, device=dev)
+        b = Trainer(cfg, tc32, iter(batches[2:]), params=lm)
+        b.opt_state = opt
+        b.run(2)
+        with torch.no_grad():
+            worst = max(float((x - y).abs().max() / y.abs().max())
+                        for x, y in zip(leaves(b.params), leaves(a.params)))
+        state_bits = int(b.opt_state["step"]) == 4 and all(
+            torch.equal(x, y) for part in ("mu", "nu") for x, y in zip(
+                leaves(b.opt_state[part]), leaves(a.opt_state[part])))
+        if not (step == 2 and worst <= 1e-6):
+            raise AssertionError(f"20a resume: step {step}, weights differ "
+                                 f"by {worst} of a leaf's scale")
+        same = ("bit for bit" if params_equal(a.params, b.params)
+                else f"to {worst!r} of a leaf's scale")
+        print(f"20a resume at step 2, two more steps f32: weights {same}, "
+              f"AdamW state {'' if state_bits else 'not '}bit for bit")
+        del a, b, lm, opt
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        kernels.reset_launches()
+        last = launch_train.main(["--arch", ts["arch"], "--steps", "5",
+                                  "--batch", str(B), "--seq", str(S),
+                                  "--ckpt", tmp])
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        check("20a launcher", got, {})
+        paths["train_launcher"] = got
+        _, _, step = load_checkpoint(tmp, cfg, device="cpu")
+        if not (np.isfinite(last["loss"]) and step == 5):
+            raise AssertionError(f"20a launcher: {last}, checkpoint step "
+                                 f"{step}")
+        print(f"20a python -m repro_torch.launch.train --arch {ts['arch']} "
+              f"--steps 5 --batch {B} --seq {S} (f32): loss "
+              f"{last['loss']!r}, checkpoint at step {step}, "
+              f"{time.perf_counter() - t1:.1f} s")
+    del base
+    torch.cuda.empty_cache()
+    print(f"20a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 20b, 20c. the SSM families: one scan launch a mixer a step ----------
+    rcfg = dataclasses.replace(get_config("rwkv6-7b"),
+                               n_layers=TRAIN_RWKV["layers"])
+    jcfg = dataclasses.replace(
+        jamba_dense(get_config("jamba-1.5-large-398b")), n_layers=2,
+        period=(("mamba", "mlp"), ("attn", "mlp")))
+    for tag, mcfg, shape, wrapper in (("20b", rcfg, TRAIN_RWKV, "rwkv6"),
+                                      ("20c", jcfg, TRAIN_JAMBA,
+                                       "mamba_scan")):
+        t0 = time.perf_counter()
+        lm = lm_model.init_lm(mcfg, seed=0, device=dev)
+        n = sum(t.numel() for t in lm.parameters())
+        mixers = sum(m in ("rwkv", "mamba") for m, _ in mcfg.period) * (
+            mcfg.n_layers // len(mcfg.period))
+        tcs = TrainConfig(steps=shape["steps"], warmup=2, dtype=bf16,
+                          optim=AdamWConfig())
+        step = make_train_step(mcfg, tcs)
+        opt = adamw_init(lm)
+        data = stream(mcfg, shape["B"], shape["S"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, logs = [], []
+        for _ in range(shape["steps"]):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lm, opt, met = step(lm, opt, next(data))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            got = kernels.launches()
+            check(f"{tag} {mcfg.name} training step", got,
+                  {wrapper: mixers})
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"{tag} loss {loss}, grad norm {gnorm}")
+            logs.append((loss, gnorm))
+        paths[f"train_{wrapper}"] = {k: v * shape["steps"]
+                                     for k, v in got.items()}
+        print(f"{tag} {mcfg.name} ({mcfg.n_layers} layers, {n} parameters, "
+              f"param_count {mcfg.param_count()}) training B={shape['B']} "
+              f"S={shape['S']} bf16 over f32 masters: {got[wrapper]} "
+              f"{wrapper} launches a step (none in backward); (loss, grad "
+              f"norm) {logs}; steps {[round(w * 1e3, 1) for w in walls]} "
+              f"ms, {shape['B'] * shape['S'] / np.median(walls):.0f} "
+              f"tokens/s; peak {gb(torch.cuda.max_memory_allocated())}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del lm, opt, step, met
+        torch.cuda.empty_cache()
+
+    # -- 20d. gradients card against CPU in f32, the same weights -----------
+    t0 = time.perf_counter()
+    free = _host_free_gb()
+    # the CPU side holds f32 weights and gradients: 8 bytes a parameter
+    need = 8 * jcfg.param_count() / 1e9 * 1.25
+    print(f"20d: host memory available {free:.1f} GB (Jamba at 2 layers "
+          f"needs ~{need:.0f} GB)")
+    jcheck = jcfg if free > need else jcfg.reduced()
+    if jcheck is not jcfg:
+        print("20d: Jamba compared at its reduced widths")
+    kernels.reset_launches()
+    c = TRAIN_CHECK
+    for mcfg in (rcfg, jcheck, get_config("grok-1-314b").reduced(),
+                 get_config("deepseek-v2-236b").reduced()):
+        lm = lm_model.init_lm(mcfg, seed=0, device=dev)
+        on_cpu = lm_model.LM(mcfg, lm_model.cast_params(lm, f32,
+                                                         device="cpu"))
+        b1 = next(stream(mcfg, c["B"], c["S"], seed=1))
+        lc, gc = _grads(lm, mcfg, b1)
+        t1 = time.perf_counter()
+        lh, gh = _grads(on_cpu, mcfg, b1)
+        cpu_s = time.perf_counter() - t1
+        name, err = _worst_leaf(on_cpu, gc, gh)
+        if not (abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+                and err <= GRAD_TOL):
+            raise AssertionError(f"20d {mcfg.name}: loss card {float(lc)!r}"
+                                 f" cpu {float(lh)!r}; worst leaf {name} "
+                                 f"{err!r}")
+        print(f"20d {mcfg.name} ({mcfg.n_layers} layers) B={c['B']} "
+              f"S={c['S']} f32: loss card {float(lc)!r} cpu {float(lh)!r}; "
+              f"every leaf's gradient within {GRAD_TOL} x max(1, max|g|), "
+              f"worst {name} {err:.3g} (cpu side {cpu_s:.1f} s)")
+        del lm, on_cpu, gc, gh
+        torch.cuda.empty_cache()
+    got = kernels.launches()
+    check("20d card vs cpu", got, dict(rwkv6=rcfg.n_layers, mamba_scan=1))
+    paths["train_card_vs_cpu_f32"] = got
+    print(f"20d: {time.perf_counter() - t0:.1f} s")
+
+    # -- 20e. the grad guards -------------------------------------------------
+    kernels.reset_launches()
+
+    def rnd(*shape, grad=False):
+        return torch.rand(shape, device=dev).mul_(0.5).add_(0.25) \
+            .requires_grad_(grad)
+
+    calls = {
+        "rwkv6": lambda: kernels.rwkv6(rnd(1, 16, 2, 32, grad=True),
+                                       rnd(1, 16, 2, 32), rnd(1, 16, 2, 32),
+                                       rnd(1, 16, 2, 32), rnd(2, 32)),
+        "mamba_scan": lambda: kernels.mamba_scan(
+            rnd(1, 16, 32), rnd(1, 16, 32, grad=True), -rnd(32, 16),
+            rnd(1, 16, 16), rnd(1, 16, 16)),
+        "attention": lambda: kernels.attention(
+            rnd(1, 16, 2, 64), rnd(1, 16, 2, 64),
+            rnd(1, 16, 2, 64, grad=True), causal=True)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "carry no gradient" not in str(e):
+                raise
+            print(f"20e {name} on an input that requires a gradient: "
+                  f"RuntimeError({str(e)!r})")
+        else:
+            raise AssertionError(f"20e {name} launched on an input that "
+                                 f"requires a gradient")
+    check("20e grad guards", kernels.launches(), {})
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def _clocks():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -4132,6 +4541,9 @@ def main() -> int:
     family_counts, family_routes = families_phase(dev, family_attn_ms)
     route_counts.update(family_routes)
 
+    # -- 20. training ----------------------------------------------------------
+    train_counts = training_phase(dev)
+
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,
              "smollm_scoring": score_counts, "smollm_serving": smollm_counts,
@@ -4140,7 +4552,8 @@ def main() -> int:
              "rwkv_scoring": rwkv_scoring, "rwkv_serving": rwkv_serving,
              "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving,
              "unified": unified_counts, "service": service_counts,
-             "sharded": sharded_counts, **protocol_counts, **family_counts}
+             "sharded": sharded_counts, **protocol_counts, **family_counts,
+             **train_counts}
     print(f"launches per path: {paths}")
     print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}

@@ -19,5 +19,7 @@ baselines); the bulk scans over sweep state (``engine.dataplane.ranges`` /
 dense and encoder-decoder families (``models``, ``configs``,
 ``data.pipeline``, ``serve.TokenServingEngine``), whose cache-less
 attention calls run the flash-attention kernel under
-``models.layers.set_attention_impl("kernel")``.
+``models.layers.set_attention_impl("kernel")``, for every configuration
+of the repo; and training (``optim``, ``train``, ``launch.train``), with
+gradients through the WKV and selective-scan kernels.
 """

@@ -30,6 +30,12 @@ launches.
 
 Sources build with ``nvcc`` at first launch (:mod:`._build`); importing this
 package builds nothing.
+
+Gradients: ``rwkv6_autograd`` and ``mamba_scan_autograd`` launch the
+kernel forward (one launch, counted as the wrapper's) and differentiate
+the plain version backward in 64-token chunks (:mod:`._grad`, no launch).
+A raw launch of ``rwkv6``, ``mamba_scan`` or ``attention`` on inputs that
+require a gradient raises: its outputs would carry none.
 """
 
 from typing import Dict
@@ -40,6 +46,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 )
 from repro_torch.kernels.mamba import (  # noqa: F401
     mamba_scan,
+    mamba_scan_autograd,
     mamba_scan_plain,
 )
 from repro_torch.kernels.median_cut import (  # noqa: F401
@@ -67,6 +74,7 @@ from repro_torch.kernels.support_margin import (  # noqa: F401
 )
 from repro_torch.kernels.rwkv6 import (  # noqa: F401
     rwkv6,
+    rwkv6_autograd,
     rwkv6_plain,
 )
 

@@ -28,6 +28,10 @@ attend to gives 0); the plain version is the dense softmax of the JAX
 package's oracle ``ref.attention_ref``.  They agree to float rounding, not
 bit for bit.  No padding: the TPU wrapper's padding of Sq and Skv to tile
 multiples is a tiling artifact, and the kernels bound their tiles instead.
+
+The kernels have no backward, as the TPU kernel has no VJP: a launch on
+inputs that require a gradient raises, and training takes the plain
+attention pass of ``models.layers``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.median_cut import _require
 
 HEAD_DIMS = (32, 64, 128, 256)     # the kernels' compiled head widths
@@ -150,6 +155,8 @@ def attention(q, k, v, *, causal: bool, window: Optional[int] = None,
                                kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on cuda or cpu, not {q.device}")
+    refuse_grad("attention", "the plain attention pass "
+                "(models.layers.set_attention_impl('plain'))", q, k, v)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"attention: q and k must be (B, S, heads, hd), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")

@@ -15,6 +15,10 @@ pieces).
 Unlike the TPU kernel, both versions take an initial state, as the oracle
 ``ref.mamba_ref(h0=)`` does.  With a zero state they compute the TPU
 kernel's function.
+
+Training goes through :func:`mamba_scan_autograd`: the kernel forward, the
+plain version's gradient backward in 64-token chunks (:mod:`._grad`).  A
+raw :func:`mamba_scan` launch on inputs that require a gradient raises.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import chunked_vjp, refuse_grad
 from repro_torch.kernels.median_cut import _require
 
 STATE_DIMS = (16,)       # the kernel's compiled d_state
@@ -132,6 +137,8 @@ def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
         return y, state
     if xc.device.type != "cuda":
         raise ValueError(f"mamba_scan runs on cuda or cpu, not {xc.device}")
+    refuse_grad("mamba_scan", "kernels.mamba_scan_autograd", xc, delta, A,
+                Bs, Cs)
     B, S, di, ds = check_kernel_args(xc, delta, A, Bs, Cs, state)
     final = (torch.empty((B, di, ds), dtype=torch.float32, device=xc.device)
              if state is None else state)
@@ -148,3 +155,28 @@ def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
 
 
 mamba_scan.launches = 0
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The kernel forward; backward the chunked VJP of
+    :func:`mamba_scan_plain` (no launch)."""
+
+    @staticmethod
+    def forward(ctx, xc, delta, A, Bs, Cs):
+        ctx.save_for_backward(xc, delta, A, Bs, Cs)
+        return mamba_scan(xc, delta, A, Bs, Cs)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return tuple(chunked_vjp(mamba_scan_plain, ctx.saved_tensors,
+                                 (True, True, False, True, True), dy,
+                                 dstate))
+
+
+def mamba_scan_autograd(xc, delta, A, Bs, Cs
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mamba_scan` from the zero state, differentiable in every
+    input: one launch forward on the card (the plain version on the CPU),
+    and in backward the plain version's gradient over 64-token chunks, on
+    either device.  Returns y and the final state."""
+    return _SelectiveScan.apply(xc, delta, A, Bs, Cs)

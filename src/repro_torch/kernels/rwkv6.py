@@ -17,6 +17,10 @@ and u stay f32.
 Unlike the TPU kernel, both versions take an initial state, as the oracle
 ``ref.rwkv6_ref(S0=)`` does: the serving path carries one.  With a zero
 state they compute the TPU kernel's function.
+
+Training goes through :func:`rwkv6_autograd`: the kernel forward, the
+plain version's gradient backward in 64-token chunks (:mod:`._grad`).  A
+raw :func:`rwkv6` launch on inputs that require a gradient raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import chunked_vjp, refuse_grad
 from repro_torch.kernels.median_cut import _require
 
 HEAD_DIMS = (32, 64)     # the kernel's compiled head widths
@@ -121,6 +126,7 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
         return y, state
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6 runs on cuda or cpu, not {r.device}")
+    refuse_grad("rwkv6", "kernels.rwkv6_autograd", r, k, v, w, u)
     B, S, H, hd = check_kernel_args(r, k, v, w, u, state)
     dev, f32 = r.device, torch.float32
     final = (torch.empty((B, H, hd, hd), dtype=f32, device=dev)
@@ -138,3 +144,26 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
 
 
 rwkv6.launches = 0
+
+
+class _WKV(torch.autograd.Function):
+    """The kernel forward; backward the chunked VJP of :func:`rwkv6_plain`
+    (no launch)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return rwkv6(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return tuple(chunked_vjp(rwkv6_plain, ctx.saved_tensors,
+                                 (True, True, True, True, False), dy, dstate))
+
+
+def rwkv6_autograd(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6` from the zero state, differentiable in every input:
+    one launch forward on the card (the plain version on the CPU), and in
+    backward the plain version's gradient over 64-token chunks, on either
+    device.  Returns y and the final state."""
+    return _WKV.apply(r, k, v, w, u)

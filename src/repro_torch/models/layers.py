@@ -8,6 +8,11 @@ scores per head, or, on the calls the JAX package routes to its Pallas
 kernel, the hand-written flash kernel (:func:`set_attention_impl`).  MLA
 passes an explicit scale, so it always takes the plain pass, as in the JAX
 package; its absorbed decode attends in the latent space, in f32.
+
+Under autograd the plain pass recomputes each query block's scores in the
+backward pass (:func:`checkpointed`), as the JAX package's
+``jax.checkpoint`` over its block does, and the kernel branch raises: the
+flash kernel has no backward, as JAX's Pallas attention has no VJP.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -27,6 +34,17 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
+
+def checkpointed(fn, *args, on: bool = True, **kwargs):
+    """``fn(*args, **kwargs)`` keeping only its inputs for the backward
+    pass, which runs it again (``jax.checkpoint`` with nothing saveable);
+    with ``on`` false, ``fn`` called as it is.  The model draws no random
+    numbers, so no generator state is kept."""
+    if not on:
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: Optional[float] = None):
@@ -139,8 +157,14 @@ def attention_core(
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
+    grad = needs_grad(q, k, v)
     if (_ATTN_IMPL == "kernel" and kv_valid_len is None and scale is None
             and q_offset == 0 and q.shape[-1] == v.shape[-1]):
+        if grad:
+            raise RuntimeError(
+                "attention: the flash kernel has no backward (as the JAX "
+                "package's Pallas attention has no VJP); train under "
+                "set_attention_impl('plain')")
         return _fa.attention(q, k, v, causal=causal, window=window)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(B, Sq, KV, G, hd)
@@ -164,11 +188,14 @@ def attention_core(
         o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
         return o.reshape(B, bq, H, -1)
 
+    # under autograd a block's (bq, Skv) scores and probabilities are
+    # recomputed in the backward pass, never kept across blocks
     if Sq <= block_q:
-        return one_block(qg, 0)
+        return checkpointed(one_block, qg, 0, on=grad)
     if Sq % block_q:
         raise ValueError(f"Sq={Sq} is not a multiple of block_q={block_q}")
-    return torch.cat([one_block(qg[:, r:r + block_q], r)
+    return torch.cat([checkpointed(one_block, qg[:, r:r + block_q], r,
+                                   on=grad)
                       for r in range(0, Sq, block_q)], dim=1)
 
 

@@ -6,8 +6,10 @@ Mamba and attention, dense and MoE FFNs), audio (encoder-decoder) and VLM:
 
 * ``init_lm``            — an :class:`LM` with seeded random weights
 * ``from_reference``     — an :class:`LM` holding the JAX package's weights
+  (``unstack_reference`` for any tree in their layout, the optimiser's
+  moments too); ``to_reference`` is its inverse
 * ``forward_train``      — tokens → loss (plus the MoE aux loss) and
-  accuracy (chunked vocab cross-entropy), forward only
+  accuracy (chunked vocab cross-entropy), differentiable
 * ``prefill``            — tokens → (last-position logits, filled caches)
 * ``decode_step``        — one token with caches (serve_step's core);
   ``RunFlags(mla_absorb=True)`` takes MLA's latent-space decode
@@ -19,10 +21,14 @@ VLM (qwen2-vl): precomputed patch embeddings are spliced over the first
 ``n_vis`` token positions and M-RoPE takes (3, B, S) position ids.
 Audio (whisper): precomputed frame embeddings feed a bidirectional encoder;
 the decoder cross-attends (the frontend is stubbed, as in the JAX package).
-The model runs forward only: its parameters hold no gradients, and
-activation checkpointing (``RunFlags(remat=True)``) raises
-``NotImplementedError``: training waits for the training part of ROADMAP
-Queue 1 item 14.
+
+Training: an :class:`LM`'s parameters require no gradient until
+``lm.requires_grad_()`` (the trainer, ``repro_torch.train``, turns it on),
+so scoring and serving build no autograd graph.  Under autograd the loss
+recomputes each chunk's logits in the backward pass and the plain
+attention each query block's scores, as the JAX package's ``jax.checkpoint``
+with nothing saveable does; ``RunFlags(remat=True)`` also recomputes each
+layer (decoder and encoder).
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import checkpointed, dense_init, rmsnorm
 from repro_torch.models.transformer import (
     apply_stack,
     check_ported,
@@ -59,17 +67,10 @@ class RunFlags:
     loss_chunk: int = 512              # seq chunk for vocab cross-entropy
 
 
-def _check(cfg: ModelConfig, flags: RunFlags) -> None:
-    check_ported(cfg)
-    if flags.remat:
-        raise NotImplementedError(
-            "RunFlags(remat=True): activation checkpointing waits for the "
-            "training part of ROADMAP Queue 1 item 14")
-
-
 class ParamTree(nn.Module):
-    """A nested dict (and list) of tensors held as parameters without
-    gradients, each named by its path (``blocks.3.mixer.wq``)."""
+    """A nested dict (and list) of tensors held as parameters, each named
+    by its path (``blocks.3.mixer.wq``); they require no gradient until
+    ``requires_grad_()``."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -102,11 +103,12 @@ class LM(ParamTree):
         self.cfg = cfg
 
 
-def _map(fn, tree):
+def map_tree(fn, tree):
+    """``fn`` over the leaves of nested dicts and lists, nested as given."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -117,7 +119,7 @@ def cast_params(p: Union[ParamTree, Params], dtype, device=None) -> Params:
     if isinstance(p, ParamTree):
         p = p.tree()
     floats = (torch.float32, torch.bfloat16)
-    return _map(lambda a: a.to(device=device,
+    return map_tree(lambda a: a.to(device=device,
                                dtype=dtype if a.dtype in floats else a.dtype),
                 p)
 
@@ -134,7 +136,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, dtype=torch.float32,
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (the card unless ``device="cpu"``).  The draws are not the
     JAX package's; :func:`from_reference` carries those across."""
-    _check(cfg, RunFlags())
+    check_ported(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
@@ -154,7 +156,67 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, dtype=torch.float32,
 
 
 def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor; 2-byte leaves that are not integers (JAX's
+    bf16, or the raw 2-byte records ``np.load`` gives back for them) as
+    bf16."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and a.dtype.kind not in "iuf":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 as 2-byte records of its bits (``|V2``), the
+    dtype numpy stores JAX's bf16 arrays under."""
+    t = t.detach().to("cpu", copy=True)     # never a view of the weights
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _layout(cfg: ModelConfig):
+    """(name, period, n_periods) of each stacked part of the JAX layout."""
+    out = [("blocks", cfg.period, cfg.n_periods)]
+    if cfg.enc_dec:
+        out.append(("enc_blocks", ENC_PERIOD, cfg.n_enc_layers))
+    return out
+
+
+def unstack_reference(params: Params, cfg: ModelConfig, device) -> Params:
+    """A tree in the JAX package's layout (nested dicts of numpy arrays,
+    ``blocks`` / ``enc_blocks`` stacked) as the port's nested dicts of
+    tensors on ``device``, one entry per layer: period ``i``'s position
+    ``j`` at ``i * len(period) + j``."""
+    p: Params = {name: _tensor(a, device) for name, a in params.items()
+                 if not isinstance(a, dict)}
+    for name, period, n_periods in _layout(cfg):
+        stacked = params[name]
+        p[name] = [map_tree(lambda a: _tensor(a[i], device),
+                            stacked[f"pos{j}"])
+                   for i in range(n_periods) for j in range(len(period))]
+    return p
+
+
+def to_reference(p: Union[ParamTree, Params], cfg: ModelConfig) -> Params:
+    """The inverse of :func:`unstack_reference`: the port's weights (or a
+    tree nested like them, such as AdamW's moments) as nested dicts of
+    numpy arrays in the JAX package's layout, each ``pos{j}`` leaf stacked
+    over the periods on a leading axis."""
+    if isinstance(p, ParamTree):
+        p = p.tree()
+    out: Params = {name: _numpy(t) for name, t in p.items()
+                   if not isinstance(t, list)}
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([_numpy(t) for t in trees])
+
+    for name, period, _ in _layout(cfg):
+        P = len(period)
+        out[name] = {f"pos{j}": stack(p[name][j::P]) for j in range(P)}
+    return out
 
 
 def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
@@ -168,23 +230,10 @@ def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
     weights; a stacked ``(n_periods, E, d, d_expert)`` expert leaf gives
     each layer its ``(E, d, d_expert)`` slice).
     The JAX stacks (``blocks`` / ``enc_blocks``, ``pos{j}`` leaves with a
-    leading ``n_periods`` axis) are unstacked into one entry per layer,
-    period ``i``'s position ``j`` at ``i * len(period) + j``."""
-    _check(cfg, RunFlags())
-    dev = resolve(device)
-
-    def unstack(stacked, period, n_periods) -> List[Params]:
-        return [_map(lambda a: _tensor(a[i], dev), stacked[f"pos{j}"])
-                for i in range(n_periods) for j in range(len(period))]
-
-    p: Params = {name: _tensor(params[name], dev)
-                 for name in ("embed", "final_norm", "lm_head", "enc_norm")
-                 if name in params}
-    p["blocks"] = unstack(params["blocks"], cfg.period, cfg.n_periods)
-    if cfg.enc_dec:
-        p["enc_blocks"] = unstack(params["enc_blocks"], ENC_PERIOD,
-                                  cfg.n_enc_layers)
-    return LM(cfg, p)
+    leading ``n_periods`` axis) are unstacked into one entry per layer
+    (:func:`unstack_reference`)."""
+    check_ported(cfg)
+    return LM(cfg, unstack_reference(params, cfg, resolve(device)))
 
 
 def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -195,8 +244,10 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
            vision_embed: Optional[torch.Tensor], dtype) -> torch.Tensor:
     """Token embeddings, the first ``nv`` positions replaced (not
-    extended) by ``vision_embed`` (B, nv, d) when given."""
-    x = p["embed"][tokens.long()].to(dtype)
+    extended) by ``vision_embed`` (B, nv, d) when given.  ``F.embedding``
+    rather than indexing: its backward sums a repeated token's rows in a
+    fixed order (indexing's scatter-add does not, on the CPU)."""
+    x = F.embedding(tokens.long(), p["embed"]).to(dtype)
     if vision_embed is not None:
         nv = vision_embed.shape[1]
         x = torch.cat([vision_embed.to(dtype), x[:, nv:, :]], dim=1)
@@ -216,7 +267,8 @@ def _encode(p: Params, cfg: ModelConfig, audio_embed: torch.Tensor,
                                    audio_embed.device)
     pos = torch.arange(Se, device=x.device)[None].expand(B, Se)
     x, _, _ = apply_stack(p["enc_blocks"], cfg, x, pos, period=ENC_PERIOD,
-                          causal=False, block_q=flags.block_q)
+                          causal=False, block_q=flags.block_q,
+                          remat=flags.remat)
     return rmsnorm(x, p["enc_norm"], cfg.norm_eps)
 
 
@@ -249,15 +301,17 @@ def forward_train(
     flags: RunFlags = RunFlags(),
     dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Returns (loss, metrics), forward only, on the device the weights lie
-    on.  batch: tokens, targets [, vision_embed, rope_pos, audio_embed],
-    numpy arrays or tensors."""
-    _check(cfg, flags)
+    """Returns (loss, metrics) on the device the weights lie on,
+    differentiable in the weights when they require a gradient.  batch:
+    tokens, targets [, vision_embed, rope_pos, audio_embed], numpy arrays
+    or tensors."""
+    check_ported(cfg)
     p = cast_params(p, dtype)
     batch = _on(batch, p["embed"].device)
     x, cross_y, positions = _front(p, cfg, batch, flags, dtype)
     x, _, aux = apply_stack(p["blocks"], cfg, x, positions, causal=True,
-                            cross_y=cross_y, block_q=flags.block_q)
+                            cross_y=cross_y, block_q=flags.block_q,
+                            remat=flags.remat)
     loss, metrics = chunked_ce_loss(p, cfg, x, batch["targets"], flags)
     loss = loss + aux
     metrics["aux_loss"] = aux
@@ -267,19 +321,24 @@ def forward_train(
 def chunked_ce_loss(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     targets: torch.Tensor, flags: RunFlags):
     """Cross-entropy without materializing (B, S, vocab) at once: a loop
-    over sequence chunks keeps live logits at (B, chunk, vocab)."""
+    over sequence chunks keeps live logits at (B, chunk, vocab); under
+    autograd each chunk's logits are recomputed in the backward pass."""
     B, S, d = x.shape
     chunk = min(flags.loss_chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of loss_chunk={chunk}")
-    losses, hits = [], []
-    for c0 in range(0, S, chunk):
-        logits = _head(p, cfg, x[:, c0:c0 + chunk]).float()  # (B, chunk, V)
-        tc = targets[:, c0:c0 + chunk].long()
+
+    def one(xc, tc):
+        logits = _head(p, cfg, xc).float()               # (B, chunk, V)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = logits.gather(-1, tc[..., None])[..., 0]
-        losses.append((lse - tgt).sum())
-        hits.append((logits.argmax(-1) == tc).sum())
+        return (lse - tgt).sum(), (logits.argmax(-1) == tc).sum()
+
+    grad = needs_grad(x)
+    losses, hits = zip(*(checkpointed(one, x[:, c0:c0 + chunk],
+                                      targets[:, c0:c0 + chunk].long(),
+                                      on=grad)
+                         for c0 in range(0, S, chunk)))
     n = B * S
     return torch.stack(losses).sum() / n, {"acc": torch.stack(hits).sum() / n}
 
@@ -307,7 +366,7 @@ def prefill(
     """Run the prompt through the model, filling ``caches`` in place from
     index 0.  batch: tokens [, vision_embed, rope_pos, audio_embed].
     Returns (logits at last position, caches)."""
-    _check(cfg, flags)
+    check_ported(cfg)
     p = cast_params(p, dtype)
     batch = _on(batch, p["embed"].device)
     x, cross_y, positions = _front(p, cfg, batch, flags, dtype)
@@ -327,7 +386,7 @@ def decode_step(
     dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, List[Params]]:
     """One decode step: logits for the new token; caches updated in place."""
-    _check(cfg, flags)
+    check_ported(cfg)
     p = cast_params(p, dtype)
     dev = p["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)

@@ -7,9 +7,12 @@ as a ``lax.scan`` through ``chunked_scan``; here they go to the port's
 kernels, :func:`repro_torch.kernels.rwkv6` and
 :func:`repro_torch.kernels.mamba_scan` (the CUDA kernels for tensors on the
 card, their plain versions on the CPU), which compute the same step.
-``chunked_scan`` has no counterpart: it rematerialises the scan in JAX's
-backward pass to save memory, and the port's model runs forward only
-(training waits for the training part of ROADMAP Queue 1 item 14).
+Under autograd (an input requires a gradient) they go to
+``kernels.rwkv6_autograd`` / ``kernels.mamba_scan_autograd`` instead: the
+same launch forward, and backward the counterpart of JAX's
+``chunked_scan``, the plain recurrence recomputed and differentiated in
+64-token chunks.  Training carries no state, so a call with a state
+under autograd raises.
 
 A ``state`` is a dict of preallocated tensors (the layer's serving cache)
 and is written in place; the returned state is the same dict.
@@ -24,10 +27,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm
 
 Params = Dict[str, Any]
+
+
+def _stateless(state, what: str) -> None:
+    if state is not None:
+        raise RuntimeError(f"{what}: no gradient through a carried state; "
+                           f"training runs without caches")
 
 
 # ===========================================================================
@@ -112,8 +122,12 @@ def apply_mamba(
     xc = xc.contiguous()
     delta, Bs, Cs = _mamba_ssm_inputs(p, cfg, xc)
     A = -torch.exp(p["A_log"].float())                  # (di, ds)
-    y, _ = kernels.mamba_scan(xc, delta, A, Bs, Cs,
-                              state=None if state is None else state["h"])
+    if needs_grad(xc, delta, A, Bs, Cs):
+        _stateless(state, "apply_mamba")
+        y, _ = kernels.mamba_scan_autograd(xc, delta, A, Bs, Cs)
+    else:
+        y, _ = kernels.mamba_scan(xc, delta, A, Bs, Cs,
+                                  state=None if state is None else state["h"])
     y = y + xc * p["D"].to(xc.dtype)
     out = (y * F.silu(z)) @ p["out_proj"]
     if state is not None:
@@ -208,8 +222,13 @@ def apply_rwkv_tmix(
     # the recurrence in f32, as the JAX package casts before its scan: the
     # kernel widens r, k and v from the model's dtype itself (exactly, so
     # the function is the same); w is f32 already
-    y, _ = kernels.rwkv6(r, k, v, w, p["u"].float(),
-                         state=None if state is None else state["wkv"])
+    u = p["u"].float()
+    if needs_grad(r, k, v, w, u):
+        _stateless(state, "apply_rwkv_tmix")
+        y, _ = kernels.rwkv6_autograd(r, k, v, w, u)
+    else:
+        y, _ = kernels.rwkv6(r, k, v, w, u,
+                             state=None if state is None else state["wkv"])
     # per-head group norm
     y = rmsnorm(y, torch.ones((hd,), dtype=x.dtype, device=x.device),
                 cfg.norm_eps).reshape(B, S, d)

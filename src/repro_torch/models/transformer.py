@@ -8,15 +8,21 @@ stacks every period's parameters on a leading ``n_periods`` axis for
 loop walks it.  Caches are one dict per layer, preallocated and written in
 place.  The JAX package pins the residual stream's batch axis to the data
 mesh axes between layers (``constrain_batch_dim``, the identity without a
-mesh); the model stack's meshes and constraints wait for ROADMAP Queue 1
-item 14 (the engine's data mesh is ``repro_torch.launch.mesh``), so
-nothing stands in for it here.
+mesh); the model stack's meshes and constraints are not ported yet
+(ROADMAP Queue 1, after training; the engine's data mesh is
+``repro_torch.launch.mesh``), so nothing stands in for it here.
 
 Every layer kind of the JAX package is ported: attention, MLA, Mamba and
 RWKV-6 mixers, and SwiGLU, GELU, MoE and RWKV channel-mix FFNs (the SSM
 states and MLA's latents are caches like the attention keys and values,
 written in place).  A layer returns its MoE aux loss (0 for other FFNs)
 and the stack sums them, as the JAX package's scan does.
+
+``apply_stack(remat=True)`` under autograd keeps only each layer's input
+for the backward pass and runs the layer again there
+(``torch.utils.checkpoint``), the counterpart of the JAX package's
+``jax.checkpoint`` over each period and each layer inside a multi-layer
+period.  A recomputed SSM layer launches its scan kernel again.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from repro_torch.models.layers import (
     apply_attention,
     apply_mla,
     apply_mlp,
+    checkpointed,
     init_attention,
     init_mla,
     init_mlp,
@@ -225,16 +232,20 @@ def apply_stack(
     cross_y: Optional[torch.Tensor] = None,
     mla_absorb: bool = False,
     block_q: int = 1024,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[List[Params]], torch.Tensor]:
     """Run every layer in order.  Returns (x, caches, aux); the caches are
-    the ones given, written in place."""
+    the ones given, written in place.  ``remat`` (without caches, under
+    autograd) recomputes each layer in the backward pass."""
     period = period if period is not None else cfg.period
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and caches is None and torch.is_grad_enabled()
     for i, layer_p in enumerate(params):
         mixer, ffn = period[i % len(period)]
-        x, _, a = apply_layer(
-            layer_p, cfg, mixer, ffn, x, positions, causal=causal,
-            window=window, cache=caches[i] if caches is not None else None,
+        x, _, a = checkpointed(
+            apply_layer, layer_p, cfg, mixer, ffn, x, positions, on=remat,
+            causal=causal, window=window,
+            cache=caches[i] if caches is not None else None,
             cache_index=cache_index, cross_y=cross_y, mla_absorb=mla_absorb,
             block_q=block_q)
         aux = aux + a

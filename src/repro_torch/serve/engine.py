@@ -36,8 +36,10 @@ class ServeConfig:
 
 
 def make_serve_step(cfg: ModelConfig, sc: ServeConfig) -> Callable:
-    """(params, caches, tokens (B,1), pos) -> (logits, caches)."""
+    """(params, caches, tokens (B,1), pos) -> (logits, caches), under
+    ``torch.inference_mode``."""
 
+    @torch.inference_mode()
     def serve_step(params, caches, tokens, pos):
         return decode_step(params, cfg, caches, tokens, pos, sc.flags,
                            dtype=sc.dtype)
@@ -54,14 +56,17 @@ class TokenServingEngine:
     preallocated per layer and written in place by every prefill and decode
     step (the JAX package's engine returns new arrays and donates the old).
     ``generate`` keeps the decoded tokens on the device and reads them
-    back once, at the end.
+    back once, at the end.  Serving runs under ``torch.inference_mode``,
+    so weights that require a gradient (a model in training) build no
+    autograd graph and leave none in the caches.
     """
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  device="cuda"):
         self.device = resolve(device)
         self.cfg, self.sc = cfg, sc
-        self.params = cast_params(params, sc.dtype, device=self.device)
+        with torch.no_grad():
+            self.params = cast_params(params, sc.dtype, device=self.device)
         self.caches = make_caches(cfg, sc.batch, sc.cache_len, sc.dtype,
                                   enc_len=sc.enc_len, device=self.device)
         self.step = make_serve_step(cfg, sc)
@@ -71,9 +76,10 @@ class TokenServingEngine:
         """Prefill ``batch`` (tokens [, vision_embed, rope_pos,
         audio_embed]); decoding continues at position ``S``, where
         ``sc.flags.mla_absorb`` selects MLA's latent-space decode."""
-        logits, self.caches = prefill(self.params, self.cfg, batch,
-                                      self.caches, self.sc.flags,
-                                      dtype=self.sc.dtype)
+        with torch.inference_mode():
+            logits, self.caches = prefill(self.params, self.cfg, batch,
+                                          self.caches, self.sc.flags,
+                                          dtype=self.sc.dtype)
         self.pos = batch["tokens"].shape[1]
         return logits
 

@@ -466,8 +466,55 @@ def test_jamba_moe_cut_matches():
                                rtol=1e-5)
 
 
-def test_unported_flags_raise():
-    cfg, _, _, _, lm = _models("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        M.forward_train(lm, cfg, _batch(cfg), M.RunFlags(remat=True),
-                        dtype=torch.float32)
+@pytest.fixture
+def one_thread():
+    """One torch thread for the test (see tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("arch", ["smollm-135m", "whisper-medium",
+                                  "rwkv6-7b", JAMBA_DENSE])
+def test_remat_matches(arch):
+    """``RunFlags(remat=True)`` (each decoder and encoder layer recomputed
+    in the backward pass) gives the loss and every gradient of
+    ``remat=False`` bit for bit: it changes what is kept, not what is
+    computed."""
+    cfg, _, _, npp, _ = _models(arch)
+    lm = M.from_reference(npp, cfg, device="cpu").requires_grad_()
+    batch = _batch(cfg)
+    out = []
+    for remat in (False, True):
+        loss, _ = M.forward_train(lm, cfg, batch, M.RunFlags(remat=remat),
+                                  dtype=torch.float32)
+        out.append((loss.detach(), torch.autograd.grad(
+            loss, list(lm.parameters()))))
+    (la, ga), (lb, gb) = out
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("arch", ["smollm-135m", "rwkv6-7b", JAMBA_DENSE])
+def test_serving_trainable_weights(arch):
+    """A ``TokenServingEngine`` over weights that require gradients (a
+    model in training) decodes the tokens of the same weights without
+    them, and leaves no cache that requires a gradient or holds an
+    autograd history (``torch.inference_mode``)."""
+    cfg, _, _, npp, lm = _models(arch)
+    trainable = M.from_reference(npp, cfg, device="cpu").requires_grad_()
+    batch = _batch(cfg, seed=3)
+    toks = []
+    for params in (lm, trainable):
+        eng = TokenServingEngine(cfg, params, ServeConfig(
+            batch=2, cache_len=24, dtype=torch.float32), device="cpu")
+        logits = eng.prefill_prompt(_prompt(cfg, batch, 16))
+        toks.append(eng.generate(np.asarray(logits[:, -1].argmax(-1)), 8))
+        for cache in eng.caches:
+            for name, t in cache.items():
+                assert not t.requires_grad and t.grad_fn is None, name
+        assert not logits.requires_grad
+    np.testing.assert_array_equal(toks[0], toks[1])
