@@ -237,7 +237,26 @@ Phases (any failure exits non-zero; none is caught):
    reduced; B=1 S=128, two chunks of the scans' backward) within
    ``GRAD_TOL`` of its scale, losses to 1e-5; 20e the raw ``rwkv6``,
    ``mamba_scan`` and ``attention`` wrappers raise on an input that
-   requires a gradient.
+   requires a gradient;
+21. the model stack on a ("data", "model") mesh (``mesh_phase``): 21a
+   smollm-135m at full size through the mesh path on one NCCL rank (mesh
+   (1, 1), pure data parallel), 3 steps of 20a's ``Trainer``, losses bit
+   for bit 20a's, peak memory beside 20a's; 21b one NCCL rank a card on
+   every card, spawned (``_mesh_rank``, progress in
+   ``build/phase21/rank<r>.log``): rwkv6-7b at 2 layers (and on
+   more than one card smollm-135m) trained 3 steps on each mesh of
+   ``_mesh_shapes``, losses bit for bit 21a's / 20b's on one card and
+   within ``MESH_LOSS_TIER`` of them on more, WKV launches per rank a
+   step equal to one rank's; scoring under the
+   flash kernel (smollm-135m, Jamba without experts at two layers:
+   attention and scan launches per rank), every recorded call of the
+   three kernels replayed against its plain version; 21c the planner:
+   ``dryrun.plan_case`` of 21a's case on a (1, 1) mesh of a fake process
+   group, its argument bytes exactly 21a's tensors', its peak and FLOPs
+   printed beside 21a's measured peak and ``model_flops_estimate``.  The
+   planner's whole sweep (``python -m repro_torch.launch.dryrun --arch
+   all --shape all --mesh both``) needs no card and is not run here: it
+   would load the host's cores under the timed phases.
 
 Unified and service config: the MAXMARG smoke's settings (below) over
 data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
@@ -273,7 +292,8 @@ max_epochs=8) at n_per_node=1000 over seeds 0–15 (B=384).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the ``nvidia-smi`` name and power limit, and before that
-one JSON line with every kernel's launches, error and times.
+one JSON line with every kernel's launches, error and times (phase 21's
+mesh paths included in the launches and errors).
 
 Token models: smollm-135m (``configs/smollm_135m.py``, 134.5 M parameters)
 and whisper-medium (``configs/whisper_medium.py``, 811.0 M), full width
@@ -354,6 +374,24 @@ TRAIN_CHECK = dict(B=1, S=128)     # two 64-token chunks of the scans
 GRAD_TOL = 2e-5       # 20d: max |g_card - g_cpu| <= GRAD_TOL max(1, max |g|)
 MB_MU_TOL = 1e-5      # 20a: first moments of microbatches 1 and 2, of scale
 ABSORB_TIE = 2e-3     # tests/test_mla_absorb.py's tier for the two decodes
+# phase 21: the model stack on a ("data", "model") mesh.  21b's jobs
+# (``_mesh_jobs``) train as 20a (smollm-135m) and 20b (rwkv6-7b at 2
+# layers) do, over NCCL, one rank a card, on every card; then scoring under
+# the flash kernel (smollm-135m, and Jamba without experts at two layers:
+# the scan and attention kernels per rank).  Two ranks cannot share a card
+# here: NCCL takes one rank a card, and gloo's functional all-gather on
+# CUDA tensors, which DTensor issues, ends the process (torch 2.11; the
+# CPU tests train on two gloo ranks instead)
+MESH_STEPS = 3
+MESH_SCORING = dict(jamba_B=2, S=2048)
+# 21b's losses on more than one card against one rank's, relative (on one
+# card, mesh (1, 1), they are bit for bit).  The first step's (the same
+# weights, sums in another order): the microbatch tier of
+# tests/test_torch_train.py.  Later steps' in bf16, after updates whose
+# tiny-gradient entries turn on the gradients' last bits: on four H100s
+# (before AdamW reduced each gradient into its moments' layout) the first
+# steps read at most 4.81e-6 and the later ones at most 1.71e-4
+MESH_LOSS_TIER = (1e-5, 1e-3)
 FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
 # phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
 # SAMPLING sessions' 1711-row ε-net (the default sizes it at eps=0.05)
@@ -2333,7 +2371,7 @@ def training_phase(dev):
     launches a step, 1 scan launch a step: the forward's, none in
     backward).  20d gradients card against CPU in f32.  20e the raw
     wrappers refuse inputs that require a gradient.  Returns the launches
-    per path."""
+    per path and, for phase 21, 20a's and 20b's losses and peak memory."""
     import copy
     import dataclasses
     import itertools
@@ -2392,6 +2430,7 @@ def training_phase(dev):
     check("20a smollm-135m training", got, {})
     paths["train_smollm"] = got
     peak = torch.cuda.max_memory_allocated()
+    refs = {"20a": dict(losses=[h["loss"] for h in tr.history], peak=peak)}
     losses = [h["loss"] for h in tr.history]
     gnorms = [h["grad_norm"] for h in tr.history]
     if not (len(losses) == ts["steps"]
@@ -2594,6 +2633,8 @@ def training_phase(dev):
             logs.append((loss, gnorm))
         paths[f"train_{wrapper}"] = {k: v * shape["steps"]
                                      for k, v in got.items()}
+        refs[tag] = dict(losses=[loss for loss, _ in logs],
+                         peak=torch.cuda.max_memory_allocated())
         print(f"{tag} {mcfg.name} ({mcfg.n_layers} layers, {n} parameters, "
               f"param_count {mcfg.param_count()}) training B={shape['B']} "
               f"S={shape['S']} bf16 over f32 masters: {got[wrapper]} "
@@ -2674,7 +2715,499 @@ def training_phase(dev):
                                  f"requires a gradient")
     check("20e grad guards", kernels.launches(), {})
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return paths
+    return paths, refs
+
+
+class _ModelRecorder(_Recorder):
+    """:class:`_Recorder` for the model's kernels (the flash wrapper also
+    counts per route through its module-level name); records only calls
+    on the card."""
+
+    @property
+    def routes(self):
+        return self.fn.routes
+
+    @routes.setter
+    def routes(self, r):
+        self.fn.routes = r
+
+    def __call__(self, *args, **kw):
+        import torch
+        if self.on() and torch.is_tensor(args[0]) and args[0].is_cuda:
+            self.calls.append((self.name, tuple(
+                a.detach().clone() if torch.is_tensor(a) else a
+                for a in args), dict(kw)))
+        return self.fn(*args, **kw)
+
+
+@contextlib.contextmanager
+def _model_recording(on):
+    """While open, the model's calls of the WKV, scan and flash wrappers
+    made while ``on()`` holds are recorded (where ``models.ssm`` and
+    ``models.layers`` and the scans' autograd Functions look them up):
+    yields the list of ``(wrapper name, arguments, options)``."""
+    from repro_torch import kernels
+    fa, rw, mb = (sys.modules[f"repro_torch.kernels.{m}"]
+                  for m in ("flash_attention", "rwkv6", "mamba"))
+    sites = ((kernels, "rwkv6", "rwkv6"), (rw, "rwkv6", "rwkv6"),
+             (kernels, "mamba_scan", "mamba_scan"),
+             (mb, "mamba_scan", "mamba_scan"), (fa, "attention", "attention"))
+    calls = []
+    saved = [getattr(mod, attr) for mod, attr, _ in sites]
+    try:
+        for (mod, attr, name), fn in zip(sites, saved):
+            setattr(mod, attr, _ModelRecorder(fn, name, calls, on))
+        yield calls
+    finally:
+        for (mod, attr, _), fn in zip(sites, saved):
+            setattr(mod, attr, fn)
+
+
+def _hold_model_calls(calls, what):
+    """Each recorded call again, the kernel against its plain version on
+    the same inputs: the scans' y and final state to SSM_TOL of their
+    scale, attention to ATTN_TOL.  Returns the largest |kernel - plain|
+    per wrapper (attention per route, ``attention_<route>``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa
+    errs = {}
+    for name, args, kw in calls:
+        label = f"{what}: {name} {[tuple(a.shape) for a in args]}"
+        if name == "attention":
+            route = fa.attention_route(args[0].dtype, args[0].shape[-1],
+                                       args[0].shape[1], args[1].shape[1])
+            got = kernels.attention(*args, **kw).float()
+            want = kernels.attention_plain(*args, **kw).float()
+            rtol, atol = ATTN_TOL[str(args[0].dtype).split(".")[1]]
+            diff = (got - want).abs()
+            if not (bool(torch.isfinite(got).all())
+                    and bool((diff <= atol + rtol * want.abs()).all())):
+                raise AssertionError(f"{label} ({route}): kernel and plain "
+                                     f"version differ by {float(diff.max())}")
+            key = f"attention_{route}"
+            errs[key] = max(errs.get(key, 0.0), float(diff.max()))
+            continue
+        got = getattr(kernels, name)(*args, **kw)
+        want = getattr(kernels, name + "_plain")(*args)
+        for part, g, e in zip(("y", "state"), got, want):
+            tol = SSM_TOL[str(g.dtype).split(".")[1]]
+            diff = float((g.float() - e.float()).abs().max())
+            scale = max(1.0, float(e.float().abs().max()))
+            if not (bool(torch.isfinite(g.float()).all())
+                    and diff <= tol * scale):
+                raise AssertionError(f"{label}: {part} of kernel and plain "
+                                     f"version differ by {diff} (scale "
+                                     f"{scale})")
+            errs[name] = max(errs.get(name, 0.0), diff)
+    return errs
+
+
+def _mesh_config(arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == "rwkv6-7b":
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_RWKV["layers"])
+    return cfg
+
+
+def _mesh_train_config(arch):
+    """The TrainConfig of 20a (smollm-135m) or 20b (rwkv6-7b), and its
+    (B, S)."""
+    import torch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    if arch == "smollm-135m":
+        ts = TRAIN_SMOLLM
+        return TrainConfig(steps=ts["steps"], warmup=ts["warmup"],
+                           log_every=1, dtype=torch.bfloat16,
+                           optim=AdamWConfig(lr=ts["lr"])), ts["B"], ts["S"]
+    tr = TRAIN_RWKV
+    return TrainConfig(steps=tr["steps"], warmup=2, dtype=torch.bfloat16,
+                       optim=AdamWConfig()), tr["B"], tr["S"]
+
+
+def _mesh_shapes(n):
+    """The (data, model) meshes over ``n`` cards: all data and all model
+    parallel, or (1, 1) on one card."""
+    return [(n, 1), (1, n)] if n > 1 else [(1, 1)]
+
+
+def _mesh_jobs(n):
+    """Phase 21b's training jobs over ``n`` cards, (tag, arch, mesh
+    shape): smollm-135m on every mesh but (1, 1) (21a's), rwkv6-7b on
+    every mesh."""
+    return [(f"{'smollm' if a == 'smollm-135m' else 'rwkv'}_{d}x{m}", a,
+             (d, m))
+            for d, m in _mesh_shapes(n)
+            for a in ("smollm-135m", "rwkv6-7b")
+            if (d, m) != (1, 1) or a != "smollm-135m"]
+
+
+def _mesh_scoring(n):
+    """Phase 21b's scoring jobs over ``n`` cards, (tag, arch, mesh shape):
+    smollm-135m on every mesh, Jamba without experts on the last."""
+    shapes = _mesh_shapes(n)
+    return ([(f"score_smollm_{d}x{m}", "smollm-135m", (d, m))
+             for d, m in shapes]
+            + [(f"score_jamba_{shapes[-1][0]}x{shapes[-1][1]}", "jamba",
+                shapes[-1])])
+
+
+def _mesh_rank_jobs(rank, world, log):
+    """Phase 21b on this rank: each of ``_mesh_jobs(world)`` trained
+    ``MESH_STEPS`` steps (rwkv6-7b's first step's WKV calls recorded),
+    then scoring under the flash kernel (calls recorded), every recorded
+    call replayed against its plain version.  ``log`` takes a line of
+    progress.  Returns the results."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.distribution.constraints import set_dp_axes, use_mesh
+    from repro_torch.distribution.sharding import (batch_specs, distribute,
+                                                   mesh_axes)
+    from repro_torch.launch.train import make_launch_mesh, place
+    from repro_torch.models import layers, model as lm_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import host_value
+
+    dev = torch.device("cuda")
+    out, record = {}, {"on": False}
+    with _model_recording(lambda: record["on"]) as calls:
+        for tag, arch, shape in _mesh_jobs(world):
+            cfg = _mesh_config(arch)
+            tc, B, S = _mesh_train_config(arch)
+            log(f"{tag}: mesh {shape}")
+            mesh = make_launch_mesh("cuda", shape)
+            pure_dp = shape[1] == 1
+            set_dp_axes(("pod", "data", "model") if pure_dp else None)
+            lm = lm_model.init_lm(cfg, seed=0, device=dev)
+            params, opt = place(lm, adamw_init(lm), mesh, pure_dp=pure_dp)
+            del lm
+            step = make_train_step(cfg, tc, mesh, pure_dp)
+            log(f"{tag}: placed")
+            data = synthetic_stream(cfg, DataConfig(seq_len=S,
+                                                    global_batch=B))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res = dict(losses=[], gnorms=[], ms=[], launches=[])
+            for i in range(MESH_STEPS):
+                batch = next(data)
+                kernels.reset_launches()
+                record["on"] = i == 0 and arch == "rwkv6-7b"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                res["ms"].append((time.perf_counter() - t0) * 1e3)
+                record["on"] = False
+                res["launches"].append(kernels.launches())
+                res["losses"].append(float(host_value(met["loss"])))
+                res["gnorms"].append(float(host_value(met["grad_norm"])))
+                log(f"{tag} step {i}: loss {res['losses'][-1]!r}, "
+                    f"{res['ms'][-1]:.1f} ms")
+            res["peak"] = torch.cuda.max_memory_allocated()
+            set_dp_axes(None)
+            out[tag] = res
+            del params, opt, step, met
+            torch.cuda.empty_cache()
+
+        # scoring under the flash kernel: smollm-135m on both meshes, Jamba
+        # without experts (one Mamba and one attention layer) on the model
+        # mesh; no gradient, bf16
+        import dataclasses
+        from repro_torch.configs import get_config
+        layers.set_attention_impl("kernel")
+        jcfg = dataclasses.replace(
+            jamba_dense(get_config("jamba-1.5-large-398b")), n_layers=2,
+            period=(("mamba", "mlp"), ("attn", "mlp")))
+        for tag, arch, shape in _mesh_scoring(world):
+            cfg = jcfg if arch == "jamba" else get_config(arch)
+            B = MESH_SCORING["jamba_B"] if arch == "jamba" else SCORING["B"]
+            mesh = make_launch_mesh("cuda", shape)
+            lm = lm_model.init_lm(cfg, seed=0, dtype=torch.bfloat16,
+                                  device=dev)
+            params, _ = place(lm, None, mesh)
+            del lm
+            host = {k: torch.as_tensor(v).to(mesh.device_type)
+                    for k, v in next(synthetic_stream(cfg, DataConfig(
+                        seq_len=MESH_SCORING["S"], global_batch=B))).items()}
+            batch = distribute(host, batch_specs(mesh_axes(mesh), host),
+                               mesh)
+            kernels.reset_launches()
+            record["on"] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(mesh), torch.no_grad():
+                loss, _ = lm_model.forward_train(params, cfg, batch)
+                loss = float(host_value(loss))
+            torch.cuda.synchronize()
+            record["on"] = False
+            out[tag] = dict(loss=loss, launches=kernels.launches(),
+                            routes=dict(kernels.attention.routes),
+                            ms=(time.perf_counter() - t0) * 1e3)
+            log(f"{tag}: loss {loss!r}")
+            del params, batch
+            torch.cuda.empty_cache()
+        layers.set_attention_impl("plain")
+        out["n_calls"] = len(calls)
+        out["errs"] = _hold_model_calls(calls, f"21b rank {rank}")
+    return out
+
+
+def _mesh_rank(rank, world, port, q):
+    """One of phase 21b's ranks: NCCL, card ``rank``.  Its progress goes
+    to ``build/phase21/rank<r>.log`` (with every thread's stack
+    should it stall 300 s, or crash)."""
+    import faulthandler
+    import traceback
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    out_dir = os.path.join(ROOT, "build", "phase21")
+    os.makedirs(out_dir, exist_ok=True)
+    logf = open(os.path.join(out_dir, f"rank{rank}.log"), "w", buffering=1)
+    faulthandler.enable(file=logf)
+    faulthandler.dump_traceback_later(300, repeat=True, file=logf)
+
+    def log(line):
+        logf.write(f"{time.strftime('%H:%M:%S')} {line}\n")
+
+    try:
+        from repro_torch.launch.mesh import init_ranks
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          LOCAL_RANK=str(rank))
+        log("init")
+        init_ranks("cuda")
+        log("ranks up")
+        q.put((rank, _mesh_rank_jobs(rank, world, log)))
+    except BaseException:
+        q.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        logf.close()
+
+
+def mesh_phase(dev, refs, card):
+    """Phase 21: the model stack on a ("data", "model") mesh.
+
+    21a smollm-135m at full width and depth through the mesh path on one
+    rank (NCCL, mesh (1, 1), pure data parallel as the launcher places
+    it): 3 steps of 20a's Trainer, losses bit for bit 20a's, peak memory
+    beside 20a's.  21b NCCL over every card, one rank a card, spawned:
+    smollm-135m (B=8 S=2048) and rwkv6-7b at 2 layers (B=4 S=2048) on
+    the meshes of ``_mesh_shapes`` (n cards: data=n with the weights
+    replicated and model=n with the rules' placements, the WKV kernel on
+    each rank's 64/n heads; one card: (1, 1), rwkv6-7b alone, smollm-135m
+    being 21a), 3 steps each, losses bit for bit 21a's / 20b's on one card
+    and within ``MESH_LOSS_TIER`` of them on more, launches per rank a
+    step equal to one rank's (0; 2 WKV); then
+    scoring under the flash kernel (smollm-135m on each mesh: 30 launches
+    a rank; Jamba without experts at two layers on the last: 1 scan and 1
+    attention launch a rank), every recorded kernel call replayed against
+    its plain version.  21c the
+    planner: ``dryrun.plan_case`` for 21a's case on a (1, 1) mesh of a fake
+    group (argument bytes exactly 21a's tensors'; peak and FLOPs beside
+    the measured peak and ``model_flops_estimate``).  Returns (launches per path, attention routes per
+    path, the replays' largest errors)."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch import kernels
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_stream
+    from repro_torch.distribution.constraints import set_dp_axes
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import _free_port, _mesh, init_ranks
+    from repro_torch.launch.train import make_launch_mesh, place
+    from repro_torch.models import layers, model as lm_model
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    paths, routes = {}, {}
+    zero = dict.fromkeys(kernels.launches(), 0)
+    layers.set_attention_impl("plain")
+
+    def gb(n):
+        return f"{n / 1e9:.3f} GB"
+
+    # -- 21a. one rank through the mesh path --------------------------------
+    t0 = time.perf_counter()
+    ts = TRAIN_SMOLLM
+    cfg = get_config(ts["arch"])
+    tc, B, S = _mesh_train_config(ts["arch"])
+    init_ranks("cuda")          # NCCL, world size 1
+    try:
+        mesh = make_launch_mesh("cuda", (1, 1))
+        set_dp_axes(("pod", "data", "model"))     # pure DP, as launched
+        lm = lm_model.init_lm(cfg, seed=0, device=dev)
+        params, opt = place(lm, adamw_init(lm), mesh, pure_dp=True)
+        del lm
+        real = {"params": sum(p.to_local().numel() * p.element_size()
+                              for p in params.parameters()),
+                "opt": sum(t.to_local().numel() * t.element_size()
+                           for part in ("mu", "nu") for t in
+                           leaves(opt[part]))}
+        data = synthetic_stream(cfg, DataConfig(seq_len=S, global_batch=B))
+        first = next(data)
+        real["batch"] = sum(v.nbytes for v in first.values())
+
+        def batches():
+            yield first
+            yield from data
+
+        tr = Trainer(cfg, tc, batches(), params=params, opt_state=opt,
+                     mesh=mesh, pure_dp=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        tr.run(MESH_STEPS, verbose=False)
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        if got != zero:
+            raise AssertionError(f"21a launched {got}")
+        paths["mesh_smollm_1x1"] = got
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in tr.history]
+        want = refs["20a"]["losses"][:MESH_STEPS]
+        steps_ms = np.diff([0.0] + [h["wall_s"] for h in tr.history]) * 1e3
+        print(f"21a {cfg.name} mesh (1, 1) over NCCL, pure DP, B={B} S={S} "
+              f"bf16 over f32 masters, {MESH_STEPS} steps of 20a's Trainer: "
+              f"losses {losses} against 20a's {want} "
+              f"({'bit for bit' if losses == want else 'NOT bit for bit'});"
+              f" steps {[round(float(s), 1) for s in steps_ms]} ms; peak "
+              f"{gb(peak)} (20a {gb(refs['20a']['peak'])}); {card}")
+        if losses != want:
+            raise AssertionError("21a: the mesh of one rank is not 20a")
+        del tr, params, opt
+    finally:
+        set_dp_axes(None)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"21a: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21b. NCCL over every card, one rank a card ------------------------
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = dict(q.get(timeout=900) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+    for r, res in sorted(ranks.items()):
+        if "error" in res:
+            raise AssertionError(f"21b rank {r}:\n{res['error']}")
+    ref_loss = {"smollm-135m": refs["20a"]["losses"][:MESH_STEPS],
+                "rwkv6-7b": refs["20b"]["losses"][:MESH_STEPS]}
+    wkv_a_step = dict(zero, rwkv6=TRAIN_RWKV["layers"])
+    for tag, arch, shape in _mesh_jobs(world):
+        per = [ranks[r][tag] for r in range(world)]
+        want = wkv_a_step if arch == "rwkv6-7b" else zero
+        for r, res in enumerate(per):
+            if any(got != want for got in res["launches"]):
+                raise AssertionError(f"21b {tag} rank {r} launched "
+                                     f"{res['launches']}; expected {want} "
+                                     f"a step")
+        if any(res["losses"] != per[0]["losses"] for res in per):
+            raise AssertionError(f"21b {tag}: the ranks' losses differ")
+        losses, ref = per[0]["losses"], ref_loss[arch]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        tier = ([0.0] * len(rel) if world == 1 else
+                [MESH_LOSS_TIER[min(i, 1)] for i in range(len(rel))])
+        if not (np.isfinite(losses).all()
+                and all(r <= t for r, t in zip(rel, tier))):
+            raise AssertionError(f"21b {tag}: losses {losses} against "
+                                 f"one rank's {ref} (tier {tier})")
+        paths[f"mesh_{tag}"] = {k: sum(res["launches"][i][k] for res in per
+                                       for i in range(MESH_STEPS))
+                                for k in zero}
+        print(f"21b {tag} {arch} mesh (data, model) = {shape} over NCCL, "
+              f"{MESH_STEPS} steps: losses {losses} against one rank's "
+              f"{ref} ({'bit for bit' if losses == ref else 'rel '}"
+              f"{'' if losses == ref else [f'{x:.2e}' for x in rel]}, tier "
+              f"{tier}); launches a step a rank "
+              f"{ {k: v for k, v in per[0]['launches'][0].items() if v} }; "
+              f"ms a step per rank "
+              f"{[[round(m, 1) for m in res['ms']] for res in per]}; peak "
+              f"per rank {[gb(res['peak']) for res in per]}; {card}")
+    n_attn = get_config("smollm-135m").n_layers    # one launch a layer
+    for tag, arch, shape in _mesh_scoring(world):
+        want = (dict(attention=1, mamba_scan=1) if arch == "jamba"
+                else dict(attention=n_attn))
+        per = [ranks[r][tag] for r in range(world)]
+        for r, res in enumerate(per):
+            if res["launches"] != dict(zero, **want):
+                raise AssertionError(f"21b {tag} rank {r} launched "
+                                     f"{res['launches']}; expected {want}")
+        paths[f"mesh_{tag}"] = {k: sum(res["launches"][k] for res in per)
+                                for k in zero}
+        routes[f"mesh_{tag}"] = {k: sum(res["routes"][k] for res in per)
+                                 for k in per[0]["routes"]}
+        print(f"21b {tag} mesh {shape}, under the flash kernel, no "
+              f"gradient: loss {per[0]['loss']!r}, launches a rank {want}, "
+              f"routes {per[0]['routes']}, "
+              f"{[round(res['ms'], 1) for res in per]} ms per rank; {card}")
+    errs = {}
+    for res in ranks.values():
+        for k, v in res["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    print(f"21b: {sum(res['n_calls'] for res in ranks.values())} recorded "
+          f"kernel calls on {world} rank(s) replayed against their plain "
+          f"versions, largest |kernel - plain| {errs}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 21c. the planner ---------------------------------------------------
+    t0 = time.perf_counter()
+    shape = InputShape("phase21a", S, B, "train")
+    pol = dr.case_policy(cfg, shape)
+    pol.remat = False            # 21a's Trainer runs without remat
+    dr.fake_group(1)
+    try:
+        mesh = _mesh("cpu", (1, 1), ("data", "model"))
+        mode = roofline.PlanMode()
+        with mode:
+            parts = dr.plan_case(cfg, shape, mesh, pol, mode)
+        rep = roofline.analyze_plan("phase21a", mode, chips=1,
+                                    arg_bytes=sum(parts.values()),
+                                    model_flops=roofline.model_flops_estimate(
+                                        cfg, shape))
+    finally:
+        dist.destroy_process_group()
+    if parts != real:
+        raise AssertionError(f"21c: planned argument bytes {parts}, 21a's "
+                             f"tensors {real}")
+    print(f"21c plan_case({cfg.name}, B={B} S={S} train, mesh (1, 1), "
+          f"policy {pol.param_dtype} weights, {pol.moment_dtype} moments, "
+          f"remat off): argument bytes {parts} = 21a's tensors exactly; "
+          f"predicted peak (arguments + temporaries) "
+          f"{gb(rep.arg_bytes + rep.temp_bytes)} beside 21a's measured "
+          f"{gb(peak)}; predicted FLOPs {rep.flops:.4e} beside "
+          f"model_flops_estimate {rep.model_flops:.4e}; plan "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return paths, routes, errs
 
 
 def _clocks():
@@ -4542,7 +5075,13 @@ def main() -> int:
     route_counts.update(family_routes)
 
     # -- 20. training ----------------------------------------------------------
-    train_counts = training_phase(dev)
+    train_counts, train_refs = training_phase(dev)
+
+    # -- 21. the model stack on a mesh ----------------------------------------
+    mesh_counts, mesh_routes, held = mesh_phase(dev, train_refs, card)
+    route_counts.update(mesh_routes)
+    for name, e in held.items():
+        errs[name] = max(errs.get(name, 0.0), e)
 
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,
@@ -4553,7 +5092,7 @@ def main() -> int:
              "jamba_scoring": jamba_scoring, "jamba_serving": jamba_serving,
              "unified": unified_counts, "service": service_counts,
              "sharded": sharded_counts, **protocol_counts, **family_counts,
-             **train_counts}
+             **train_counts, **mesh_counts}
     print(f"launches per path: {paths}")
     print(f"attention launches per route and path: {route_counts}")
     launches = {n: sum(c[n] for c in paths.values()) for n in counts}

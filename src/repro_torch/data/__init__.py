@@ -1,1 +1,6 @@
-from repro_torch.data.pipeline import DataConfig, dec_len, synthetic_stream  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DataConfig,
+    dec_len,
+    make_batch_specs,
+    synthetic_stream,
+)

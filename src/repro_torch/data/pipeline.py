@@ -1,12 +1,12 @@
-"""Data pipeline: deterministic synthetic token streams.
+"""Data pipeline: deterministic synthetic token streams + batch specs.
 
 The synthetic stream is a seeded Markov-ish token generator (cheap, infinite,
-reproducible across hosts by shard index) used by the scoring and serving
-paths and the tests.  It is numpy only, copied from ``repro.data.pipeline``,
-so a seed gives the same batches bit for bit in both packages.  The JAX
-package's ``make_batch_specs`` (shape stand-ins for its dry-run lowering)
-has no counterpart here yet: it belongs with the launch slice (ROADMAP
-Queue 1 item 14).
+reproducible across hosts by shard index) used by the scoring, serving and
+training paths and the tests.  It is numpy only, copied from
+``repro.data.pipeline``, so a seed gives the same batches bit for bit in
+both packages.  ``make_batch_specs`` builds the stand-ins the dry-run
+planner (``repro_torch.launch.dryrun``) traces against: tensors on the
+``meta`` device, the same keys, shapes and dtypes, no allocation.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import InputShape, ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +60,30 @@ def synthetic_stream(cfg: ModelConfig, dc: DataConfig, shard: int = 0,
         if cfg.enc_dec:
             batch["audio_embed"] = rng.normal(0, 0.02, size=(B, S, cfg.d_model)).astype(np.float32)
         yield batch
+
+
+def make_batch_specs(cfg: ModelConfig, shape: InputShape,
+                     dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the ``meta`` device for every model input of this shape
+    (no allocation): tokens and targets (train), tokens (prefill), the one
+    new token (decode; caches are built separately), with ``vision_embed``
+    (B, 64, d) and ``rope_pos`` (3, B, Sd) for the VLM and
+    ``audio_embed`` (B, S, d) for encoder-decoder models."""
+    B, S = shape.global_batch, shape.seq_len
+    Sd = dec_len(cfg, S)
+
+    def sds(dims, dt):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    i32 = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": sds((B, 1), i32)}
+    specs = {"tokens": sds((B, Sd), i32)}
+    if shape.kind == "train":
+        specs["targets"] = sds((B, Sd), i32)
+    if cfg.family == "vlm":
+        specs["vision_embed"] = sds((B, 64, cfg.d_model), dtype)
+        specs["rope_pos"] = sds((3, B, Sd), i32)
+    if cfg.enc_dec:
+        specs["audio_embed"] = sds((B, S, cfg.d_model), dtype)
+    return specs

@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.median_cut import _require
 
@@ -149,7 +149,10 @@ def attention(q, k, v, *, causal: bool, window: Optional[int] = None,
     tensors take the plain version.  The kernels take f32 or bf16 q, k, v
     of one dtype, contiguous, with one head width in :data:`HEAD_DIMS` for
     q, k and v (16-byte aligned for the tc and splitkv routes); anything
-    else raises."""
+    else raises.  Fake tensors (a traced plan) go to the operator
+    ``repro_torch::attention``, which gives the output's shape."""
+    if _ops.is_fake(q) and kv_valid is None:
+        return _ops.attention(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                kv_valid=kv_valid)

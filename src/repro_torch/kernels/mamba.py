@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 from repro_torch.kernels._grad import chunked_vjp, refuse_grad
 from repro_torch.kernels.median_cut import _require
 
@@ -128,9 +128,13 @@ def mamba_scan(xc, delta, A, Bs, Cs, state: Optional[torch.Tensor] = None
     ``state`` (B, di, ds), f32, is the initial state (zeros when None);
     when given, the final state is written back into it and it is returned
     as the final state.  The kernel takes what :func:`check_kernel_args`
-    allows and raises on anything else."""
-    if xc.device.type == "cpu":
-        y, final = mamba_scan_plain(xc, delta, A, Bs, Cs, h0=state)
+    allows and raises on anything else.  Fake tensors (a traced plan) go
+    to the operator ``repro_torch::mamba_scan``, which gives the outputs'
+    shapes."""
+    if _ops.is_fake(xc) or xc.device.type == "cpu":
+        y, final = (_ops.mamba_scan(xc, delta, A, Bs, Cs, state)
+                    if _ops.is_fake(xc)
+                    else mamba_scan_plain(xc, delta, A, Bs, Cs, h0=state))
         if state is None:
             return y, final
         state.copy_(final)
@@ -168,6 +172,8 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
+        if _ops.is_fake(dy):
+            return _ops.mamba_scan_vjp(*ctx.saved_tensors, dy, dstate)
         return tuple(chunked_vjp(mamba_scan_plain, ctx.saved_tensors,
                                  (True, True, False, True, True), dy,
                                  dstate))

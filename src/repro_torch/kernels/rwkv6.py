@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 from repro_torch.kernels._grad import chunked_vjp, refuse_grad
 from repro_torch.kernels.median_cut import _require
 
@@ -117,9 +117,11 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None
     the final state is written back into it and it is returned as the
     final state.  The kernel takes what :func:`check_kernel_args` allows
     and raises on anything else.  y and the state are f32 in either input
-    type."""
-    if r.device.type == "cpu":
-        y, final = rwkv6_plain(r, k, v, w, u, S0=state)
+    type.  Fake tensors (a traced plan) go to the operator
+    ``repro_torch::rwkv6``, which gives the outputs' shapes."""
+    if _ops.is_fake(r) or r.device.type == "cpu":
+        y, final = (_ops.rwkv6(r, k, v, w, u, state) if _ops.is_fake(r)
+                    else rwkv6_plain(r, k, v, w, u, S0=state))
         if state is None:
             return y, final
         state.copy_(final)
@@ -157,6 +159,8 @@ class _WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
+        if _ops.is_fake(dy):
+            return _ops.rwkv6_vjp(*ctx.saved_tensors, dy, dstate)
         return tuple(chunked_vjp(rwkv6_plain, ctx.saved_tensors,
                                  (True, True, True, True, False), dy, dstate))
 

@@ -24,6 +24,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distribution.constraints import (
+    batch_entry,
+    constrain,
+    is_dtensor,
+    local_call,
+    model_axis_size,
+    model_entry,
+    whole,
+    whole_last,
+)
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
@@ -62,9 +72,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
+    if is_dtensor(x):   # a width split over ranks is gathered to normalise
+        x = whole_last(x)
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * whole(scale).float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +148,28 @@ def set_attention_impl(impl: str) -> None:
     _ATTN_IMPL = impl
 
 
+def _mesh_core(q, k, v, **kw) -> torch.Tensor:
+    """:func:`attention_core` on a mesh: each rank attends with its batch
+    rows and, where the model axis divides both head counts, its heads
+    (else every head), the head width whole (a cache whose width the
+    cache rule split is gathered)."""
+    b = batch_entry(q.shape[0])
+    h = model_entry(q.shape[2]) and model_entry(k.shape[2])
+    spec = (b, None, h, None)
+    (o,) = local_call(lambda q, k, v: (attention_core(q, k, v, **kw),),
+                      (q, k, v), (spec, spec, spec), [(spec, ())])
+    return o
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) as (B, S, H·hd); on a mesh the heads stay split where
+    the model axis divides them, the head width whole."""
+    B, S, H, hd = o.shape
+    if is_dtensor(o):
+        o = constrain(o, batch_entry(B), None, model_entry(H), None)
+    return o.reshape(B, S, H * hd)
+
+
 def attention_core(
     q: torch.Tensor,           # (B, Sq, H, hd)
     k: torch.Tensor,           # (B, Skv, KV, hd)
@@ -154,6 +188,10 @@ def attention_core(
     ``window``: sliding-window width (None = full).
     ``kv_valid_len``: mask out cache slots >= this length (decode).
     """
+    if is_dtensor(q):
+        return _mesh_core(q, k, v, causal=causal, q_offset=q_offset,
+                          window=window, kv_valid_len=kv_valid_len,
+                          block_q=block_q, scale=scale)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -203,6 +241,17 @@ def attention_core(
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
+def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) as (B, S, n, hd).  On a mesh whose model axis does not
+    divide the ``n`` heads the width is gathered first (every model rank
+    computes every head, as GSPMD does with such a head count)."""
+    B, S = x.shape[:2]
+    m = model_axis_size()
+    if m and n % m and is_dtensor(x):
+        x = constrain(x, batch_entry(B), None, None)
+    return x.reshape(B, S, n, hd)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
                    dtype=torch.float32) -> Params:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
@@ -241,20 +290,19 @@ def apply_attention(
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
-    q = q.reshape(B, S, H, hd)
+    q = split_heads(q, H, hd)
 
     if cross_y is not None:
         # cross-attention: keys/values from the encoder sequence, no RoPE
-        Se = cross_y.shape[1]
-        k = (cross_y @ p["wk"]).reshape(B, Se, KV, hd)
-        v = (cross_y @ p["wv"]).reshape(B, Se, KV, hd)
+        k = split_heads(cross_y @ p["wk"], KV, hd)
+        v = split_heads(cross_y @ p["wv"], KV, hd)
         out = attention_core(q, k, v, causal=False, block_q=block_q)
-        out = out.reshape(B, S, H * hd) @ p["wo"]
+        out = merge_heads(out) @ p["wo"]
         return out, {"k": k, "v": v}  # static cross cache for decode
     if kv_override is not None:
         k, v = kv_override
         out = attention_core(q, k, v, causal=False, block_q=block_q)
-        out = out.reshape(B, S, H * hd) @ p["wo"]
+        out = merge_heads(out) @ p["wo"]
         return out, None
     # self-attention path
     k = x @ p["wk"]
@@ -262,8 +310,8 @@ def apply_attention(
     if "bk" in p:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = split_heads(k, KV, hd)
+    v = split_heads(v, KV, hd)
     if cfg.rope != "none":
         sec = cfg.mrope_sections if cfg.rope == "mrope" else None
         q = rope_apply(q, positions, cfg.rope_theta, sec)
@@ -290,7 +338,7 @@ def apply_attention(
         out = attention_core(q, k, v, causal=causal, window=window,
                              block_q=block_q)
 
-    out = out.reshape(B, S, H * hd) @ p["wo"]
+    out = merge_heads(out) @ p["wo"]
     return out, new_cache
 
 
@@ -405,7 +453,7 @@ def apply_mla(
         pw = torch.where(torch.isnan(pw), 0.0, pw)
         o_lat = torch.einsum("bhqs,bsl->bqhl", pw, ckv32)       # (B,S,H,kvl)
         out = torch.einsum("bqhl,lhv->bqhv", o_lat, wuv.float())
-        out = out.reshape(B, S, H * hdv).to(x.dtype) @ p["wo"]
+        out = merge_heads(out).to(x.dtype) @ p["wo"]
         return out, new_cache
 
     # ---- faithful reconstruct path ----------------------------------------
@@ -418,7 +466,7 @@ def apply_mla(
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     out = attention_core(qfull, k, v, causal=causal, q_offset=q_offset,
                          kv_valid_len=kv_valid, block_q=block_q, scale=scale)
-    out = out.reshape(B, S, H * hdv) @ p["wo"]
+    out = merge_heads(out) @ p["wo"]
     return out, new_cache
 
 

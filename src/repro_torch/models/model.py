@@ -42,6 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch._device import resolve
+from repro_torch.distribution.constraints import (
+    axes_of,
+    batch_entry,
+    constrain_batch_dim,
+    is_dtensor,
+    local_call,
+    sum_all,
+)
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import checkpointed, dense_init, rmsnorm
@@ -168,7 +176,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as numpy; bf16 as 2-byte records of its bits (``|V2``), the
-    dtype numpy stores JAX's bf16 arrays under."""
+    dtype numpy stores JAX's bf16 arrays under.  A DTensor is gathered
+    whole first (``full_tensor``: every rank of its mesh must call)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)     # never a view of the weights
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
@@ -237,8 +248,10 @@ def from_reference(params: Params, cfg: ModelConfig, device="cuda") -> LM:
 
 
 def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """The batch's arrays as tensors on ``device``."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch's arrays as tensors on ``device`` (DTensors, already
+    placed on a mesh, as they are)."""
+    return {k: v if is_dtensor(v) else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
 
 
 def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -247,10 +260,41 @@ def _embed(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     extended) by ``vision_embed`` (B, nv, d) when given.  ``F.embedding``
     rather than indexing: its backward sums a repeated token's rows in a
     fixed order (indexing's scatter-add does not, on the CPU)."""
-    x = F.embedding(tokens.long(), p["embed"]).to(dtype)
+    x = _lookup(p["embed"], tokens).to(dtype)
     if vision_embed is not None:
         nv = vision_embed.shape[1]
         x = torch.cat([vision_embed.to(dtype), x[:, nv:, :]], dim=1)
+    return constrain_batch_dim(x)
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  On a mesh each rank looks its
+    tokens up in the table's slice it holds: rows of a vocab-split table
+    (the rows it lacks give 0, the output a partial sum over the model
+    axis, reduced where the stream is pinned) or columns of a width-split
+    one."""
+    if not is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    from repro_torch.distribution.constraints import current_mesh
+    from repro_torch.distribution.sharding import spec_of
+    V, d = table.shape
+    tspec = spec_of(table.placements, table.device_mesh, 2)
+    rows = "model" if tspec[0] == "model" else None
+    cols = "model" if tspec[1] == "model" else None
+    b = batch_entry(tokens.shape[0])
+
+    def local(table, tokens):
+        if rows is None:
+            return (F.embedding(tokens.long(), table),)
+        v0 = current_mesh().get_local_rank("model") * table.shape[0]
+        ids = tokens.long() - v0
+        held = (ids >= 0) & (ids < table.shape[0])
+        out = F.embedding(torch.where(held, ids, 0), table)
+        return (out * held[..., None].to(out.dtype),)
+
+    (x,) = local_call(local, (table, tokens), ((rows, cols), (b, None)),
+                      [((b, None, cols), ("model",) if rows else ())],
+                      grad_partial=[axes_of(b), ()])
     return x
 
 
@@ -318,6 +362,18 @@ def forward_train(
     return loss, metrics
 
 
+def _target_logit(logits: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """``logits[..., tc]``.  On a DTensor (the vocab dim may be sharded on
+    the model axis) the one logit is summed out of a mask instead: each
+    rank adds its own vocab slice's entry (exactly one is not zero) and the
+    partial sums are reduced over (B, chunk), never the logits."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, tc[..., None])[..., 0]
+    V = logits.shape[-1]
+    hit = torch.arange(V, device=logits.device) == tc[..., None]
+    return torch.where(hit, logits, 0.0).sum(-1)
+
+
 def chunked_ce_loss(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     targets: torch.Tensor, flags: RunFlags):
     """Cross-entropy without materializing (B, S, vocab) at once: a loop
@@ -331,8 +387,20 @@ def chunked_ce_loss(p: Params, cfg: ModelConfig, x: torch.Tensor,
     def one(xc, tc):
         logits = _head(p, cfg, xc).float()               # (B, chunk, V)
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, tc[..., None])[..., 0]
-        return (lse - tgt).sum(), (logits.argmax(-1) == tc).sum()
+        tgt = _target_logit(logits, tc)
+        if is_dtensor(logits):
+            # argmax over a split vocab would gather it: the first index
+            # at the row's max is a min over the vocab of the indices that
+            # reach it (each rank's slice, then over ranks), as argmax
+            # breaks ties
+            V = logits.shape[-1]
+            at_max = logits == logits.amax(dim=-1, keepdim=True)
+            first = torch.where(at_max, torch.arange(V, device=tc.device),
+                                V).amin(dim=-1)
+            hit = first == tc
+        else:
+            hit = logits.argmax(-1) == tc
+        return sum_all(lse - tgt), sum_all(hit)
 
     grad = needs_grad(x)
     losses, hits = zip(*(checkpointed(one, x[:, c0:c0 + chunk],

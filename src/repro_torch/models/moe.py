@@ -6,11 +6,19 @@ Counterpart of ``repro.models.moe``.  Tokens are expanded top-k ways, sorted
 by expert id per batch row (a stable sort, as ``jnp.argsort``), ranked within
 their expert's segment and written into a dense (B, E, capacity, d) buffer
 that feeds one batched product per projection; slots past an expert's
-capacity are dropped, the earliest tokens of a segment kept.  The JAX
-package pins the buffers to its mesh axes (``constrain`` / ``batch_axes``,
-the identity without a mesh); the port's model stack has no mesh, so
-nothing stands in for them.  The expert products are plain PyTorch matmuls,
-as the JAX package computes them outside any Pallas kernel.
+capacity are dropped, the earliest tokens of a segment kept.  The expert
+products are plain PyTorch matmuls, as the JAX package computes them
+outside any Pallas kernel.
+
+On a mesh (DTensor activations) the routed part runs on each rank's own
+rows (``local_call``), as the JAX package's pins of ``x``, ``st``,
+``src``, the dispatch buffer and ``out`` to the batch axes ask GSPMD to:
+routing and dispatch are local to a data rank; when the model axis
+divides the experts each rank holds and computes its own experts (expert
+parallel), else its slice of each expert's hidden width, and the combine
+is a partial sum over the model axis, reduced where the residual stream
+is pinned.  The load-balance loss is formed from the ranks' mean router
+probabilities and expert counts.
 
 Few-token calls (``B·S <= 16``, decode) take the gather path: each token's
 top-k experts applied to it directly.  The JAX package gathers a
@@ -27,6 +35,16 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.constraints import (
+    axes_of,
+    batch_entry,
+    constrain_batch_dim,
+    current_mesh,
+    is_dtensor,
+    local_call,
+    model_axis_size,
+)
+from repro_torch.kernels._ops import is_fake
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -139,43 +157,115 @@ def apply_moe(p: Params, cfg: ModelConfig,
         # expert buffers stay (E, cap≈B·K/E) instead of B separate buffers
         x = x.reshape(1, B0, d)
     B, S, _ = x.shape
-    E, K = mo.n_experts, mo.top_k
-    cap = moe_capacity(cfg, S)
 
     if B * S <= 16:
         out, aux = _moe_gather_path(p, cfg, x)
         return out.reshape(B0, S0, d), aux
 
+    x = constrain_batch_dim(x)
+    if is_dtensor(x):
+        out, aux = _mesh_dispatch(p, cfg, x)
+    else:
+        out, r = _dispatch(p, cfg, x)
+        aux = r.aux
+    out = constrain_batch_dim(out)
+    if mo.n_shared:
+        out = out + _shared(p, x)
+    return out.reshape(B0, S0, d), aux
+
+
+def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor, e0: int = 0
+              ) -> Tuple[torch.Tensor, Routing]:
+    """The routed experts' output for ``x`` (B, S, d) and its routing.
+    ``p``'s expert weights may be the slice of experts ``e0 ..`` (expert
+    parallel): the buffer then holds those experts only and every other
+    slot adds nothing."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, K = mo.n_experts, mo.top_k
+    n = p["we_g"].shape[0]                                     # experts held
+    cap = moe_capacity(cfg, S)
     r = route(p, cfg, x)
     TK = S * K
     st = torch.div(r.order, K, rounding_mode="floor")          # token of slot
     sg = r.gate_vals.reshape(B, TK).gather(1, r.order)
+    keep, dest = r.keep, r.dest
+    if n < E:
+        held = (dest >= e0 * cap) & (dest < (e0 + n) * cap)
+        keep = keep & held
+        dest = torch.where(held, dest - e0 * cap, 0)
 
     # dispatch: every slot adds its token (zero where dropped) at its row;
     # a kept row receives exactly one token, so the adds' order is moot
     src = x.gather(1, st[..., None].expand(B, TK, d))
-    src = torch.where(r.keep[..., None], src, 0)
-    rows = (torch.arange(B, device=x.device)[:, None] * (E * cap)
-            + r.dest).reshape(-1)
-    xe = torch.zeros((B * E * cap, d), dtype=x.dtype, device=x.device)
+    src = torch.where(keep[..., None], src, 0)
+    rows = (torch.arange(B, device=x.device)[:, None] * (n * cap)
+            + dest).reshape(-1)
+    xe = torch.zeros((B * n * cap, d), dtype=x.dtype, device=x.device)
     xe.index_add_(0, rows, src.reshape(B * TK, d))
-    xe = xe.reshape(B, E, cap, d)
+    xe = xe.reshape(B, n, cap, d)
 
     g = torch.einsum("becd,edf->becf", xe, p["we_g"])          # (B, E, cap, ffe)
     u = torch.einsum("becd,edf->becf", xe, p["we_u"])
     ye = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_o"])
-    ye = ye.reshape(B, E * cap, d)
+    ye = ye.reshape(B, n * cap, d)
 
-    contrib = ye.gather(1, r.dest[..., None].expand(B, TK, d))
-    contrib = contrib * (sg * r.keep)[..., None].to(ye.dtype)
+    contrib = ye.gather(1, dest[..., None].expand(B, TK, d))
+    contrib = contrib * (sg * keep)[..., None].to(ye.dtype)
     # combine: the slots back in (token, pick) order, each token's K summed
     per_tok = torch.empty_like(contrib).scatter_(
         1, r.order[..., None].expand(B, TK, d), contrib)
-    out = per_tok.reshape(B, S, K, d).sum(2).to(x.dtype)
+    return per_tok.reshape(B, S, K, d).sum(2).to(x.dtype), r
 
-    if mo.n_shared:
-        out = out + _shared(p, x)
-    return out.reshape(B0, S0, d), r.aux
+
+_EXPERT_KEYS = ("router", "we_g", "we_u", "we_o")
+
+
+def _expert_specs(cfg: ModelConfig):
+    """(specs of router, we_g, we_u, we_o on a mesh, whether the experts
+    themselves are split): the experts on "model" when it divides them,
+    else each expert's hidden width when it divides that, else
+    replicated; the router whole."""
+    mo, m = cfg.moe, model_axis_size()
+    if m and mo.n_experts % m == 0:
+        return ((None, None), ("model", None, None), ("model", None, None),
+                ("model", None, None)), True
+    f = "model" if m and mo.d_expert % m == 0 else None
+    return ((None, None), (None, None, f), (None, None, f),
+            (None, f, None)), False
+
+
+def _mesh_dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """:func:`_dispatch` on each rank's rows and experts (or hidden-width
+    slice); returns (out, aux), out a partial sum over the model axis
+    where the experts are split."""
+    mo = cfg.moe
+    B, S, _ = x.shape
+    b = batch_entry(B)
+    specs, split_experts = _expert_specs(cfg)
+    split = split_experts or specs[1][2] is not None
+    xs = (b, None, None)
+
+    def local(x, router, we_g, we_u, we_o):
+        lp = dict(router=router, we_g=we_g, we_u=we_u, we_o=we_o)
+        e0 = current_mesh().get_local_rank("model") * we_g.shape[0] \
+            if split_experts else 0
+        out, r = _dispatch(lp, cfg, x, e0)
+        counts = (r.expert_ids[..., None] == torch.arange(
+            mo.n_experts, device=x.device)).float().sum(dim=(0, 1, 2))
+        return out, counts
+
+    # a rank's gradients reach the router and x only through its own
+    # experts' slots: partial sums over the model axis where it splits them
+    part = ("model",) if split else ()
+    out, counts = local_call(
+        local, (x,) + tuple(p[k] for k in _EXPERT_KEYS), (xs,) + specs,
+        [(xs, part), ((None,), axes_of(b))],
+        grad_partial=[part, axes_of(b) + part] + [axes_of(b)] * 3)
+    me = torch.softmax((x @ p["router"]).float(), dim=-1).mean(dim=(0, 1))
+    ce = counts / (B * S * mo.top_k)
+    aux = mo.n_experts * torch.sum(me * ce) * mo.router_aux_weight
+    return out, aux
 
 
 def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -187,18 +277,65 @@ def _moe_gather_path(p: Params, cfg: ModelConfig, x: torch.Tensor):
     experts applied to it instead of the dense (E, cap) dispatch — E/K× less
     work when almost every expert slot would be padding.  Each distinct
     picked expert's weights are read once, for the tokens that picked it
-    (the JAX package gathers a (T, K, d, d_expert) copy instead)."""
+    (the JAX package gathers a (T, K, d, d_expert) copy instead).  On a
+    mesh every rank applies the experts (or the hidden-width slice) it
+    holds to every token, the outputs summed over the model axis."""
     B, S, d = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if is_dtensor(x):
+        specs, split_experts = _expert_specs(cfg)
+        part = ("model",) if split_experts or specs[1][2] else ()
+        xs = (None, None, None)
+
+        def local(x, router, we_g, we_u, we_o):
+            lp = dict(router=router, we_g=we_g, we_u=we_u, we_o=we_o)
+            e0 = current_mesh().get_local_rank("model") * we_g.shape[0] \
+                if split_experts else 0
+            return (_gather(lp, cfg, x, e0),)
+
+        (out,) = local_call(
+            local, (x,) + tuple(p[k] for k in _EXPERT_KEYS), (xs,) + specs,
+            [(xs, part)], grad_partial=[part, part, (), (), ()])
+    else:
+        out = _gather(p, cfg, x)
+    if cfg.moe.n_shared:
+        out = out + _shared(p, x)
+    return out, aux
+
+
+def _gather(p: Params, cfg: ModelConfig, x: torch.Tensor,
+            e0: int = 0) -> torch.Tensor:
+    """The routed experts' output of the gather path, from the experts
+    ``e0 ..`` that ``p`` holds (all of them by default)."""
+    B, S, d = x.shape
+    n = p["we_g"].shape[0]
     xt = x.reshape(B * S, d)
     _, gate_vals, expert_ids = _top_k(p, cfg, xt)              # (T, K)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ye = torch.empty((*expert_ids.shape, d), dtype=x.dtype, device=x.device)
-    for e in torch.unique(expert_ids).tolist():
-        t, k = (expert_ids == e).nonzero(as_tuple=True)
+    ye = (torch.empty if n == cfg.moe.n_experts else torch.zeros)(
+        (*expert_ids.shape, d), dtype=x.dtype, device=x.device)
+    for e, t, k in _held_picks(cfg, expert_ids, e0, n):
         xs = xt[t]
         h = F.silu(xs @ p["we_g"][e]) * (xs @ p["we_u"][e])
         ye[t, k] = h @ p["we_o"][e]
     out = (ye * gate_vals.to(ye.dtype)[..., None]).sum(1)
-    if cfg.moe.n_shared:
-        out = out + _shared(p, xt)
-    return out.reshape(B, S, d), aux
+    return out.reshape(B, S, d)
+
+
+def _held_picks(cfg: ModelConfig, expert_ids: torch.Tensor, e0: int,
+                n: int):
+    """(local expert, token rows, pick slots) for each expert ``e0 ..
+    e0 + n - 1`` that a (T, K) pick reaches.  Fake ids (a traced plan)
+    have no values to read: there the rank's share of the picks, T·K·n/E,
+    falls on as many of its experts as it can, in equal groups."""
+    if is_fake(expert_ids):
+        T, K = expert_ids.shape
+        picks = -(-T * K * n // cfg.moe.n_experts)
+        touched = min(n, picks)
+        slot = torch.arange(-(-picks // touched), device=expert_ids.device)
+        for e in range(touched):
+            yield e, slot % T, slot % K
+        return
+    for e in torch.unique(expert_ids).tolist():
+        if e0 <= e < e0 + n:
+            t, k = (expert_ids == e).nonzero(as_tuple=True)
+            yield e - e0, t, k

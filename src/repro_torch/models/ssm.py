@@ -16,6 +16,11 @@ under autograd raises.
 
 A ``state`` is a dict of preallocated tensors (the layer's serving cache)
 and is written in place; the returned state is the same dict.
+
+On a mesh (DTensor activations) each rank launches the kernel on its own
+shard (``local_call``): its batch rows on the data axes and its heads
+(WKV) or channels (scan) on the model axis where that axis divides them,
+the same call per rank as on one device.
 """
 
 from __future__ import annotations
@@ -27,6 +32,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels
+from repro_torch.distribution.constraints import (
+    axes_of,
+    batch_entry,
+    constrain,
+    is_dtensor,
+    local_call,
+    model_entry,
+    whole,
+)
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm
@@ -73,11 +87,21 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _pad_front(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, d) with ``n`` zero steps in front.  A DTensor is joined to
+    zeros instead of padded (DTensor's padding on torch 2.11 fails to plan
+    its redistribution); the values are the same."""
+    if not is_dtensor(x):
+        return F.pad(x, (0, 0, n, 0))
+    return torch.cat([torch.zeros_like(x[:, :1]).expand(-1, n, -1), x],
+                     dim=1)
+
+
 def _mamba_conv_full(xs: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv over time. xs: (B, S, di), w: (dc, di)."""
     dc, S = w.shape[0], xs.shape[1]
-    pad = F.pad(xs, (0, 0, dc - 1, 0))
+    pad = _pad_front(xs, dc - 1)
     out = torch.zeros_like(xs)
     for i in range(dc):   # dc is 4: four shifted adds, as in the JAX package
         out = out + pad[:, i:i + S, :] * w[i]
@@ -88,7 +112,11 @@ def _mamba_ssm_inputs(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     """From conv'd activations to (Δ, B, C) selective parameters,
     contiguous, as the scan kernel takes them."""
     di, ds, _, dtr = mamba_dims(cfg)
-    dt, Bs, Cs = (xc @ p["x_proj"]).split([dtr, ds, ds], dim=-1)
+    # on a mesh the product's sums over the split channels are reduced
+    # here, before the nonlinearities
+    proj = constrain(xc @ p["x_proj"], batch_entry(xc.shape[0]), None, None) \
+        if is_dtensor(xc) else xc @ p["x_proj"]
+    dt, Bs, Cs = proj.split([dtr, ds, ds], dim=-1)
     delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"].to(dt.dtype))
     return delta.contiguous(), Bs.contiguous(), Cs.contiguous()
 
@@ -122,12 +150,7 @@ def apply_mamba(
     xc = xc.contiguous()
     delta, Bs, Cs = _mamba_ssm_inputs(p, cfg, xc)
     A = -torch.exp(p["A_log"].float())                  # (di, ds)
-    if needs_grad(xc, delta, A, Bs, Cs):
-        _stateless(state, "apply_mamba")
-        y, _ = kernels.mamba_scan_autograd(xc, delta, A, Bs, Cs)
-    else:
-        y, _ = kernels.mamba_scan(xc, delta, A, Bs, Cs,
-                                  state=None if state is None else state["h"])
+    y = _scan(xc, delta, A, Bs, Cs, None if state is None else state["h"])
     y = y + xc * p["D"].to(xc.dtype)
     out = (y * F.silu(z)) @ p["out_proj"]
     if state is not None:
@@ -135,6 +158,29 @@ def apply_mamba(
         conv.copy_(torch.cat([conv.to(xin.dtype), xin],
                              dim=1)[:, -(dc - 1):, :])
     return out, state
+
+
+def _scan_call(xc, delta, A, Bs, Cs, h):
+    if needs_grad(xc, delta, A, Bs, Cs):
+        _stateless(h, "apply_mamba")
+        return kernels.mamba_scan_autograd(xc, delta, A, Bs, Cs)
+    return kernels.mamba_scan(xc, delta, A, Bs, Cs, state=h)
+
+
+def _scan(xc, delta, A, Bs, Cs, h) -> torch.Tensor:
+    """The selective scan's y; on a mesh each rank scans its batch rows
+    and channels (Bs, Cs whole: their gradients are partial sums over the
+    channels' ranks, A's over the batch's)."""
+    if not is_dtensor(xc):
+        return _scan_call(xc, delta, A, Bs, Cs, h)[0]
+    b, c = batch_entry(xc.shape[0]), model_entry(xc.shape[2])
+    seq, bsc, st = (b, None, c), (b, None, None), (b, c, None)
+    y, _ = local_call(
+        _scan_call, (xc, delta, A, Bs, Cs, h),
+        (seq, seq, (c, None), bsc, bsc, None if h is None else st),
+        [(seq, ()), (st, ())],
+        grad_partial=[(), (), axes_of(b), axes_of(c), axes_of(c), ()])
+    return y
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -187,7 +233,9 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
                  ) -> torch.Tensor:
     """x_{t-1} stream: zeros (or the carried last token) at t=0."""
     if prev is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1, :]
+        return _pad_front(x, 1)[:, :-1, :]
+    if is_dtensor(prev):    # the cached token in the stream's layout
+        prev = constrain(prev, batch_entry(prev.shape[0]), None)
     return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
@@ -197,13 +245,13 @@ def _rwkv_gates(p: Params, cfg: ModelConfig, x: torch.Tensor,
     B, S, d = x.shape
 
     def mix(mu):
-        return x + (xprev - x) * mu.to(x.dtype)
+        return x + (xprev - x) * whole(mu).to(x.dtype)
 
     r = (mix(p["mu_r"]) @ p["wr"]).reshape(B, S, H, hd)
     k = (mix(p["mu_k"]) @ p["wk"]).reshape(B, S, H, hd)
     v = (mix(p["mu_v"]) @ p["wv"]).reshape(B, S, H, hd)
     g = F.silu(mix(p["mu_g"]) @ p["wg"])
-    logw = p["w0"].float() + torch.tanh(
+    logw = whole(p["w0"]).float() + torch.tanh(
         mix(p["mu_w"]).float() @ p["wA"].float()) @ p["wB"].float()
     w = torch.exp(-torch.exp(logw)).reshape(B, S, H, hd)  # decay in (0, 1)
     return r, k, v, g, w
@@ -223,20 +271,37 @@ def apply_rwkv_tmix(
     # kernel widens r, k and v from the model's dtype itself (exactly, so
     # the function is the same); w is f32 already
     u = p["u"].float()
-    if needs_grad(r, k, v, w, u):
-        _stateless(state, "apply_rwkv_tmix")
-        y, _ = kernels.rwkv6_autograd(r, k, v, w, u)
-    else:
-        y, _ = kernels.rwkv6(r, k, v, w, u,
-                             state=None if state is None else state["wkv"])
+    y = _wkv(r, k, v, w, u, None if state is None else state["wkv"])
     # per-head group norm
     y = rmsnorm(y, torch.ones((hd,), dtype=x.dtype, device=x.device),
                 cfg.norm_eps).reshape(B, S, d)
-    y = y * p["ln_scale"].to(x.dtype)
+    y = y * whole(p["ln_scale"]).to(x.dtype)
     out = (y.to(x.dtype) * g) @ p["wo"]
     if state is not None:
         state["shift"].copy_(x[:, -1, :])
     return out, state
+
+
+def _wkv_call(r, k, v, w, u, wkv):
+    if needs_grad(r, k, v, w, u):
+        _stateless(wkv, "apply_rwkv_tmix")
+        return kernels.rwkv6_autograd(r, k, v, w, u)
+    return kernels.rwkv6(r, k, v, w, u, state=wkv)
+
+
+def _wkv(r, k, v, w, u, wkv) -> torch.Tensor:
+    """The WKV recurrence's y; on a mesh each rank runs its batch rows and
+    heads (u's gradient a partial sum over the batch's ranks)."""
+    if not is_dtensor(r):
+        return _wkv_call(r, k, v, w, u, wkv)[0]
+    b, h = batch_entry(r.shape[0]), model_entry(r.shape[2])
+    seq, st = (b, None, h, None), (b, h, None, None)
+    y, _ = local_call(
+        _wkv_call, (r, k, v, w, u, wkv),
+        (seq, seq, seq, seq, (h, None), None if wkv is None else st),
+        [(seq, ()), (st, ())],
+        grad_partial=[(), (), (), (), axes_of(b), ()])
+    return y
 
 
 def rwkv_tmix_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -269,7 +334,7 @@ def apply_rwkv_cmix(
     xprev = _token_shift(x, None if state is None else state["shift"])
 
     def mix(mu):
-        return x + (xprev - x) * mu.to(x.dtype)
+        return x + (xprev - x) * whole(mu).to(x.dtype)
 
     k = torch.square(F.relu(mix(p["mu_k"]) @ p["wk"]))
     r = torch.sigmoid(mix(p["mu_r"]) @ p["wr"])

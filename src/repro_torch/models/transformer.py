@@ -6,11 +6,11 @@ stacks every period's parameters on a leading ``n_periods`` axis for
 ``lax.scan``; here the stack is a list of per-layer parameter dicts, layer
 ``i * len(period) + j`` holding period ``i``'s position ``j``, and a Python
 loop walks it.  Caches are one dict per layer, preallocated and written in
-place.  The JAX package pins the residual stream's batch axis to the data
-mesh axes between layers (``constrain_batch_dim``, the identity without a
-mesh); the model stack's meshes and constraints are not ported yet
-(ROADMAP Queue 1, after training; the engine's data mesh is
-``repro_torch.launch.mesh``), so nothing stands in for it here.
+place.  As in the JAX package, the residual stream's batch axis is pinned
+to the data mesh axes after the mixer and after the FFN, and at the start
+of each period (``distribution.constraints.constrain_batch_dim``: on a
+mesh a DTensor is redistributed there, a row-parallel output's partial
+sums reduced; without a mesh, or on a plain tensor, the identity).
 
 Every layer kind of the JAX package is ported: attention, MLA, Mamba and
 RWKV-6 mixers, and SwiGLU, GELU, MoE and RWKV channel-mix FFNs (the SSM
@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distribution.constraints import constrain_batch_dim
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -162,7 +163,10 @@ def apply_layer(
         st = None if cache is None else {"shift": cache["tmix_shift"],
                                          "wkv": cache["tmix_wkv"]}
         h, _ = ssm.apply_rwkv_tmix(p["mixer"], cfg, h, st)
-    x = x + h
+    # pin the residual stream to (batch=data axes, seq/d replicated): the
+    # row-parallel output's partial sums are reduced here, and the FFN (the
+    # MoE dispatch above all) never sees a d-sharded stream
+    x = constrain_batch_dim(x + h)
 
     if "cross" in p:
         h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
@@ -190,7 +194,7 @@ def apply_layer(
         h, _ = ssm.apply_rwkv_cmix(p["ffn"], cfg, h, st)
     else:
         h = apply_mlp(p["ffn"], h, ffn)
-    x = x + h
+    x = constrain_batch_dim(x + h)
     return x, cache, aux
 
 
@@ -242,6 +246,8 @@ def apply_stack(
     remat = remat and caches is None and torch.is_grad_enabled()
     for i, layer_p in enumerate(params):
         mixer, ffn = period[i % len(period)]
+        if i % len(period) == 0:
+            x = constrain_batch_dim(x)  # keep batch pinned to the data axes
         x, _, a = checkpointed(
             apply_layer, layer_p, cfg, mixer, ffn, x, positions, on=remat,
             causal=causal, window=window,

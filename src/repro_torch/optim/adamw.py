@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distribution.constraints import is_dtensor
 from repro_torch.models.model import map_tree
 
 _F = np.float32
@@ -90,8 +91,8 @@ def _zip(trees, path="") -> List[Tuple[torch.Tensor, ...]]:
 def adamw_init(params, moment_dtype: str = "f32") -> Dict[str, Any]:
     mdt = torch.bfloat16 if moment_dtype == "bf16" else torch.float32
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+    def zeros(p):   # a DTensor weight's moments placed as the weight
+        return torch.zeros_like(p, dtype=mdt)
 
     tree = _tree(params)
     return {"mu": map_tree(zeros, tree), "nu": map_tree(zeros, tree),
@@ -124,6 +125,8 @@ def adamw_update(cfg: AdamWConfig, params, grads, state,
     b2c = f32(_F(1.0) - _F(cfg.b2) ** _F(step))
     lr = float(_F(cfg.lr) * _F(lr_scale))
     for p, g, mu, nu in quads:
+        if is_dtensor(g):   # reduced into its moments' layout (ZeRO-1)
+            g = g.redistribute(mu.device_mesh, mu.placements)
         g = g.float() * clip
         m = mu.float().mul_(cfg.b1).add_(g * (1 - cfg.b1))  # in place if f32
         v = nu.float().mul_(cfg.b2).add_(g * (1 - cfg.b2) * g)

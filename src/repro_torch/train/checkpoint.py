@@ -43,9 +43,11 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def save_checkpoint(dirname: str, params: LM, opt_state=None,
                     step: int = 0) -> str:
     """Write ``params`` (an :class:`LM`) and AdamW's state (or None) as
-    step ``step``; returns the file's path."""
+    step ``step``; returns the file's path.  On a mesh (DTensor leaves)
+    every rank calls it: each leaf is gathered whole on every rank and
+    rank 0 writes the file, in the same format."""
+    import torch.distributed as dist
     cfg = params.cfg
-    os.makedirs(dirname, exist_ok=True)
     payload: Dict[str, Any] = {"params": to_reference(params, cfg)}
     if opt_state is not None:
         payload["opt"] = {"mu": to_reference(opt_state["mu"], cfg),
@@ -53,6 +55,9 @@ def save_checkpoint(dirname: str, params: LM, opt_state=None,
                           "step": np.asarray(int(opt_state["step"]),
                                              np.int32)}
     path = os.path.join(dirname, f"ckpt_{step:08d}.npz")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
+    os.makedirs(dirname, exist_ok=True)
     np.savez(path, **_flatten(payload))
     with open(os.path.join(dirname, "latest.json"), "w") as f:
         json.dump({"path": path, "step": step}, f)

@@ -8,6 +8,13 @@ through ``cast_params``, whose casts carry the gradients back to the f32
 leaves.  The ``Trainer`` adds the host loop: data, logging, a checkpoint
 at the end.  It runs on the card unless told ``device="cpu"`` (or given
 weights on the CPU).
+
+On a mesh (``mesh=``, a ``DeviceMesh``; the weights and moments DTensors
+placed by ``repro_torch.distribution.sharding``, as the launcher places
+them) every rank runs the same step: each host batch (every microbatch
+on its own) is placed with ``batch_specs``, the model runs under the
+mesh's constraints, the loss is made whole on every rank before its
+gradient, and AdamW updates the DTensor leaves where they lie.
 """
 
 from __future__ import annotations
@@ -18,6 +25,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
+from repro_torch.distribution.constraints import is_dtensor, use_mesh
+from repro_torch.distribution.sharding import (
+    batch_specs,
+    distribute,
+    mesh_axes,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM, RunFlags, forward_train, init_lm
 from repro_torch.optim.adamw import (
@@ -60,27 +73,56 @@ def _split_micro(batch: Dict, mb: int) -> List[Dict]:
     return out
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
+def host_value(v) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor gathered whole)."""
+    return v.full_tensor() if is_dtensor(v) else v
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None,
+                    pure_dp: bool = False) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics), the
     weights and moments updated in place.
 
     With ``microbatches > 1`` the gradients of each microbatch are summed
     in f32 and divided by their number, as is the loss: the activations
-    held scale with the microbatch, not the batch.
+    held scale with the microbatch, not the batch.  With a ``mesh`` the
+    weights and moments are DTensors on it and each host batch is placed
+    by ``batch_specs`` (``pure_dp``: over the model axis too).
     """
 
+    def place(batch):
+        if mesh is None:
+            return batch
+        host = {k: torch.as_tensor(v).to(mesh.device_type)
+                for k, v in batch.items()}
+        return distribute(host, batch_specs(mesh_axes(mesh), host,
+                                            pure_dp=pure_dp), mesh)
+
     def loss_and_grads(params: LM, batch):
-        loss, metrics = forward_train(params, cfg, batch, tc.flags,
+        loss, metrics = forward_train(params, cfg, place(batch), tc.flags,
                                       dtype=tc.dtype)
+        if is_dtensor(loss):
+            # the whole loss on every rank, so its gradient starts at 1
+            from torch.distributed.tensor import Replicate
+            loss = loss.redistribute(loss.device_mesh,
+                                     [Replicate()] * loss.device_mesh.ndim)
         # a leaf the loss does not reach gets zeros, as under jax.grad
         grads = torch.autograd.grad(loss, leaves(params), allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), metrics, grads
 
     def train_step(params: LM, opt_state, batch):
+        if mesh is None:
+            return one_step(params, opt_state, batch)
+        with use_mesh(mesh):
+            return one_step(params, opt_state, batch)
+
+    def one_step(params: LM, opt_state, batch):
         params.requires_grad_()
         mb = tc.microbatches
         if mb > 1:
+            # split on the host, then placed: every microbatch's rows stay
+            # on the data axes
             grads = loss = acc = None
             for part in _split_micro(batch, mb):
                 l_i, m_i, g_i = loss_and_grads(params, part)
@@ -107,17 +149,22 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, data: Iterator[Dict],
-                 params: Optional[LM] = None, device="cuda"):
+                 params: Optional[LM] = None, device="cuda", mesh=None,
+                 opt_state=None, pure_dp: bool = False):
         """``params`` (f32 masters) default to ``init_lm(cfg, tc.seed)`` on
-        ``device``; given, they are trained where they lie."""
+        ``device``; given, they are trained where they lie.  On a ``mesh``
+        give the placed weights and moments (``opt_state``; by default
+        moments placed as the weights)."""
         self.cfg, self.tc, self.data = cfg, tc, data
         self.params = (params if params is not None
                        else init_lm(cfg, tc.seed, device=device))
-        self.opt_state = adamw_init(self.params, tc.optim.moment_dtype)
-        self.step_fn = make_train_step(cfg, tc)
+        self.opt_state = (opt_state if opt_state is not None
+                          else adamw_init(self.params, tc.optim.moment_dtype))
+        self.step_fn = make_train_step(cfg, tc, mesh, pure_dp)
         self.history: List[Dict[str, float]] = []
 
-    def run(self, steps: Optional[int] = None) -> Dict[str, float]:
+    def run(self, steps: Optional[int] = None,
+            verbose: bool = True) -> Dict[str, float]:
         steps = steps or self.tc.steps
         t0 = time.time()
         last: Dict[str, float] = {}
@@ -125,13 +172,14 @@ class Trainer:
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, next(self.data))
             if i % self.tc.log_every == 0 or i == steps - 1:
-                last = {k: float(v) for k, v in metrics.items()}
+                last = {k: float(host_value(v)) for k, v in metrics.items()}
                 last["step"] = i
                 last["wall_s"] = time.time() - t0
                 self.history.append(last)
-                print(f"step {i:5d} loss {last['loss']:.4f} acc "
-                      f"{last.get('acc', 0):.3f} gnorm "
-                      f"{last['grad_norm']:.3f} ({last['wall_s']:.1f}s)")
+                if verbose:
+                    print(f"step {i:5d} loss {last['loss']:.4f} acc "
+                          f"{last.get('acc', 0):.3f} gnorm "
+                          f"{last['grad_norm']:.3f} ({last['wall_s']:.1f}s)")
         if self.tc.ckpt_dir:
             save_checkpoint(self.tc.ckpt_dir, self.params, self.opt_state,
                             step=int(self.opt_state["step"]))
