@@ -256,7 +256,17 @@ Phases (any failure exits non-zero; none is caught):
    printed beside 21a's measured peak and ``model_flops_estimate``.  The
    planner's whole sweep (``python -m repro_torch.launch.dryrun --arch
    all --shape all --mesh both``) needs no card and is not run here: it
-   would load the host's cores under the timed phases.
+   would load the host's cores under the timed phases;
+22. the analysis tooling and the examples: 22a every entry of the
+   committed tuning cache for this card (``tuning_phase``): the tuned
+   kernel at its bucket's main-path shape under the cached plan and under
+   its own, bit for bit each other and equal to the plain version, both
+   device times beside the bound; 22b the five ``examples_torch`` scripts
+   (``examples_phase``) once each on the card at their reduced sizes
+   (memory allocated on the card and kernel launches counted: a CPU
+   fallback fails); 22c ``plan_cost``'s dot FLOPs, fused bytes and top
+   five collectives of 21c's plan.  Every bound this script prints comes
+   from ``repro_torch.analysis.bounds``.
 
 Unified and service config: the MAXMARG smoke's settings (below) over
 data1/2/3 × ε ∈ {0.05, 0.02, 0.01} at n_per_node=1000, k=2, 1024 angles,
@@ -334,22 +344,12 @@ MAXMARG = dict(max_epochs=8, max_support=4, steps=2000, stages=3, lam=1e-3)
 MM_SUBSET = (48, 8)    # MAXMARG card-against-CPU: bucket 1 and bucket 2
 ONEWAY = dict(steps=2000, stages=3, lam=1e-3)   # the one-way solver options
 COS_TOL = 1e-4         # the reference's own warm-vs-cold direction tier
-PEAK_F32 = 67e12       # H100 SXM f32 FLOP/s outside the tensor cores
-PEAK_BF16 = 989e12     # H100 SXM dense bf16 FLOP/s on the tensor cores
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SCORING = dict(arch="smollm-135m", B=8, S=2048)          # path A
 SERVE_SMOLLM = dict(B=8, prompt=512, cache_len=1024, tokens=64)
 # whisper-medium serving: 1500 encoder frames (Whisper's 30 s window,
 # arXiv:2212.04356), a 4-token decoder prompt, the decoder's 448 positions
 SERVE_WHISPER = dict(B=8, enc_len=1500, prompt=4, cache_len=448, tokens=64)
 ATTN_TOL = {"float32": (0.0, 1e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
-# exponentials a second on the special-function units: 16 results a clock
-# on each of 132 SMs, at 1.98 GHz, the clock behind the 67 TFLOP/s f32 peak
-PEAK_SFU = 132 * 16 * 1.98e9
-# an f32 exponential as a polynomial on the FMA pipes instead (Cephes's
-# expf form: two adds of range reduction, a degree-5 polynomial in five
-# FMAs): 7 issue slots, counted as 14 operations at the f32 rate
-POLY_EXP_OPS = 14
 RWKV = dict(arch="rwkv6-7b", B=8, S=2048)                # path C scoring
 JAMBA = dict(B=8, S=2048)                                # path D scoring
 SERVE_SSM = dict(B=8, prompt=512, cache_len=1024, tokens=64)   # C and D
@@ -824,128 +824,40 @@ def _oneway_points(inst, sample_size):
 
 
 def _uncertain_work(V, dir_ok, lo, hi, X, y, width=128):
-    """What the SOU scan must do for these inputs: ``(tests, bytes,
-    rounds)``.  A point is projected only onto the directions that are
-    allowed and have lo < hi, in grid order up to and including its first
-    risky one (all of them for a point that none puts at risk).  Every
-    direction's flag and bounds are read, a point and its label only in an
-    instance with at least one such direction (elsewhere the answer is
-    False whatever the point), and one byte is written per point.
-    ``rounds``: the kernel's rounds of ``width`` directions over all points
-    (each point's tests rounded up to whole rounds)."""
-    import torch
-    from repro_torch.core.geometry import project
-    from repro_torch.kernels.median_cut import plain_chunks
-
-    m = V.shape[0]
-    nonempty = (lo < hi) & dir_ok
-    tests = rounds = 0
-    for ne, lc, hc, Xc, yc in plain_chunks(m * X.shape[1], nonempty, lo, hi,
-                                           X, y):
-        proj = project(V, Xc)
-        risk = torch.where((yc == 1)[:, None, :], proj > lc[:, :, None],
-                           proj < hc[:, :, None]) & ne[:, :, None]
-        idx = torch.arange(m, device=X.device)[None, :, None]
-        first = torch.where(risk, idx, m - 1).amin(dim=1)       # (b, n)
-        upto = torch.cumsum(ne.int(), dim=1)                     # (b, m)
-        each = upto.gather(1, first)
-        tests += int(each.sum())
-        rounds += int(((each + width - 1) // width).sum())
-    needed = nonempty.any(dim=1)
-    point_bytes = (X.shape[1] * (X.shape[2] * X.element_size()
-                                 + y.element_size()))
-    nbytes = (_nbytes(V, dir_ok, lo, hi) + int(needed.sum()) * point_bytes
-              + y.numel())
-    return tests, nbytes, rounds
-
-
-def _ranges_bytes(V, Xw, yw, B):
-    """Bytes the ranges scan must move: V and every label read once, the
-    point of each row of label ±1 (a label-0 row's point is never needed),
-    lo and hi written once."""
-    live = int((yw != 0).sum())
-    return (_nbytes(V, yw) + live * Xw.shape[-1] * Xw.element_size()
-            + 2 * B * V.shape[0] * 4)
-
-
-def _median_ms(fn, reps):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def _graph_ms(fn, n=50, reps=5):
-    """Device time of one call of ``fn``: ``n`` calls captured in a CUDA
-    graph, replayed between CUDA events (median of ``reps`` replays, over
-    ``n``).  Unlike :func:`_median_ms` it leaves out the host's time to
-    launch, which a single short call cannot hide."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    del graph
-    return float(np.median(times))
-
-
-def _ops_ms(ops, exps=0, peak=PEAK_F32):
-    """The least time for ``ops`` operations at ``peak`` and ``exps`` f32
-    exponentials, the exponentials split between the special-function
-    units and polynomials on the FMA pipes (POLY_EXP_OPS operations each)
-    so that both finish together."""
-    return max(ops / peak, (ops + POLY_EXP_OPS * exps)
-               / (peak + POLY_EXP_OPS * PEAK_SFU)) * 1e3
+    """``(tests, bytes, rounds)`` of the SOU scan on these inputs, from
+    :func:`repro_torch.analysis.bounds.uncertain_tests` and
+    :func:`~repro_torch.analysis.bounds.uncertain_work`."""
+    from repro_torch.analysis import bounds
+    tests, rounds = bounds.uncertain_tests(V, dir_ok, lo, hi, X, y, width)
+    return (tests, bounds.uncertain_work(V, dir_ok, lo, hi, X, y,
+                                         tests=tests).bytes, rounds)
 
 
 def _time_row(r, reps=(20, 3)):
     """Time a kernel-table row's kernel and plain version with CUDA events
-    (medians of ``reps`` calls) beside its bound, and print the line."""
+    (medians of ``reps`` calls) beside its bound
+    (:func:`repro_torch.analysis.bounds.bound_ms` of the row's ``bytes``,
+    ``ops`` and ``exps``), and print the line."""
+    from repro_torch.analysis import bounds
     reps = r.get("reps", reps)
-    r["ms"] = _median_ms(r["fn"], reps[0])
-    r["plain_ms"] = _median_ms(r["plain"], reps[1])
-    r["library_ms"] = (_median_ms(r["library"], reps[0]) if "library" in r
-                       else None)
-    peak = r.get("peak", PEAK_F32)
-    by_bytes = r["bytes"] / PEAK_BYTES * 1e3
-    by_ops = _ops_ms(r["ops"], r.get("exps", 0), peak)
-    r["bound_ms"] = max(by_bytes, by_ops)
-    r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    r["ms"] = bounds.median_ms(r["fn"], reps[0])
+    r["plain_ms"] = bounds.median_ms(r["plain"], reps[1])
+    r["library_ms"] = (bounds.median_ms(r["library"], reps[0])
+                       if "library" in r else None)
+    peak = r.get("peak", bounds.PEAK_F32)
+    work = bounds.Work(r["bytes"], r["ops"], r.get("exps", 0))
+    r["bound_ms"], r["bound_by"] = bounds.bound_ms(work, peak)
     if r.get("graph"):
-        r["device_ms"] = _graph_ms(r["fn"])
+        r["device_ms"] = bounds.graph_ms(r["fn"])
     library = ("" if r["library_ms"] is None
                else f", library {r['library_ms']:.4f} ms")
     device = (f" (device {r['device_ms']:.4f} ms, a CUDA graph)"
               if r.get("graph") else "")
-    exps = (f" and {r['exps']} exponentials split between the "
+    exps = (f" and {work.exps} exponentials split between the "
             f"special-function units and FMA-pipe polynomials: "
-            f"{by_ops:.4g} ms; on the special-function units alone "
-            f"{r['exps'] / PEAK_SFU * 1e3:.4g} ms" if r.get("exps") else "")
+            f"{bounds.ops_ms(work.ops, work.exps, peak):.4g} ms; on the "
+            f"special-function units alone "
+            f"{work.exps / bounds.PEAK_SFU * 1e3:.4g} ms" if work.exps else "")
     print(f"time {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms"
           f"{device}, "
           f"plain {r['plain_ms']:.4f} ms{library}, bound "
@@ -1007,10 +919,6 @@ def _vote_round(sass, function):
         op.split(".")[0] for op in ops[first + 1:last + 1]))
 
 
-def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def _exact(a, b, what):
     """Max |kernel - plain| over integer outputs; raises unless it is 0."""
     diff = (a.long() - b.long()).abs()
@@ -1036,23 +944,6 @@ def _same_floats(a, b, what):
 
 def _cosine(va, vb):
     return float(va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)))
-
-
-def _attention_work(q, k, v, causal):
-    """Bytes a call must move (q, k, v read once, the output written once)
-    and its operations: 4 hd per kept (query, key) pair."""
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    pairs = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
-    return _nbytes(q, k, v, q), 4 * hd * B * H * pairs
-
-
-def _wkv_ops(n, hd):
-    """Operations of the WKV recurrence over ``n`` (batch row, step, head)
-    triples of width ``hd``: r·S summed (2) and w S + k v (3) per (i, j);
-    the bonus term factors as v_j · sum_i r_i u_i k_i, 3 per i and 2 per
-    j."""
-    return 5 * n * hd * (hd + 1)
 
 
 def _greedy(eng, first, n):
@@ -3207,7 +3098,98 @@ def mesh_phase(dev, refs, card):
           f"model_flops_estimate {rep.model_flops:.4e}; plan "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
-    return paths, routes, errs
+    return paths, routes, errs, rep
+
+
+# phase 22b: each example's arguments on the card (train_smollm cut to 30
+# steps of its reduced model)
+EXAMPLES = (("quickstart", []), ("noisy_protocol", []),
+            ("distributed_probe", []), ("serve_decode", []),
+            ("train_smollm", ["--steps", "30"]))
+
+
+def examples_phase(dev):
+    """Phase 22b: each ``examples_torch`` script's ``main`` once on the
+    card at its reduced size, its peak memory on the card and the kernel
+    launches it made printed.  Returns the launches per example."""
+    import importlib.util
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attention as fa_module
+
+    wrappers = (kernels.median_cut_scores, kernels.median_extremes,
+                kernels.maxmarg_turn_scan, kernels.pegasos_stage,
+                kernels.threshold_ranges, kernels.uncertain_mask,
+                fa_module.attention, kernels.rwkv6, kernels.mamba_scan)
+    counts = {}
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}",
+            os.path.join(ROOT, "examples_torch", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rows = mod.main(["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts[name] = {w.__name__: w.launches for w in wrappers
+                        if w.launches}
+        if not rows or peak == 0:
+            raise AssertionError(f"22b {name}: no rows, or nothing "
+                                 f"allocated on the card")
+        print(f"22b examples_torch/{name}.py --device cuda {' '.join(argv)}"
+              f": {len(rows)} rows in {wall:.1f} s, peak "
+              f"{peak / 1e6:.1f} MB on the card, launches {counts[name]}")
+    if not all(counts[n] for n in ("quickstart", "noisy_protocol",
+                                   "distributed_probe", "serve_decode")):
+        raise AssertionError(f"22b: an example launched no kernel: {counts}")
+    return counts
+
+
+def tuning_phase(dev, card):
+    """Phase 22a: every entry of the committed tuning cache for this card
+    (``repro_torch.analysis.autotune``), at its bucket's main-path shape:
+    the kernel under the cached plan and under its own plan, bit for bit
+    against each other (signs of zero included) and equal to the plain
+    version, both timed as device time (``bounds.graph_ms``) beside the
+    bound.  Returns the rows printed."""
+    import torch
+    from repro_torch.analysis import autotune, bounds
+
+    name = torch.cuda.get_device_name(dev)
+    rows = []
+    for kernel, label, s in autotune.MAIN_PATH:
+        shape = autotune.plan_shape(kernel, s)
+        plan = autotune.lookup_plan(kernel, name, *shape)
+        if plan is None:
+            continue
+        call, plain, work = autotune.inputs(kernel, s, dev)
+        own = autotune.own_plan(kernel, s)
+        got, want = call(plan), call(own)
+        if not autotune.same_bits(got, want):
+            raise AssertionError(f"22a {kernel} at {label}: the cached plan "
+                                 f"{plan} and the own plan {own} disagree")
+        ref = plain()
+        if not all(bool(torch.equal(a, b)) for a, b in zip(want, ref)):
+            raise AssertionError(f"22a {kernel} at {label}: the kernel "
+                                 f"disagrees with its plain version")
+        tuned_ms = bounds.graph_ms(lambda: call(plan), n=20)
+        own_ms = bounds.graph_ms(lambda: call(own), n=20)
+        bound, by = bounds.bound_ms(work)
+        rows.append(dict(kernel=kernel, label=label, plan=plan, own=own,
+                         ms=tuned_ms, own_ms=own_ms, bound_ms=bound))
+        print(f"22a {kernel} at {label} {shape}: cached plan {plan} "
+              f"{tuned_ms:.4f} ms, own plan {own} {own_ms:.4f} ms (device, "
+              f"CUDA graph), bound {bound:.4g} ms ({by}); bit for bit, and "
+              f"equal to the plain version; {card}")
+    if not rows:
+        raise AssertionError(f"22a: the tuning cache has no entry for {name}")
+    return rows
 
 
 def _clocks():
@@ -3232,6 +3214,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import engine, kernels
     from repro_torch.core import datasets, geometry
+    from repro_torch.analysis import bounds
     from repro_torch.engine import hotloop, median
     from repro_torch.kernels import _build
 
@@ -3329,23 +3312,14 @@ def main() -> int:
           "batch turn, on crafted ties and at the cut scan's edges; the "
           "two-segment extremes scan exact in every output")
 
-    live_pts = int((cut_args[5] != 0).sum())
     m, B, n = cfg["n_angles"], cfg["B"], cut_args[4].shape[1]
-    cut_bytes = _nbytes(*cut_args) + B * m * 4
-    cut_ops = 3 * live_pts * m           # 2 multiplies + 1 add per test
-    live_rows = int((ext_args[2] != 0).sum())
-    # v, the own rows and the transcripts' first W rows read; indices,
-    # flags, rows and edges written (4 + 4 + 1 + 1 + 8 + 8 + 4 + 4 bytes)
-    ext_bytes = (_nbytes(v1, data.X, data.y, s1.wx[:, :, :W],
-                         s1.wy[:, :, :W]) + 34 * B * k)
-    ext_ops = 3 * live_rows
     rows = [
         dict(name="median_cut_scores", route="cuda",
              source="src/repro_torch/kernels/csrc/median_cut.cu",
              replaces="src/repro/kernels/median_cut.py:76",
              fn=lambda: kernels.median_cut_scores(*cut_args),
              plain=lambda: kernels.median_cut_scores_plain(*cut_args),
-             bytes=cut_bytes, ops=cut_ops,
+             **bounds.cut_work(*cut_args)._asdict(),
              shape=f"B={B} m={m} n={n}"),
         dict(name="median_extremes", route="cuda",
              source="src/repro_torch/kernels/csrc/median_extremes.cu",
@@ -3353,7 +3327,7 @@ def main() -> int:
              fn=lambda: kernels.median_extremes_segments(*seg_args),
              plain=lambda: kernels.median_extremes_segments_plain(
                  *seg_args),
-             bytes=ext_bytes, ops=ext_ops,
+             **bounds.extremes_work(*seg_args)._asdict(),
              shape=f"B={B} k={k} n={data.X.shape[2]} W={W}, two segments"),
     ]
     for r in rows:
@@ -3363,10 +3337,10 @@ def main() -> int:
 
     team, per_sm = kernels.support_margin.extremes_occupancy(B * k)
     print(f"time median_extremes at {rows[1]['shape']}, device (CUDA "
-          f"graph): {_graph_ms(rows[1]['fn']):.4f} ms; one segment (the "
+          f"graph): {bounds.graph_ms(rows[1]['fn']):.4f} ms; one segment (the "
           f"concatenation, {ext_args[1].shape[2]} rows): "
-          f"{_median_ms(one_seg, 20):.4f} ms, device "
-          f"{_graph_ms(one_seg):.4f} ms; {team} warp(s) a row block, "
+          f"{bounds.median_ms(one_seg, 20):.4f} ms, device "
+          f"{bounds.graph_ms(one_seg):.4f} ms; {team} warp(s) a row block, "
           f"{per_sm} blocks of 256 resident an SM")
 
     # -- 2b. MAXMARG's kernels against plain versions ------------------------
@@ -3491,10 +3465,6 @@ def main() -> int:
           "d=40 and on crafted ties")
 
     Bm, N1, dd = K1.shape
-    kn_valid = int((dm.y != 0).sum())
-    N_valid = int((yK1 != 0).sum())
-    turn_out = 4 * (Bm * N1 + Bm * km + dm.y.numel())
-    stage_out = 4 * (3 * Bm * dd + 3 * Bm) + Bm
     mm_rows = [
         dict(name="maxmarg_turn_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/maxmarg_turn.cu",
@@ -3502,11 +3472,8 @@ def main() -> int:
              fn=lambda: kernels.maxmarg_turn_scan(*turn1, **scan_opts),
              plain=lambda: kernels.maxmarg_turn_scan_plain(*turn1,
                                                            **scan_opts),
-             bytes=_nbytes(*turn1) + turn_out,
-             # margin (2d+1) and band or error test per valid row, one
-             # compare per valid row in each ranking round
-             ops=((2 * dd + 2 + mm["max_support"]) * N_valid
-                  + (2 * dd + 2 + maxmarg.VIOL_SHIP) * kn_valid),
+             **bounds.turn_work(*turn1, max_support=mm["max_support"],
+                                viol_ship=maxmarg.VIOL_SHIP)._asdict(),
              shape=f"B={Bm} N={N1} k={km} n={dm.X.shape[2]} d={dd}",
              reps=(20, 3), graph=True),
         dict(name="pegasos_stage", route="cuda",
@@ -3515,11 +3482,7 @@ def main() -> int:
              fn=lambda: kernels.pegasos_stage(*peg1, nsteps=mm["steps"]),
              plain=lambda: kernels.pegasos_stage_plain(*peg1,
                                                        nsteps=mm["steps"]),
-             bytes=_nbytes(*peg1) + stage_out,
-             # every valid row's margin (2d+1) and hinge test at every
-             # step and in the final scan; the gradient of the violating
-             # rows depends on the iterates and is left out (a lower bound)
-             ops=(mm["steps"] + 1) * N_valid * (2 * dd + 2),
+             **bounds.pegasos_work(*peg1, nsteps=mm["steps"])._asdict(),
              shape=f"B={Bm} N={N1} d={dd} nsteps={mm['steps']}",
              reps=(5, 2)),
     ]
@@ -3536,7 +3499,7 @@ def main() -> int:
           f"list of {cap_list}")
     print(f"time pegasos_stage at d=16 (B={peg16[0].shape[0]} "
           f"N={peg16[0].shape[1]}): kernel "
-          f"{_median_ms(lambda: kernels.pegasos_stage(*peg16, nsteps=mm['steps']), 5):.4f} ms")
+          f"{bounds.median_ms(lambda: kernels.pegasos_stage(*peg16, nsteps=mm['steps']), 5):.4f} ms")
 
     # -- 3. the MEDIAN sweep on the card --------------------------------------
     hotloop.KEY_LOG.clear()
@@ -3617,11 +3580,20 @@ def main() -> int:
         median.node_extremes = stage5_original
     m = cfg["n_angles"]
     call_ms = [a.elapsed_time(b) for (a, b), *_ in cut_calls]
-    # each call's bound as _time_row counts it: 3 operations per live point
-    # and direction, or its bytes (V, dir_ok, lo, hi, X, y read; the scores
-    # written)
-    call_bound = [max(3 * int(live) * m / PEAK_F32,
-                      (8 * m + Bc * m * 13 + Bc * n_ * 12) / PEAK_BYTES) * 1e3
+
+    def cut_call_bound(Bc, n_, live):
+        """The bound of one recorded call, as _time_row counts it (shapes
+        on the meta device, the live points as recorded)."""
+        meta = dict(device="meta")
+        return bounds.bound_ms(bounds.cut_work(
+            torch.empty((m, 2), **meta),
+            torch.empty((Bc, m), dtype=torch.bool, **meta),
+            *(torch.empty((Bc, m), **meta),) * 2,
+            torch.empty((Bc, n_, 2), **meta),
+            torch.empty((Bc, n_), dtype=torch.int32, **meta),
+            live=int(live)))[0]
+
+    call_bound = [cut_call_bound(Bc, n_, live)
                   for _, Bc, n_, live in cut_calls]
     widths = sorted({Bc for _, Bc, _, _ in cut_calls}, reverse=True)
     print(f"median sweep again with events: {cut_wall:.3f} s wall, "
@@ -3664,9 +3636,9 @@ def main() -> int:
     print(f"time median_extremes at the widest turn (B={len(tail)} "
           f"n={d_t.X.shape[2]} W={Wmax}, {team} warps a row block)"
           + "".join(
-              f"; {what}: kernel {_median_ms(lambda: fn(*a), 20):.4f} ms, "
-              f"device {_graph_ms(lambda: fn(*a)):.4f} ms, plain "
-              f"{_median_ms(lambda: plain(*a), 5):.4f} ms"
+              f"; {what}: kernel {bounds.median_ms(lambda: fn(*a), 20):.4f} ms, "
+              f"device {bounds.graph_ms(lambda: fn(*a)):.4f} ms, plain "
+              f"{bounds.median_ms(lambda: plain(*a), 5):.4f} ms"
               for what, fn, plain, a in [
                   ("two segments", kernels.median_extremes_segments,
                    kernels.median_extremes_segments_plain, wide_seg),
@@ -3680,8 +3652,8 @@ def main() -> int:
     hold_cut(tail_cut, "cut scan, widest tail turn")
     print(f"time median_cut_scores at the widest tail turn (B={len(tail)} "
           f"m={m} n={tail_cut[4].shape[1]}): kernel "
-          f"{_median_ms(lambda: kernels.median_cut_scores(*tail_cut), 20):.4f} ms, "
-          f"plain {_median_ms(lambda: kernels.median_cut_scores_plain(*tail_cut), 3):.4f} ms")
+          f"{bounds.median_ms(lambda: kernels.median_cut_scores(*tail_cut), 20):.4f} ms, "
+          f"plain {bounds.median_ms(lambda: kernels.median_cut_scores_plain(*tail_cut), 3):.4f} ms")
 
     # -- 4. card against CPU -------------------------------------------------
     sub = insts[:SUBSET]
@@ -3811,11 +3783,11 @@ def main() -> int:
     print(f"time at the widest tail turn (B={len(tail)} N={Kt.shape[1]}, "
           f"{team_t} warp(s) a segment): "
           f"maxmarg_turn_scan "
-          f"{_median_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts), 20):.4f} ms "
+          f"{bounds.median_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts), 20):.4f} ms "
           f"(device "
-          f"{_graph_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts)):.4f} ms), "
+          f"{bounds.graph_ms(lambda: kernels.maxmarg_turn_scan(*wide_turn, **scan_opts)):.4f} ms), "
           f"pegasos_stage "
-          f"{_median_ms(lambda: kernels.pegasos_stage(*wide_stage, nsteps=mm['steps']), 5):.4f} ms")
+          f"{bounds.median_ms(lambda: kernels.pegasos_stage(*wide_stage, nsteps=mm['steps']), 5):.4f} ms")
 
     # -- 6. MAXMARG card against CPU, the same solver path on both -----------
     sub = buckets[0][1][:MM_SUBSET[0]] + buckets[1][1][:MM_SUBSET[1]]
@@ -4001,27 +3973,21 @@ def main() -> int:
     ra, ua = scan_args[0]
     m, d2, B = V.shape[0], V.shape[1], cfg["B"]
     n_sou = ua[4].shape[1]
-    ua_work = _uncertain_work(*ua)
+    ua_tests, _, ua_rounds = _uncertain_work(*ua)
     scan_rows = [
         dict(name="threshold_ranges", route="cuda",
              source="src/repro_torch/kernels/csrc/threshold_ranges.cu",
              replaces="src/repro/kernels/support_margin.py:131",
              fn=lambda: kernels.threshold_ranges(*ra),
              plain=lambda: kernels.threshold_ranges_plain(*ra),
-             bytes=_ranges_bytes(*ra, B),
-             # 2d-1 operations of projection and one compare per live
-             # transcript row and direction
-             ops=2 * d2 * int((ra[2] != 0).sum()) * m,
+             **bounds.ranges_work(*ra)._asdict(),
              shape=f"B={B} m={m} cap={ra[1].shape[1]} d={d2}", graph=True),
         dict(name="uncertain_mask", route="cuda",
              source="src/repro_torch/kernels/csrc/uncertain_mask.cu",
              replaces="src/repro/kernels/support_margin.py:449",
              fn=lambda: kernels.uncertain_mask(*ua),
              plain=lambda: kernels.uncertain_mask_plain(*ua),
-             bytes=ua_work[1],
-             # 2d-1 operations of projection and one compare per nonempty
-             # allowed direction, each point up to its first hit
-             ops=2 * d2 * ua_work[0],
+             **bounds.uncertain_work(*ua, tests=ua_tests)._asdict(),
              shape=f"B={B} m={m} n={ua[4].shape[1]} d={d2}", graph=True),
     ]
     for r in scan_rows:
@@ -4030,21 +3996,20 @@ def main() -> int:
     # instance 0 is noisy: the widest transcript and no point ever hits
     ra1 = (V, ra[1][0], ra[2][0])
     ua1 = tuple(a[0] for a in ua[1:])
-    ua1_work = _uncertain_work(V, *(a[None] for a in ua1))
     for r in (
             dict(name="threshold_ranges_one",
                  fn=lambda: kernels.threshold_ranges_one(*ra1),
                  plain=lambda: kernels.threshold_ranges_plain(
                      V, ra1[1][None], ra1[2][None]),
-                 bytes=_ranges_bytes(*ra1, 1),
-                 ops=2 * d2 * int((ra1[2] != 0).sum()) * m,
+                 **bounds.ranges_work(V, ra1[1][None],
+                                      ra1[2][None])._asdict(),
                  shape=f"m={m} cap={ra1[1].shape[0]} d={d2}", graph=True),
             dict(name="uncertain_mask_one",
                  fn=lambda: kernels.uncertain_mask_one(V, *ua1),
                  plain=lambda: kernels.uncertain_mask_plain(
                      V, *(a[None] for a in ua1)),
-                 bytes=ua1_work[1],
-                 ops=2 * d2 * ua1_work[0],
+                 **bounds.uncertain_work(
+                     V, *(a[None] for a in ua1))._asdict(),
                  shape=f"m={m} n={ua1[3].shape[0]} d={d2}", graph=True)):
         _time_row(r)
     cap_w = ra[1].shape[1]
@@ -4066,10 +4031,10 @@ def main() -> int:
     # a round: four directions a lane from registers, one vote
     per_round, ops = _vote_round(_build.sass("uncertain_mask"),
                                  "uncertain_maskILi2E")
-    rounds = ua_work[2]
+    rounds = ua_rounds
     print(f"uncertain_mask SASS (d=2): a round of 128 directions holds "
           f"{per_round} instructions: {dict(ops.most_common())}; at the SOU "
-          f"shape {rounds} rounds over the points ({ua_work[0]} tests), "
+          f"shape {rounds} rounds over the points ({ua_tests} tests), "
           f"{rounds * per_round:.4g} warp instructions, "
           f"{rounds * per_round / (4 * sms * 1.98e9) * 1e3:.4g} ms at one a "
           f"clock on each of {4 * sms} schedulers at 1.98 GHz (the "
@@ -4371,7 +4336,6 @@ def main() -> int:
         if fa_module.attention_route(qq.dtype, qq.shape[-1], qq.shape[1],
                                      kk.shape[1]) != route:
             raise AssertionError(f"{what} does not take the {route} route")
-        nb, ops = _attention_work(qq, kk, vv, causal)
         return dict(
             name=f"flash_attention_{route}", route="cuda",
             attention_route=route,
@@ -4383,7 +4347,8 @@ def main() -> int:
             library=lambda: F.scaled_dot_product_attention(
                 qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
                 is_causal=causal, enable_gqa=True),
-            bytes=nb, ops=ops, peak=peak, reps=(20, 3),
+            **bounds.attention_work(qq, kk, vv, causal)._asdict(),
+            peak=peak, reps=(20, 3),
             shape=f"{what} q {tuple(qq.shape)} kv {tuple(kk.shape)}"
                   f"{' causal' if causal else ''} {str(qq.dtype)[6:]}")
 
@@ -4391,18 +4356,19 @@ def main() -> int:
         """_time_row, then the kernel's and the library's device times
         (CUDA-graph replay), printed."""
         _time_row(r)
-        r["graph_ms"] = _graph_ms(r["fn"])
-        r["library_graph_ms"] = _graph_ms(r["library"])
+        r["graph_ms"] = bounds.graph_ms(r["fn"])
+        r["library_graph_ms"] = bounds.graph_ms(r["library"])
         print(f"time {r['name']} at {r['shape']}, device only (CUDA graph "
               f"of 50 calls): kernel {r['graph_ms']:.4f} ms, library "
               f"{r['library_graph_ms']:.4f} ms")
 
     attn_rows = [
-        attention_row("tc", "smollm-135m scoring", args, True, PEAK_BF16),
+        attention_row("tc", "smollm-135m scoring", args, True,
+                      bounds.PEAK_FLOPS_BF16),
         attention_row("splitkv", "whisper-medium cross-attention at decode",
-                      qkv(decode, bf16), False, PEAK_BF16),
+                      qkv(decode, bf16), False, bounds.PEAK_FLOPS_BF16),
         attention_row("simt", "smollm-135m scoring", qkv(scoring, f32), True,
-                      PEAK_F32)]
+                      bounds.PEAK_F32)]
     for r in attn_rows:
         time_attention(r)
     for r in attn_rows:
@@ -4765,7 +4731,8 @@ def main() -> int:
                      (JAMBA["B"], JAMBA["S"], jcfg.n_kv, jcfg.hd)), bf16)
     what = f"Jamba scoring (H {jcfg.n_heads}, KV {jcfg.n_kv}, hd {jcfg.hd})"
     hold_attention(f"{what}, bf16", jamba_qkv, causal=True)
-    time_attention(attention_row("tc", what, jamba_qkv, True, PEAK_BF16))
+    time_attention(attention_row("tc", what, jamba_qkv, True,
+                                 bounds.PEAK_FLOPS_BF16))
     del jamba_qkv
     torch.cuda.empty_cache()
     # grok-1's and qwen2-vl's attention layers at their phase-19 scoring
@@ -4779,7 +4746,7 @@ def main() -> int:
         what = (f"{name} scoring (H {fcfg.n_heads}, KV {fcfg.n_kv}, hd "
                 f"{fcfg.hd})")
         hold_attention(f"{what}, bf16", fqkv, causal=True)
-        r = attention_row("tc", what, fqkv, True, PEAK_BF16)
+        r = attention_row("tc", what, fqkv, True, bounds.PEAK_FLOPS_BF16)
         time_attention(r)
         family_attn_ms[name] = r["graph_ms"]
         del fqkv, r
@@ -4792,10 +4759,7 @@ def main() -> int:
              replaces="src/repro/kernels/rwkv6.py:81",
              fn=lambda: kernels.rwkv6(*rw_args),
              plain=lambda: kernels.rwkv6_plain(*rw_args),
-             # r, k, v (bf16), w, u read; y and the state written, f32
-             bytes=_nbytes(*rw_args) + 4 * rB * rS * rH * rhd
-             + 4 * rB * rH * rhd * rhd,
-             ops=_wkv_ops(rB * rS * rH, rhd),
+             **bounds.wkv_work(*rw_args)._asdict(),
              shape=f"rwkv6-7b scoring r {tuple(rw_args[0].shape)}, bf16 r, "
                    f"k, v and f32 w as path C passes them",
              reps=(50, 3)),
@@ -4804,11 +4768,7 @@ def main() -> int:
              replaces="src/repro/kernels/mamba.py:63",
              fn=lambda: kernels.mamba_scan(*sc_args),
              plain=lambda: kernels.mamba_scan_plain(*sc_args),
-             # xc, Δ, A, B, C read; y (bf16) and the state (f32) written
-             bytes=_nbytes(*sc_args) + _nbytes(sc_args[0])
-             + 4 * sB * sdi * J_ds,
-             ops=6 * sB * sS * sdi * J_ds + sB * sS * sdi,
-             exps=sB * sS * sdi * J_ds,
+             **bounds.scan_work(*sc_args)._asdict(),
              shape=f"Jamba scoring xc {tuple(sc_args[0].shape)} ds {J_ds} "
                    f"bf16")]
     # the attention timing above runs the tensor cores at full power and
@@ -4820,7 +4780,7 @@ def main() -> int:
         _time_row(r)
     for r in ssm_rows:
         print(f"time {r['name']} at {r['shape']}, device (CUDA graph): "
-              f"{_graph_ms(r['fn'], n=10):.4f} ms")
+              f"{bounds.graph_ms(r['fn'], n=10):.4f} ms")
     print(f"clocks after: {_clocks()}")
     # the scan's residency and its step loop's instructions, from its SASS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4846,9 +4806,7 @@ def main() -> int:
                    shape=f"prefill xc ({pB}, {pS}, {J_di}) ds {J_ds} bf16",
                    fn=lambda: kernels.mamba_scan(*pre_sc),
                    plain=lambda: kernels.mamba_scan_plain(*pre_sc),
-                   bytes=_nbytes(*pre_sc, pre_sc[0]) + 4 * pB * J_di * J_ds,
-                   ops=6 * pB * pS * J_di * J_ds + pB * pS * J_di,
-                   exps=pB * pS * J_di * J_ds), reps=(20, 1))
+                   **bounds.scan_work(*pre_sc)._asdict()), reps=(20, 1))
     del pre_sc
     # the same scoring shape with every input f32 (the first design's only
     # input type), printed
@@ -4856,9 +4814,7 @@ def main() -> int:
                    f"{tuple(rw32_args[0].shape)}, f32",
                    fn=lambda: kernels.rwkv6(*rw32_args),
                    plain=lambda: kernels.rwkv6_plain(*rw32_args),
-                   bytes=_nbytes(*rw32_args) + 4 * rB * rS * rH * rhd
-                   + 4 * rB * rH * rhd * rhd,
-                   ops=_wkv_ops(rB * rS * rH, rhd)))
+                   **bounds.wkv_work(*rw32_args)._asdict()))
     del rw32_args
     # the decode shape (S 1, the state read and written in place), where
     # serving makes all but 32 of its WKV and all but 7 of its scan
@@ -4873,30 +4829,23 @@ def main() -> int:
                        f"bf16 r, k, v",
                  fn=lambda: kernels.rwkv6(*dec_rw, state=rw_state),
                  plain=lambda: kernels.rwkv6_plain(*dec_rw, dec_rw0),
-                 # y f32; the state read and written
-                 bytes=_nbytes(*dec_rw) + 4 * dec_rw[0].numel()
-                 + 2 * _nbytes(dec_rw0),
-                 ops=_wkv_ops(8 * R_H, R_hd)),
+                 **bounds.wkv_work(*dec_rw, state=dec_rw0)._asdict()),
             dict(name="rwkv6",
                  shape=f"decode r (8, 1, {R_H}, {R_hd}), carried state, f32",
                  fn=lambda: kernels.rwkv6(*dec_rw32, state=rw_state),
                  plain=lambda: kernels.rwkv6_plain(*dec_rw32, dec_rw0),
-                 bytes=_nbytes(*dec_rw32) + 4 * dec_rw32[0].numel()
-                 + 2 * _nbytes(dec_rw0),
-                 ops=_wkv_ops(8 * R_H, R_hd)),
+                 **bounds.wkv_work(*dec_rw32, state=dec_rw0)._asdict()),
             dict(name="mamba_scan",
                  shape=f"decode xc (8, 1, {J_di}), carried state, bf16",
                  fn=lambda: kernels.mamba_scan(*dec_sc, state=sc_state),
                  plain=lambda: kernels.mamba_scan_plain(*dec_sc, dec_h0),
-                 bytes=_nbytes(*dec_sc, dec_sc[0], dec_h0, dec_h0),
-                 ops=6 * 8 * J_di * J_ds + 8 * J_di,
-                 exps=8 * J_di * J_ds)]
+                 **bounds.scan_work(*dec_sc, state=dec_h0)._asdict())]
     for r in dec_rows:
         _time_row(r)
     # decode's device time: a CUDA graph of calls, no host launch time
     for r in dec_rows:
         print(f"time {r['name']} at {r['shape']}, device (CUDA graph): "
-              f"{_graph_ms(r['fn']):.4f} ms, bound {r['bound_ms']:.4g} ms")
+              f"{bounds.graph_ms(r['fn']):.4f} ms, bound {r['bound_ms']:.4g} ms")
     del rw_args, sc_args, dec_rw, dec_rw32, dec_rw0, dec_sc, dec_h0
     del rw_state, sc_state, dec_rows
     for r in ssm_rows:
@@ -5078,10 +5027,22 @@ def main() -> int:
     train_counts, train_refs = training_phase(dev)
 
     # -- 21. the model stack on a mesh ----------------------------------------
-    mesh_counts, mesh_routes, held = mesh_phase(dev, train_refs, card)
+    mesh_counts, mesh_routes, held, plan = mesh_phase(dev, train_refs,
+                                                      card)
     route_counts.update(mesh_routes)
     for name, e in held.items():
         errs[name] = max(errs.get(name, 0.0), e)
+
+    # -- 22. the analysis tooling and the examples -----------------------------
+    t_phase = time.perf_counter()
+    tuning_phase(dev, card)
+    examples_phase(dev)
+    print(f"22c plan_cost of 21c's plan: dot FLOPs {plan.dot_flops:.4e} of "
+          f"{plan.flops:.4e} FLOPs; fused bytes {plan.bytes_fused:.4e} of "
+          f"{plan.bytes_accessed:.4e} ({plan.memory_fused_s * 1e3:.3f} ms "
+          f"against {plan.memory_s * 1e3:.3f} ms at the HBM rate); top "
+          f"collectives {plan.top_collectives[:5]}")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
 
     paths = {"median": counts, "maxmarg": mm_counts, "sou": sou_counts,
              "oneway": ow_counts, "gap": gap_counts,

@@ -12,17 +12,19 @@ once on fake tensors (``FakeTensorMode``) over a fake process group, and
   (views excluded), unfused, so an upper estimate of the HBM traffic;
 * collective bytes per device — each functional collective DTensor
   issues, its output times the ring factor for its group size
-  (:func:`_ring_factor`);
+  (:func:`.plan_cost.ring_factor`);
 * temporary bytes — the peak of a live tally of the storages the step
   makes (a storage counts from its first tensor's birth to that tensor's
-  death, so a view that outlives it is not held).
+  death, so a view that outlives it is not held);
+* beside these (:mod:`.plan_cost`): the products' FLOPs alone, the bytes
+  a fusing compiler would move, and each collective's call site.
 
 Argument bytes come from the sharding plan (``sharding.local_bytes``).
 Terms (seconds, per device == per step under SPMD) against the H100's
-datasheet figures (``repro_torch.launch.mesh``):
+datasheet figures (``repro_torch.analysis.bounds``):
 
     compute    = flops / PEAK_FLOPS_BF16
-    memory     = bytes_accessed / HBM_BW
+    memory     = bytes_accessed / HBM_BW      (memory_fused: bytes_fused)
     collective = collective_bytes / NVLINK_BW
 """
 
@@ -31,13 +33,14 @@ from __future__ import annotations
 import dataclasses
 import weakref
 from collections import defaultdict
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.launch.mesh import (
+from repro_torch.analysis import plan_cost
+from repro_torch.analysis.bounds import (
     CHIP_HBM_BYTES,
     HBM_BW,
     NVLINK_BW,
@@ -48,22 +51,6 @@ _COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                 "reduce_scatter_tensor": "reduce-scatter",
                 "all_reduce": "all-reduce",
                 "all_to_all_single": "all-to-all"}
-
-
-def _ring_factor(op: str, g: int) -> float:
-    """Per-device wire bytes as a multiple of the op's *output* bytes, under
-    standard ring-algorithm accounting with group size g."""
-    if g <= 1:
-        return 0.0
-    if op == "all-gather":
-        return (g - 1) / g
-    if op == "reduce-scatter":
-        return float(g - 1)           # input = g × output; (g-1)/g × input
-    if op == "all-reduce":
-        return 2.0 * (g - 1) / g
-    if op == "all-to-all":
-        return (g - 1) / g
-    return 1.0                        # collective-permute
 
 
 def _nbytes(x) -> int:
@@ -99,6 +86,8 @@ class PlanMode(FakeTensorMode):
         self.flops_by_op: Dict[str, int] = defaultdict(int)
         self.live = 0
         self.peak = 0
+        self.fusion = plan_cost.FusionTally()
+        self.sites = plan_cost.CollectiveSites()
         self._seen = set()
         self._groups: Dict[str, int] = {}
 
@@ -107,11 +96,20 @@ class PlanMode(FakeTensorMode):
         self.live = self.peak = 0
 
     def tally(self) -> Dict[str, Any]:
-        """The counts so far (flops, bytes and collectives)."""
+        """The counts so far (flops, bytes and collectives; the fused
+        bytes saved and the collectives by call site)."""
         return {"flops": self.flops, "bytes": self.bytes,
                 "coll_bytes": dict(self.coll_bytes),
                 "coll_counts": dict(self.coll_counts),
-                "flops_by_op": dict(self.flops_by_op)}
+                "flops_by_op": dict(self.flops_by_op),
+                "fused_saved": self.fusion.saved(),
+                "sites": self.sites.snapshot()}
+
+    @property
+    def bytes_fused(self) -> float:
+        """The bytes of :attr:`bytes` a fusing compiler would still move
+        (:class:`~repro_torch.analysis.plan_cost.FusionTally`)."""
+        return self.bytes - self.fusion.saved()
 
     def repeat(self, step: Dict[str, Any], times: int) -> None:
         """``step`` is the tally after a step of one microbatch and its
@@ -128,6 +126,8 @@ class PlanMode(FakeTensorMode):
             now, then = getattr(self, name), step[name]
             for k in set(now) | set(then):
                 now[k] = total(then.get(k, 0), now.get(k, 0))
+        self.fusion.scale(step["fused_saved"], times)
+        self.sites.scale(step["sites"], times)
 
     def __enter__(self):
         self._depth = getattr(self, "_depth", 0) + 1
@@ -176,8 +176,10 @@ class PlanMode(FakeTensorMode):
             self.flops += n
             self.flops_by_op[name] += n
         if not _is_view(func):
+            outs = [t for t in _tensors(out) if isinstance(t, FakeTensor)]
             self.bytes += sum(map(_nbytes, ins)) + sum(
                 map(_nbytes, _tensors(out)))
+            self.fusion.op(func, ins, outs)
             for t in _tensors(out):
                 self._born(t)
         return out
@@ -188,8 +190,10 @@ class PlanMode(FakeTensorMode):
         if args[-1] not in self._groups:
             self._groups[args[-1]] = _resolve_process_group(args[-1]).size()
         group = self._groups[args[-1]]
-        self.coll_bytes[op] += _nbytes(out) * _ring_factor(op, group)
+        wire = _nbytes(out) * plan_cost.ring_factor(op, group)
+        self.coll_bytes[op] += wire
         self.coll_counts[op] += 1
+        self.sites.add(op, group, wire)
 
     def _born(self, t: torch.Tensor) -> None:
         try:
@@ -235,6 +239,10 @@ class RooflineReport:
     out_bytes: int = 0
     fits_hbm: Optional[bool] = None
     collectives: Optional[Dict] = None
+    dot_flops: float = 0.0          # per device, products only
+    bytes_fused: float = 0.0        # per device, a fusing compiler's
+    memory_fused_s: float = 0.0
+    top_collectives: Optional[List[Dict]] = None
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -264,7 +272,11 @@ def analyze_plan(name: str, mode: PlanMode, *, chips: int, arg_bytes: int,
         arg_bytes=int(arg_bytes), temp_bytes=int(mode.peak),
         out_bytes=int(out_bytes),
         fits_hbm=(arg_bytes + mode.peak + out_bytes) < CHIP_HBM_BYTES,
-        collectives=colls)
+        collectives=colls,
+        dot_flops=plan_cost.dot_flops(mode.flops_by_op),
+        bytes_fused=float(mode.bytes_fused),
+        memory_fused_s=float(mode.bytes_fused) / HBM_BW,
+        top_collectives=plan_cost.top_collectives(mode))
 
 
 def model_flops_estimate(cfg, shape) -> float:

@@ -5,12 +5,16 @@ A wrapper handed fake tensors (``FakeTensorMode``: the dry-run planner,
 ``repro_torch.launch.dryrun``) cannot launch anything: it calls the
 operator here instead, whose fake implementation gives the outputs' shapes
 and dtypes and whose FLOP formula (``torch.utils.flop_counter``) counts the
-kernel's operations, as ``chip_smoke.py``'s bounds count them:
+kernel's operations through :mod:`repro_torch.analysis.bounds`, the
+functions every kernel bound is made of:
 
-* ``repro_torch::attention``: 4·hd per kept (query, key) pair;
+* ``repro_torch::attention``: 4·hd per kept (query, key) pair
+  (:func:`~repro_torch.analysis.bounds.attention_ops`);
 * ``repro_torch::rwkv6``: 5 per (step, i, j) and 5 per (step, j) of a
-  head's hd × hd state;
-* ``repro_torch::mamba_scan``: 6 per (step, channel, state).
+  head's hd × hd state (:func:`~repro_torch.analysis.bounds.wkv_ops`);
+* ``repro_torch::mamba_scan``: 6 per (step, channel, state)
+  (:func:`~repro_torch.analysis.bounds.scan_ops`; its exponentials are
+  not FLOPs here).
 
 The ``*_vjp`` operators stand for the scans' chunked backward
 (:func:`repro_torch.kernels._grad.chunked_vjp`, which the autograd
@@ -23,11 +27,10 @@ kernel on the card and run the plain version on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional
-
-import numpy as np
 import torch
 from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.analysis.bounds import attention_ops, scan_ops, wkv_ops
 
 
 def is_fake(t) -> bool:
@@ -52,19 +55,9 @@ def _(q, k, v, causal, window):
     return q.new_empty(q.shape[:-1] + v.shape[-1:])
 
 
-def kept_pairs(Sq: int, Skv: int, causal: bool,
-               window: Optional[int]) -> int:
-    """(query, key) pairs the mask keeps, queries at 0..Sq-1."""
-    i = np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
-    lo = np.maximum(0, i - window + 1) if window is not None else 0
-    return int(np.maximum(0, hi - lo).sum())
-
-
 @register_flop_formula(torch.ops.repro_torch.attention)
 def _(q_shape, k_shape, v_shape, causal, window, *args, **kwargs) -> int:
-    B, Sq, H, hd = q_shape
-    return 4 * hd * B * H * kept_pairs(Sq, k_shape[1], causal, window)
+    return attention_ops(q_shape, k_shape[1], causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -86,14 +79,9 @@ def _(r, k, v, w, u, state):
             r.new_empty((B, H, hd, hd), dtype=f32))
 
 
-def _wkv_flops(r_shape) -> int:
-    B, S, H, hd = r_shape
-    return 5 * B * S * H * hd * (hd + 1)
-
-
 @register_flop_formula(torch.ops.repro_torch.rwkv6)
 def _(r_shape, *args, **kwargs) -> int:
-    return _wkv_flops(r_shape)
+    return wkv_ops(*r_shape)
 
 
 torch.library.define(
@@ -110,7 +98,7 @@ def _(r, k, v, w, u, dy, dstate):
 
 @register_flop_formula(torch.ops.repro_torch.rwkv6_vjp)
 def _(r_shape, *args, **kwargs) -> int:
-    return 4 * _wkv_flops(r_shape)
+    return 4 * wkv_ops(*r_shape)
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +120,7 @@ def _(xc, delta, A, Bs, Cs, state):
 
 
 def _scan_flops(xc_shape, A_shape) -> int:
-    B, S, di = xc_shape
-    return 6 * B * S * di * A_shape[1]
+    return scan_ops(*xc_shape, A_shape[1]).ops
 
 
 @register_flop_formula(torch.ops.repro_torch.mamba_scan)

@@ -423,7 +423,9 @@ void run(const Args& a, int team, cudaStream_t stream) {
 
 // w (B, d), b (B,), K (B, N, d), yK (B, N), X (B, k, n, d), y (B, k, n);
 // K, X and w 8-byte aligned when d = 2.  Writes sup_rank (B, N), err_k
-// (B, k) and viol_rank (B, k, n), int32.
+// (B, k) and viol_rank (B, k, n), int32.  `team_req` warps a segment (1,
+// 2, 4 or 8; 0: plan's choice): the outputs are integers, the same for
+// any team.
 extern "C" int maxmarg_turn_launch(const void* w, const void* b,
                                    const void* K, const void* yK,
                                    const void* X, const void* y,
@@ -431,7 +433,7 @@ extern "C" int maxmarg_turn_launch(const void* w, const void* b,
                                    void* viol_rank, int B, int N, int k,
                                    int n, int d, float band_scale,
                                    int max_support, int viol_ship,
-                                   void* stream) {
+                                   int team_req, void* stream) {
   const Args a = {static_cast<const float*>(w), static_cast<const float*>(b),
                   static_cast<const float*>(K), static_cast<const int*>(yK),
                   static_cast<const float*>(X), static_cast<const int*>(y),
@@ -442,6 +444,11 @@ extern "C" int maxmarg_turn_launch(const void* w, const void* b,
   int team = 1, blocks = 0;
   cudaError_t e = plan(B, N, k, n, d, C, &team, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (team_req != 0) {
+    if (team_req != 1 && team_req != 2 && team_req != 4 && team_req != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    team = team_req;
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 2) {
     switch (C) {

@@ -204,16 +204,20 @@ int team_for(int rows) {
 // and wy (B, k, cap), the transcripts, read up to W <= cap (W = 0: none;
 // wx and wy may then be null); v, X and wx 8-byte aligned.  Writes i_p,
 // i_q (B, k) int32, and has_p, has_q (bool), p, q (float2) and lo, hi
-// (float), all (B, k), unless p is null.
+// (float), all (B, k), unless p is null.  `team` warps a row block (1,
+// 2, 4 or 8; 0: team_for's choice): any team gives the same outputs,
+// ties going to the smaller index.
 extern "C" int median_extremes_launch(const void* v, const void* X,
                                       const void* y, const void* wx,
                                       const void* wy, void* i_p, void* i_q,
                                       void* has_p, void* has_q, void* p,
                                       void* q, void* lo, void* hi, int B,
                                       int k, int n, int cap, int W,
-                                      void* stream) {
+                                      int team, void* stream) {
   const int rows = B * k;
-  const int team = team_for(rows);
+  if (team == 0) team = team_for(rows);
+  if (team != 1 && team != 2 && team != 4 && team != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = kThreads / (32 * team);
   const int blocks = (rows + per_block - 1) / per_block;
   const Out out{static_cast<int*>(i_p),     static_cast<int*>(i_q),

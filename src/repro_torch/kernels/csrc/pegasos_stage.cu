@@ -35,7 +35,9 @@
 // Design.  The TPU grid is (instance block, step, N tile) and carries w, b
 // and the gradient accumulators across sequential grid steps in VMEM.
 // Here one warp owns one instance for the whole stage, kWarps instances a
-// block, and no step takes a block barrier.  For d <= kSmallD (templated
+// block (or 1, 2 or 8, as the launch asks: an instance's sums stay in its
+// warp, so every choice gives the same bits), and no step takes a block
+// barrier.  For d <= kSmallD (templated
 // on d) w, b and the gradient live in registers and, where (d + 1) rows'
 // worth fit in kRowRegs registers (8 to 48 rows a lane: N <= 1536 at
 // d = 2, N <= 256 at d = 16), so do the lane's rows, read once; the d + 1
@@ -66,7 +68,8 @@
 namespace {
 
 constexpr int kThreads = 32;          // lanes per instance: one warp
-constexpr int kWarps = 4;             // instances per block
+constexpr int kWarps = 4;             // instances per block, by default
+constexpr int kMaxWarps = 8;          // instances per block, at most
 constexpr int kSmallD = 16;           // w and gradient in registers up to here
 constexpr int kChunk = 16;            // gradient features a pass (larger d)
 constexpr int kRowRegs = 144;        // registers a lane may give its rows
@@ -139,9 +142,10 @@ __device__ __forceinline__ void emit_scalars(const Stage& p, int inst,
 // multiply-add; y = 0 gives 0 either way.  The hinge gradient y x of a
 // violating row is z.
 template <int D, int RPL>
-__global__ void __launch_bounds__(kWarps * kThreads) stage_small(Stage p) {
+__global__ void __launch_bounds__(kMaxWarps * kThreads)
+    stage_small(Stage p) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int inst = blockIdx.x * kWarps + warp;
+  const int inst = blockIdx.x * (blockDim.x >> 5) + warp;
   if (inst >= p.B) return;             // no block barrier follows
   const int N = p.N;
   const float* Xg = p.X + static_cast<size_t>(inst) * N * D;
@@ -268,10 +272,11 @@ __device__ __forceinline__ float margin(const float* __restrict__ x,
 }
 
 // d > kSmallD: w and the reduced gradient in the warp's shared memory
-__global__ void __launch_bounds__(kWarps * kThreads) stage_wide(Stage p) {
+__global__ void __launch_bounds__(kMaxWarps * kThreads)
+    stage_wide(Stage p) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int inst = blockIdx.x * kWarps + warp;
+  const int inst = blockIdx.x * (blockDim.x >> 5) + warp;
   if (inst >= p.B) return;
   const int N = p.N, d = p.d;
   float* w_s = smem + static_cast<size_t>(warp) * 2 * d;   // (d,) iterate
@@ -353,15 +358,16 @@ __global__ void __launch_bounds__(kWarps * kThreads) stage_wide(Stage p) {
 }
 
 template <typename K>
-int launch(K kernel, const Stage& p, size_t smem, cudaStream_t stream) {
+int launch(K kernel, const Stage& p, int warps, size_t smem,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int blocks = (p.B + kWarps - 1) / kWarps;
-  kernel<<<blocks, kWarps * kThreads, smem, stream>>>(p);
+  const int blocks = (p.B + warps - 1) / warps;
+  kernel<<<blocks, warps * kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,19 +375,20 @@ int launch(K kernel, const Stage& p, size_t smem, cudaStream_t stream) {
 // that cover N, while (D + 1) x RPL stays within kRowRegs; else 0 (device
 // memory)
 template <int D, int RPL>
-int launch_rows(const Stage& p, cudaStream_t stream) {
+int launch_rows(const Stage& p, int warps, cudaStream_t stream) {
   if constexpr (RPL > 64 || (D + 1) * RPL > kRowRegs) {
-    return launch(stage_small<D, 0>, p, 0, stream);
+    return launch(stage_small<D, 0>, p, warps, 0, stream);
   } else {
-    if (p.N <= 32 * RPL) return launch(stage_small<D, RPL>, p, 0, stream);
-    return launch_rows<D, RPL < 32 ? 2 * RPL : RPL + 16>(p, stream);
+    if (p.N <= 32 * RPL)
+      return launch(stage_small<D, RPL>, p, warps, 0, stream);
+    return launch_rows<D, RPL < 32 ? 2 * RPL : RPL + 16>(p, warps, stream);
   }
 }
 
 template <int D>
-int launch_small(const Stage& p, cudaStream_t stream) {
+int launch_small(const Stage& p, int warps, cudaStream_t stream) {
   static_assert(D <= kSmallD, "larger d takes stage_wide");
-  return launch_rows<D, 8>(p, stream);
+  return launch_rows<D, 8>(p, warps, stream);
 }
 
 }  // namespace
@@ -391,7 +398,11 @@ extern "C" int pegasos_stage_launch(
     const void* b, const void* lam, const void* found, const void* w_best,
     const void* b_best, void* w_out, void* b_out, void* mmin_out,
     void* found_out, void* wb_out, void* bb_out, int B, int N, int d,
-    int nsteps, int skip_latched, float t0, void* stream) {
+    int nsteps, int skip_latched, float t0, int warps, void* stream) {
+  // warps: instances a block, 1, 2, 4 or 8 (0: kWarps)
+  if (warps == 0) warps = kWarps;
+  if (warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
   Stage p{static_cast<const float*>(X), static_cast<const float*>(y),
           static_cast<const float*>(nv), static_cast<const float*>(w),
           static_cast<const float*>(b), static_cast<const float*>(lam),
@@ -405,17 +416,18 @@ extern "C" int pegasos_stage_launch(
   switch (d) {
 #define PEGASOS_SMALL(D) \
   case D:                \
-    return launch_small<D>(p, s);
+    return launch_small<D>(p, warps, s);
     PEGASOS_SMALL(1) PEGASOS_SMALL(2) PEGASOS_SMALL(3) PEGASOS_SMALL(4)
     PEGASOS_SMALL(5) PEGASOS_SMALL(6) PEGASOS_SMALL(7) PEGASOS_SMALL(8)
     PEGASOS_SMALL(9) PEGASOS_SMALL(10) PEGASOS_SMALL(11) PEGASOS_SMALL(12)
     PEGASOS_SMALL(13) PEGASOS_SMALL(14) PEGASOS_SMALL(15) PEGASOS_SMALL(16)
 #undef PEGASOS_SMALL
     default:
-      // the wrapper keeps d <= 4096: w and its gradient, 8 bytes a feature
-      // for each of the block's warps, stay under 128 KB
-      return launch(stage_wide, p, static_cast<size_t>(kWarps) * 2 * d * 4,
-                    s);
+      // w and its gradient, 8 bytes a feature for each of the block's
+      // warps: at d <= 4096 under 128 KB with kWarps (the wrapper's check
+      // keeps other warp counts within the card's shared memory)
+      return launch(stage_wide, p, warps,
+                    static_cast<size_t>(warps) * 2 * d * 4, s);
   }
 }
 

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.analysis import autotune, bounds
 from repro_torch.core.geometry import decide
 from repro_torch.kernels import _build
 from repro_torch.kernels.median_cut import _require
@@ -31,6 +32,8 @@ from repro_torch.kernels.median_cut import _require
 BIG = 1e30          # min margin of an instance without valid rows
 _MAX_D = 4096       # above d=16 w and its gradient sit in shared memory
 THREADS = 32        # lanes per instance: kThreads in csrc/pegasos_stage.cu
+SMALL_D = 16        # kSmallD: up to here w and its gradient sit in registers
+WARPS = (1, 2, 4, 8)    # instances a block the kernel takes (kMaxWarps 8)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -125,20 +128,31 @@ def pegasos_stage_plain(
             torch.where(take, b, b_best))
 
 
+def stage_plan_ok(d: int, warps: int) -> bool:
+    """Whether the stage kernel launches ``warps`` instances a block at
+    dimension ``d``: above ``SMALL_D`` each warp keeps w and its gradient
+    (2d floats) in the block's shared memory."""
+    return warps in WARPS and (
+        d <= SMALL_D or warps * 2 * d * 4 <= bounds.SMEM_PER_BLOCK)
+
+
 def _bound() -> ctypes.CDLL:
     lib = _build.load("pegasos_stage")
     fn = lib.pegasos_stage_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + \
-        [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
 def pegasos_stage(X, y, nv, w, b, lam, found, w_best, b_best, *, nsteps,
-                  t0=0.0, skip_latched=False):
+                  t0=0.0, skip_latched=False, plan=None):
     """The stage of :func:`pegasos_stage_plain`.  CUDA tensors launch the
     kernel of ``csrc/pegasos_stage.cu`` (and count the launch in
-    ``pegasos_stage.launches``); CPU tensors take the plain version."""
+    ``pegasos_stage.launches``) with ``plan`` (``{"warps": 1|2|4|8}``
+    instances a block, each a warp: every plan gives the same bits;
+    default: the tuning cache's, else the kernel's own 4); CPU tensors
+    take the plain version."""
     if X.device.type == "cpu":
         return pegasos_stage_plain(X, y, nv, w, b, lam, found, w_best,
                                    b_best, nsteps=nsteps, t0=t0,
@@ -164,6 +178,8 @@ def pegasos_stage(X, y, nv, w, b, lam, found, w_best, b_best, *, nsteps,
             torch.empty((B,), dtype=torch.bool, device=dev),
             torch.empty((B, d), dtype=f32, device=dev),
             torch.empty((B,), dtype=f32, device=dev))
+    if plan is None:
+        plan = autotune.plan_for("pegasos_stage", dev, B, N, d)
     lib = _bound()
     with torch.cuda.device(dev):
         err = lib.pegasos_stage_launch(
@@ -171,6 +187,7 @@ def pegasos_stage(X, y, nv, w, b, lam, found, w_best, b_best, *, nsteps,
                                      b_best)),
             *(t.data_ptr() for t in outs), B, N, d, nsteps,
             int(skip_latched), float(np.float32(t0)),
+            0 if plan is None else plan["warps"],
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "pegasos_stage", err)
     pegasos_stage.launches += 1

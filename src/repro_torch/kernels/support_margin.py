@@ -31,7 +31,11 @@ functions (:func:`check_extremes_args`, :func:`check_turn_args`,
 kernel spreads a call over the card.  A wrapper launches its kernel for
 CUDA tensors (bound once, on the current stream's raw handle:
 :func:`._build.launch`)
-and takes the plain version only for tensors on the CPU.
+and takes the plain version only for tensors on the CPU.  The extremes,
+turn and ranges wrappers take a launch ``plan`` (none of which changes a
+bit of the output); without one they take the committed tuning cache's
+plan for the card and shape, if it has one, else the kernel's own
+(:mod:`repro_torch.analysis.autotune`).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import autotune, bounds
 from repro_torch.core.geometry import decide, project, project_each
 from repro_torch.kernels import _build
 from repro_torch.kernels.median_cut import _require, plain_chunks
@@ -127,15 +132,20 @@ def check_extremes_args(v, X, y, wx=None, wy=None, width=0):
     return B, k, n, cap
 
 
-_EXTREMES_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+_EXTREMES_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p]
 
 
-def _extremes_launch(v, X, y, wx, wy, width, full):
+def _extremes_launch(v, X, y, wx, wy, width, full, plan):
     """Launch the extremes kernel; ``full``: all of :class:`Extremes`,
-    else (i_p, i_q)."""
+    else (i_p, i_q).  ``plan``: ``{"team": t}``, else the tuning cache's or
+    the kernel's own."""
     B, k, n, cap = check_extremes_args(v, X, y, wx, wy, width)
     dev = X.device
+    if plan is None:
+        plan = autotune.plan_for("median_extremes", dev, B * k, n + width,
+                                 2)
+    team = 0 if plan is None else plan["team"]
     i_p = torch.empty((B, k), dtype=torch.int32, device=dev)
     i_q = torch.empty((B, k), dtype=torch.int32, device=dev)
     rest = ()
@@ -151,36 +161,41 @@ def _extremes_launch(v, X, y, wx, wy, width, full):
     err = _build.launch(
         fn, dev, *(None if t is None else t.data_ptr()
                    for t in (v, X, y, wx, wy, i_p, i_q)
-                   + (rest or (None,) * 6)), B, k, n, cap, width)
+                   + (rest or (None,) * 6)), B, k, n, cap, width, team)
     _build.check(lib, "median_extremes", err)
     median_extremes.launches += 1
     return Extremes(i_p, i_q, *rest) if full else (i_p, i_q)
 
 
-def median_extremes(v, XW, yW) -> Tuple[torch.Tensor, torch.Tensor]:
+def median_extremes(v, XW, yW, *, plan=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The extremes scan of :func:`median_extremes_plain`.  CUDA tensors
     launch the kernel of ``csrc/median_extremes.cu`` (and count the launch
-    in ``median_extremes.launches``); CPU tensors take the plain version.
-    The one-segment case of :func:`median_extremes_segments`."""
+    in ``median_extremes.launches``) with ``plan`` (``{"team": 1|2|4|8}``
+    warps a row block; default: the tuning cache's, else the kernel's
+    own); CPU tensors take the plain version.  The one-segment case of
+    :func:`median_extremes_segments`."""
     if XW.device.type == "cpu":
         return median_extremes_plain(v, XW, yW)
     if XW.device.type != "cuda":
         raise ValueError(f"median_extremes runs on cuda or cpu, "
                          f"not {XW.device}")
-    return _extremes_launch(v, XW, yW, None, None, 0, full=False)
+    return _extremes_launch(v, XW, yW, None, None, 0, False, plan)
 
 
-def median_extremes_segments(v, X, y, wx, wy, width: int) -> Extremes:
+def median_extremes_segments(v, X, y, wx, wy, width: int, *,
+                             plan=None) -> Extremes:
     """The extremes of :func:`median_extremes_segments_plain`, read from
     the two segments where they lie: CUDA tensors launch the kernel of
-    ``csrc/median_extremes.cu`` (counted in ``median_extremes.launches``),
-    CPU tensors take the plain version."""
+    ``csrc/median_extremes.cu`` (counted in ``median_extremes.launches``;
+    ``plan`` as :func:`median_extremes`'s), CPU tensors take the plain
+    version."""
     if X.device.type == "cpu":
         return median_extremes_segments_plain(v, X, y, wx, wy, width)
     if X.device.type != "cuda":
         raise ValueError(f"median_extremes runs on cuda or cpu, "
                          f"not {X.device}")
-    return _extremes_launch(v, X, y, wx, wy, width, full=True)
+    return _extremes_launch(v, X, y, wx, wy, width, True, plan)
 
 
 def extremes_occupancy(rows: int) -> Tuple[int, int]:
@@ -280,14 +295,17 @@ def check_turn_args(w, b, K, yK, X, y, max_support=4, viol_ship=2):
 
 
 _TURN_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p]
 
 
 def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
-                      viol_ship=2):
+                      viol_ship=2, plan=None):
     """The turn scan of :func:`maxmarg_turn_scan_plain`.  CUDA tensors launch
     the kernel of ``csrc/maxmarg_turn.cu`` (and count the launch in
-    ``maxmarg_turn_scan.launches``); CPU tensors take the plain version."""
+    ``maxmarg_turn_scan.launches``) with ``plan`` (``{"team": 1|2|4|8}``
+    warps a segment; default: the tuning cache's, else the kernel's own);
+    CPU tensors take the plain version."""
     opts = dict(rtol=rtol, max_support=max_support, viol_ship=viol_ship)
     if K.device.type == "cpu":
         return maxmarg_turn_scan_plain(w, b, K, yK, X, y, **opts)
@@ -297,6 +315,9 @@ def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
     B, N, k, n, d = check_turn_args(w, b, K, yK, X, y, max_support,
                                     viol_ship)
     dev = K.device
+    if plan is None:
+        plan = autotune.plan_for("maxmarg_turn_scan", dev, B * (k + 1),
+                                 max(N, n), d)
     sup_rank = torch.empty((B, N), dtype=torch.int32, device=dev)
     err_k = torch.empty((B, k), dtype=torch.int32, device=dev)
     viol_rank = torch.empty((B, k, n), dtype=torch.int32, device=dev)
@@ -305,7 +326,7 @@ def maxmarg_turn_scan(w, b, K, yK, X, y, *, rtol=0.15, max_support=4,
         fn, dev, w.data_ptr(), b.data_ptr(), K.data_ptr(), yK.data_ptr(),
         X.data_ptr(), y.data_ptr(), sup_rank.data_ptr(), err_k.data_ptr(),
         viol_rank.data_ptr(), B, N, k, n, d, float(np.float32(1.0 + rtol)),
-        max_support, viol_ship)
+        max_support, viol_ship, 0 if plan is None else plan["team"])
     _build.check(lib, "maxmarg_turn", err)
     maxmarg_turn_scan.launches += 1
     return sup_rank, err_k, viol_rank
@@ -398,6 +419,9 @@ _RANGES_LADDER_ANY_D = ((8, 1), (4, 1), (2, 1), (1, 1))
 _RANGES_MAX_CHUNK = 1024     # rows: 256 threads read 4 labels each
 _RANGES_STAGE_FLOATS = 4096  # 16 KB a buffer of staged rows, two buffers
 _RANGES_MAX_BATCH = 3        # instances a block stages together, at most
+_RANGES_THREADS = 256        # threads a block (kThreads)
+TEAMS = (1, 2, 4, 8)         # warps the extremes scan gives a row block and
+#                              the turn scan a segment
 _RANGES_RESIDENCY = {}       # d -> (SMs, blocks an SM)
 
 
@@ -408,6 +432,36 @@ def ranges_chunk(d: int, n: int = _RANGES_MAX_CHUNK) -> int:
     xs = 2 if d == 2 else 4 * -(-d // 4)
     cap = min(_RANGES_MAX_CHUNK, _RANGES_STAGE_FLOATS // xs // 4 * 4)
     return max(4, min(cap, -(-n // 4) * 4))
+
+
+def ranges_stage_bytes(d: int, per_thread: int, chunk: int,
+                       per_block: int) -> int:
+    """The dynamic shared memory of a ranges launch (``shape_of`` in
+    ``csrc/threshold_ranges.cu``): a buffer of ``chunk`` rows for each
+    instance staged together (two at least), for d > 3 a block's
+    directions, and the row groups' partials."""
+    units = (d + 3) // 4
+    xs = 2 if d == 2 else 4 * units
+    vs = 0 if d in (2, 3) else 4 * (units | 1)
+    return 4 * (max(2, per_block) * chunk * xs + _RANGES_THREADS * vs
+                + 2 * _RANGES_THREADS * per_thread)
+
+
+def ranges_plan_ok(n: int, d: int, per_thread: int, per_block: int) -> bool:
+    """Whether the ranges kernel launches ``per_thread`` directions a
+    thread and ``per_block`` instances a block for transcripts of ``n``
+    rows at dimension ``d`` (its ``valid`` and its launch's checks):
+    four directions a thread only at d = 2 and 3, several instances a
+    block only where one chunk holds the transcripts, and the shared
+    memory within the card's."""
+    if not 0 < d <= 64:
+        return False
+    chunk = ranges_chunk(d, n)
+    return ((per_thread == 1 or (d in (2, 3) and per_thread == 4))
+            and 1 <= per_block <= _RANGES_MAX_BATCH
+            and (per_block == 1 or n <= chunk)
+            and ranges_stage_bytes(d, per_thread, chunk, per_block)
+            <= bounds.SMEM_PER_BLOCK)
 
 
 def _ranges_residency(d: int, per_thread: int) -> Tuple[int, int]:
@@ -483,17 +537,37 @@ def _ranges_launch(V, Xw, yw, split: RangesSplit = None):
     return out[0], out[1]
 
 
-def threshold_ranges(V, Xw, yw) -> Tuple[torch.Tensor, torch.Tensor]:
+def ranges_plan_split(split: RangesSplit, plan, m: int) -> RangesSplit:
+    """``split`` with a tuned plan's directions a thread and instances a
+    block (``{"per_thread", "per_block"}``), its tiles recounted; the
+    warps a row group and the chunk stay ``split``'s (they set the fold
+    order)."""
+    if plan is None:
+        return split
+    pt = plan["per_thread"]
+    return split._replace(per_thread=pt, per_block=plan["per_block"],
+                          tiles=-(-m // (32 * split.warps * pt)))
+
+
+def threshold_ranges(V, Xw, yw, *, plan=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ranges of :func:`threshold_ranges_plain`.  CUDA tensors launch
     the kernel of ``csrc/threshold_ranges.cu``, split by
-    :func:`ranges_occupancy` (and count the launch in
-    ``threshold_ranges.launches``); CPU tensors take the plain version."""
+    :func:`ranges_occupancy` with ``plan``'s directions a thread and
+    instances a block (default: the tuning cache's, if it has a plan for
+    this card and shape; :func:`ranges_plan_split`), and count the launch
+    in ``threshold_ranges.launches``; CPU tensors take the plain
+    version."""
     if Xw.device.type == "cpu":
         return threshold_ranges_plain(V, Xw, yw)
     if Xw.device.type != "cuda":
         raise ValueError(f"threshold_ranges runs on cuda or cpu, "
                          f"not {Xw.device}")
-    return _ranges_launch(V, Xw, yw)
+    B, m, n, d = check_ranges_args(V, Xw, yw)
+    if plan is None:
+        plan = autotune.plan_for("threshold_ranges", Xw.device, B, n, d, m)
+    return _ranges_launch(V, Xw, yw, ranges_plan_split(
+        ranges_occupancy(B, m, n, d), plan, m))
 
 
 threshold_ranges.launches = 0

@@ -6,8 +6,7 @@ named dims over the initialised default process group:
 16) with a leading ``"pod"`` axis) and :func:`make_host_mesh` (a small
 (data, model) mesh over the ranks there are).  Built on demand; the
 process group comes first (``torch.distributed.init_process_group``, or
-the launcher's :func:`init_ranks`).  The H100 constants below are what the
-dry-run's roofline takes its terms against.
+the launcher's :func:`init_ranks`).
 
 The engine's mesh is another thing: a :class:`DataMesh` is a 1-D ``("data",)`` axis of torch devices, in order:
 the sharded hot loop (:mod:`repro_torch.engine.hotloop`) gives shard s the
@@ -26,12 +25,14 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import _device
-
-# H100 constants (per card) for the dry-run's roofline terms
-PEAK_FLOPS_BF16 = 989e12      # FLOP/s dense; NVIDIA H100 80GB HBM3, 700 W
-HBM_BW = 3.35e12              # bytes/s; NVIDIA H100 80GB HBM3, 700 W
-NVLINK_BW = 450e9             # bytes/s each way; NVIDIA H100 80GB HBM3, 700 W
-CHIP_HBM_BYTES = 80e9         # bytes; NVIDIA H100 80GB HBM3, 700 W
+# the H100's figures (per card; NVIDIA H100 80GB HBM3, 700 W), defined in
+# analysis.bounds and named here too for the mesh's callers
+from repro_torch.analysis.bounds import (  # noqa: F401
+    CHIP_HBM_BYTES,
+    HBM_BW,
+    NVLINK_BW,
+    PEAK_FLOPS_BF16,
+)
 
 
 def _world() -> int:
