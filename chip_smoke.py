@@ -253,8 +253,17 @@ Phases (any failure exits non-zero; none is caught):
    three kernels replayed against its plain version; 21c the planner:
    ``dryrun.plan_case`` of 21a's case on a (1, 1) mesh of a fake process
    group, its argument bytes exactly 21a's tensors', its peak and FLOPs
-   printed beside 21a's measured peak and ``model_flops_estimate``.  The
-   planner's whole sweep (``python -m repro_torch.launch.dryrun --arch
+   printed beside 21a's measured peak and ``model_flops_estimate``; 21d
+   two ranks sharing one card (``shared_card_phase``; ``init_ranks``
+   given one card, each rank checked to be gloo on cuda:0), the
+   all-gathers routed through c10d (``launch.mesh.share_card_gathers``),
+   smollm-135m at full size and DeepSeek-V2 at every published width cut
+   to 2 layers (weights drawn once, each rank's shards views of them over
+   CUDA IPC) prefill and decode greedily in f32 on mesh (1, 2) and, at
+   batch 1 with the caches' sequence split, on (2, 1): logits within
+   ``SHARED_TIER`` of one rank's, tokens equal, each collective kind's
+   bytes and count equal to ``plan_case``'s (``serve_on_mesh``,
+   ``plan_serve``), times beside one rank's.  The planner's whole sweep (``python -m repro_torch.launch.dryrun --arch
    all --shape all --mesh both``) needs no card and is not run here: it
    would load the host's cores under the timed phases;
 22. the analysis tooling and the examples: 22a every entry of the
@@ -328,6 +337,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import queue
 import subprocess
 import sys
 import time
@@ -378,10 +388,7 @@ ABSORB_TIE = 2e-3     # tests/test_mla_absorb.py's tier for the two decodes
 # (``_mesh_jobs``) train as 20a (smollm-135m) and 20b (rwkv6-7b at 2
 # layers) do, over NCCL, one rank a card, on every card; then scoring under
 # the flash kernel (smollm-135m, and Jamba without experts at two layers:
-# the scan and attention kernels per rank).  Two ranks cannot share a card
-# here: NCCL takes one rank a card, and gloo's functional all-gather on
-# CUDA tensors, which DTensor issues, ends the process (torch 2.11; the
-# CPU tests train on two gloo ranks instead)
+# the scan and attention kernels per rank)
 MESH_STEPS = 3
 MESH_SCORING = dict(jamba_B=2, S=2048)
 # 21b's losses on more than one card against one rank's, relative (on one
@@ -392,6 +399,14 @@ MESH_SCORING = dict(jamba_B=2, S=2048)
 # (before AdamW reduced each gradient into its moments' layout) the first
 # steps read at most 4.81e-6 and the later ones at most 1.71e-4
 MESH_LOSS_TIER = (1e-5, 1e-3)
+# phase 21d: two gloo ranks sharing cuda:0 (``launch.mesh.init_ranks``
+# routes their all-gathers through c10d) decode greedily in f32 on mesh
+# (1, 2) at batch B and on (2, 1) at batch 1, where the caches' sequence is
+# split over the data axis: smollm-135m at full size and DeepSeek-V2 at
+# every published width cut to 2 layers, against one rank (logits within
+# SHARED_TIER, tokens equal) and against the planner (collectives equal)
+SHARED_SERVE = dict(B=8, prompt=512, cache_len=1024, tokens=8)
+SHARED_TIER = 1e-4
 FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
 # phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
 # SAMPLING sessions' 1711-row ε-net (the default sizes it at eps=0.05)
@@ -3101,6 +3116,273 @@ def mesh_phase(dev, refs, card):
     return paths, routes, errs, rep
 
 
+def serve_on_mesh(cfg, lm, tokens, decode, dtype, mesh=None,
+                  cache_len=None, fsdp=False):
+    """Prefill ``tokens`` (B, S) into caches of ``cache_len`` slots
+    (default S + ``decode``) and decode ``decode`` tokens greedily (each
+    the argmax of the last logits), on ``mesh`` (weights, caches and
+    tokens placed by the rules, ``fsdp`` as ``param_specs`` takes it;
+    each rank's weights are views of ``lm``'s, which another process may
+    hold; each call's collectives counted by ``roofline.CommTally``) or
+    on one device (``mesh`` None).  Returns (each call's logits, as host f32 arrays; the
+    greedy tokens; each call's tally {"bytes", "counts"} on this rank,
+    empty without a mesh; each call's wall ms)."""
+    import torch
+    from repro_torch.analysis.roofline import CommTally
+    from repro_torch.distribution.constraints import set_dp_axes, use_mesh
+    from repro_torch.distribution.sharding import (
+        batch_specs, cache_specs, distribute, mesh_axes, param_specs)
+    from repro_torch.models import model as lm_model
+    from repro_torch.models.config import InputShape
+
+    B, S = tokens.shape
+    dev = tokens.device
+    caches = lm_model.make_caches(cfg, B, cache_len or S + decode, dtype,
+                                  device=dev)
+    params = lm
+    placed = lambda t: t                        # noqa: E731
+    scope = contextlib.nullcontext
+    if mesh is not None:
+        set_dp_axes(None)
+        axes = mesh_axes(mesh)
+        tree = lm.tree()
+        params = lm_model.LM(cfg, distribute(
+            tree, param_specs(axes, tree, fsdp=fsdp), mesh, copy=False))
+        caches = distribute(caches, cache_specs(
+            axes, caches, InputShape("serve", S, B, "decode"), cfg), mesh)
+
+        def placed(t):
+            return distribute({"tokens": t}, batch_specs(
+                axes, {"tokens": t}), mesh)["tokens"]
+
+        def scope():
+            return use_mesh(mesh)
+
+    def whole(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.float().cpu().numpy()
+
+    def timed(call):
+        tally = CommTally() if mesh is not None else contextlib.nullcontext()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with scope(), tally, torch.no_grad():
+            out = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = ({} if mesh is None else
+               {"bytes": dict(tally.bytes), "counts": dict(tally.counts)})
+        return out, rec, ms
+
+    (logits, caches), rec, ms = timed(lambda: lm_model.prefill(
+        params, cfg, {"tokens": placed(tokens)}, caches, dtype=dtype))
+    outs, toks, tallies, walls = [whole(logits)], [], [rec], [ms]
+    for t in range(decode):
+        nxt = torch.as_tensor(outs[-1][:, -1].argmax(-1), device=dev)[:, None]
+        toks.append(nxt.cpu().numpy())
+        (logits, caches), rec, ms = timed(lambda: lm_model.decode_step(
+            params, cfg, caches, placed(nxt), S + t, dtype=dtype))
+        outs.append(whole(logits))
+        tallies.append(rec)
+        walls.append(ms)
+    return outs, toks, tallies, walls
+
+
+def plan_serve(cfg, mesh_shape, B, S, decode, dtype, cache_len=None,
+               fsdp=False):
+    """``dryrun.plan_case``'s collectives a rank, by kind ({op: bytes},
+    {op: count}), for :func:`serve_on_mesh`'s prefill and for one of its
+    decode steps (caches of ``cache_len`` slots, default S + ``decode``),
+    planned on a ("data", "model") mesh of ``mesh_shape`` over a fake
+    group; weights in ``dtype``, placed as :func:`serve_on_mesh` places
+    them with ``fsdp``."""
+    import torch.distributed as dist
+    from repro_torch.analysis.roofline import PlanMode
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models.config import InputShape
+
+    out = []
+    for kind in ("prefill", "decode"):
+        pol = dr.CasePolicy(cache_len=cache_len or S + decode,
+                            param_dtype=dtype, remat=False, fsdp=fsdp)
+        dr.fake_group(mesh_shape[0] * mesh_shape[1])
+        try:
+            mesh = _mesh("cpu", mesh_shape, ("data", "model"))
+            mode = PlanMode()
+            with mode:
+                dr.plan_case(cfg, InputShape("serve", S, B, kind), mesh, pol,
+                             mode, dtype=dtype)
+        finally:
+            dist.destroy_process_group()
+        out.append((dict(mode.coll_bytes), dict(mode.coll_counts)))
+    return out
+
+
+def _shared_rank(rank, port, device, jobs, q):
+    """One of phase 21d's two ranks, both on ``device`` (cuda:0 on the
+    card: ``init_ranks`` is given one card, so it picks gloo for the two
+    ranks and routes the all-gathers through c10d; "cpu" to rehearse).
+    ``jobs``: (name, config, weights on the card, shared with the parent,
+    [(mesh shape, prompt on the host)]).  Puts (rank, {(name, shape):
+    serve_on_mesh's logits, tokens, tallies and ms} plus the backend, or
+    "error": the traceback)."""
+    import faulthandler
+    import traceback
+    faulthandler.enable()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    out = {}
+    try:
+        from repro_torch.launch.mesh import init_ranks
+        from repro_torch.launch.train import make_launch_mesh
+        from repro_torch.models.model import LM
+        init_ranks(device, cards=1)
+        out["backend"] = dist.get_backend()
+        on = torch.device(device)
+        if on.type == "cuda":
+            on = torch.device("cuda", torch.cuda.current_device())
+        if out["backend"] != "gloo" or on.index not in (None, 0):
+            raise AssertionError(f"21d rank {rank}: {out['backend']} on "
+                                 f"{on}, not gloo on one card")
+        sv = SHARED_SERVE
+        for name, cfg, tree, prompts in jobs:
+            lm = LM(cfg, tree)
+            for shape, prompt in prompts:
+                got = serve_on_mesh(cfg, lm, prompt.to(device), sv["tokens"],
+                                    torch.float32,
+                                    make_launch_mesh(device, shape),
+                                    cache_len=sv["cache_len"])
+                out[(name, shape)] = got
+            del lm
+    except Exception:      # noqa: BLE001 — reported to the parent
+        out["error"] = traceback.format_exc()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    q.put((rank, out))
+
+
+def shared_card_phase(dev, card):
+    """Phase 21d: two ranks on one card.  NCCL takes one rank a card, so
+    two ranks sharing cuda:0 run gloo, with the functional all-gather
+    DTensor issues routed through c10d's (``launch.mesh.
+    share_card_gathers``; the functional one ends both processes there).
+    smollm-135m at full size and DeepSeek-V2 at every published width cut
+    to 2 layers (faithful MLA; its MoE on the gather path in decode),
+    weights drawn once on the card in f32 and shared with the ranks, each
+    prefill ``SHARED_SERVE["prompt"]`` tokens into caches of
+    ``cache_len`` and decode ``tokens`` greedily on mesh (1, 2) at batch
+    B and on (2, 1) at batch 1 (the caches' sequence split over the data
+    axis).  Held: every call's logits within ``SHARED_TIER`` of one
+    rank's, the greedy tokens equal, both ranks' collectives alike and,
+    by kind, equal to ``plan_case``'s on a fake group of 2.  Returns the
+    launches (none: the plain attention and no scan)."""
+    import dataclasses
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import _free_port
+    from repro_torch.models import layers, model as lm_model
+
+    t0 = time.perf_counter()
+    sv = SHARED_SERVE
+    layers.set_attention_impl("plain")
+    f32 = torch.float32
+    cfgs = {"smollm-135m": get_config("smollm-135m"),
+            "deepseek-v2-236b": dataclasses.replace(
+                get_config("deepseek-v2-236b"), n_layers=2)}
+    g = np.random.default_rng(21)
+    jobs, refs, lms = [], {}, []
+    kernels.reset_launches()
+    for name, cfg in cfgs.items():
+        lm = lm_model.init_lm(cfg, seed=0, dtype=f32, device=dev)
+        lms.append(lm)
+        prompt = torch.as_tensor(g.integers(0, cfg.vocab,
+                                            (sv["B"], sv["prompt"])))
+        prompts = [((1, 2), prompt), ((2, 1), prompt[:1])]
+        for shape, p in prompts:
+            r0 = time.perf_counter()
+            refs[(name, shape)] = serve_on_mesh(
+                cfg, lm, p.to(dev), sv["tokens"], f32,
+                cache_len=sv["cache_len"])
+            print(f"21d {name} one rank, B={p.shape[0]} prompt "
+                  f"{sv['prompt']} cache {sv['cache_len']} f32: prefill "
+                  f"{refs[(name, shape)][3][0]:.1f} ms, decode "
+                  f"{np.median(refs[(name, shape)][3][1:]):.1f} ms a token"
+                  f" ({time.perf_counter() - r0:.1f} s); {card}")
+        jobs.append((name, cfg, lm.tree(), prompts))
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_shared_rank,
+                         args=(r, port, dev.type, jobs, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks, deadline = {}, time.time() + 900
+    try:
+        while len(ranks) < 2 and time.time() < deadline:
+            try:
+                r, res = q.get(timeout=10)
+                ranks[r] = res
+            except queue.Empty:     # a rank that died puts nothing
+                if all(p.exitcode is not None for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+    del jobs, lms
+    torch.cuda.empty_cache()
+    errors = [f"21d rank {r}:\n{res['error']}"
+              for r, res in sorted(ranks.items()) if "error" in res]
+    if errors or len(ranks) < 2:
+        raise AssertionError("\n".join(errors) or f"21d: ranks {ranks} "
+                             f"and exit codes {[p.exitcode for p in procs]}")
+    for (name, shape), ref in refs.items():
+        cfg = cfgs[name]
+        B = sv["B"] if shape == (1, 2) else 1
+        logits, toks, tallies, ms = ranks[0][(name, shape)]
+        worst = max(float(np.abs(a - b).max())
+                    for a, b in zip(logits, ref[0]))
+        same = all(np.array_equal(a, b) for a, b in zip(toks, ref[1]))
+        if ranks[1][(name, shape)][2] != tallies:
+            raise AssertionError(f"21d {name} {shape}: the ranks' "
+                                 f"collectives differ")
+        plan = plan_serve(cfg, shape, B, sv["prompt"], sv["tokens"], f32,
+                          cache_len=sv["cache_len"])
+        planned = [plan[0]] + [plan[1]] * sv["tokens"]
+        agree = all(t["bytes"] == pb and t["counts"] == pc
+                    for t, (pb, pc) in zip(tallies, planned))
+        print(f"21d {name} mesh (data, model) = {shape} B={B}, two "
+              f"{ranks[0]['backend']} ranks on one card, f32: max |logit "
+              f"- one rank's| {worst!r} (tier {SHARED_TIER}), greedy tokens "
+              f"{'equal' if same else 'DIFFER'}; collectives a rank, run "
+              f"against plan: prefill {tallies[0]['bytes']} "
+              f"{tallies[0]['counts']} / {plan[0][0]} {plan[0][1]}, a "
+              f"decode step {tallies[1]['bytes']} {tallies[1]['counts']} / "
+              f"{plan[1][0]} {plan[1][1]} ({'equal' if agree else 'DIFFER'}"
+              f"); rank 0 prefill {ms[0]:.1f} ms, decode "
+              f"{np.median(ms[1:]):.1f} ms a token (one rank "
+              f"{ref[3][0]:.1f}, {np.median(ref[3][1:]):.1f}); {card}")
+        if worst > SHARED_TIER or not same or not agree:
+            raise AssertionError(f"21d {name} {shape}: logits, tokens or "
+                                 f"collectives off")
+    got = kernels.launches()
+    if any(got.values()):
+        raise AssertionError(f"21d launched {got}")
+    print(f"21d: {time.perf_counter() - t0:.1f} s")
+    return {"shared_card": got}
+
+
 # phase 22b: each example's arguments on the card (train_smollm cut to 30
 # steps of its reduced model)
 EXAMPLES = (("quickstart", []), ("noisy_protocol", []),
@@ -5032,6 +5314,7 @@ def main() -> int:
     route_counts.update(mesh_routes)
     for name, e in held.items():
         errs[name] = max(errs.get(name, 0.0), e)
+    mesh_counts.update(shared_card_phase(dev, card))
 
     # -- 22. the analysis tooling and the examples -----------------------------
     t_phase = time.perf_counter()

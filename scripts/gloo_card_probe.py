@@ -5,8 +5,10 @@ DTensor redistributes through ``torch.distributed._functional_collectives``;
 two processes on one card cannot use NCCL (it takes one rank a card), so
 they would have to use gloo, which stages CUDA tensors through the host.
 This spawns a pair of gloo ranks on ``cuda:0`` for each collective in turn
-(the four functional ones DTensor issues, and c10d's own all-gather) and
-prints each pair's exit codes and results:
+(the four functional ones DTensor issues, c10d's own all-gather, and the
+functional all-gather routed through c10d's by
+``repro_torch.launch.mesh.share_card_gathers``, as ranks sharing a card
+run it) and prints each pair's exit codes and results:
 
     python3 scripts/gloo_card_probe.py
 
@@ -22,13 +24,19 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
-       "all_to_all_single", "c10d all_gather_into_tensor")
+       "all_to_all_single", "c10d all_gather_into_tensor",
+       "routed all_gather_into_tensor", "all_reduce (8, 512, 576)",
+       "DTensor Partial to Replicate", "DTensor Shard to Replicate, routed")
 
 
 def _rank(rank, port, op, q):
+    import faulthandler
+    faulthandler.enable()
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     torch.cuda.set_device(0)
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "src"))
     from torch.distributed import _functional_collectives as fc
     group = dist.group.WORLD
     x = torch.arange(8.0, device="cuda") + rank
@@ -41,6 +49,28 @@ def _rank(rank, port, op, q):
             y = fc.reduce_scatter_tensor(x, "sum", 0, group)
         elif op == "all_to_all_single":
             y = fc.all_to_all_single(x, None, None, group)
+        elif op == "routed all_gather_into_tensor":
+            from repro_torch.launch.mesh import share_card_gathers
+            share_card_gathers()
+            y = fc.all_gather_tensor(x, 0, group)
+        elif op == "all_reduce (8, 512, 576)":
+            big = torch.ones(8, 512, 576, device="cuda") * (rank + 1)
+            y = fc.all_reduce(big, "sum", group)
+            y = y.wait() if hasattr(y, "wait") else y
+            y = y.flatten()[:4]
+        elif op.startswith("DTensor"):
+            from torch.distributed.tensor import (DTensor, Partial,
+                                                  Replicate, Shard)
+            from repro_torch.launch.mesh import _mesh, share_card_gathers
+            mesh = _mesh("cuda", (1, 2), ("data", "model"))
+            if op.endswith("routed"):
+                share_card_gathers()
+                t = DTensor.from_local(x[None], mesh, [Replicate(), Shard(1)])
+            else:
+                t = DTensor.from_local(x[None], mesh,
+                                       [Replicate(), Partial()])
+            y = t.redistribute(mesh, [Replicate(), Replicate()]).to_local()
+            y = y.flatten()
         else:
             y = torch.empty(16, device="cuda")
             dist.all_gather_into_tensor(y, x)
@@ -65,7 +95,7 @@ def main() -> int:
         for p in procs:
             p.start()
         for p in procs:
-            p.join(timeout=60)
+            p.join(timeout=30)
         got = []
         while not q.empty():
             got.append(q.get())

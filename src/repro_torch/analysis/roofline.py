@@ -20,6 +20,8 @@ once on fake tensors (``FakeTensorMode``) over a fake process group, and
   a fusing compiler would move, and each collective's call site.
 
 Argument bytes come from the sharding plan (``sharding.local_bytes``).
+:class:`CommTally` counts a real run's collectives in the same terms, so
+a run can be held to its plan.
 Terms (seconds, per device == per step under SPMD) against the H100's
 datasheet figures (``repro_torch.analysis.bounds``):
 
@@ -37,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.analysis import plan_cost
@@ -185,12 +188,7 @@ class PlanMode(FakeTensorMode):
         return out
 
     def _collective(self, name, args, out) -> None:
-        from torch.distributed.distributed_c10d import _resolve_process_group
-        op = _COLLECTIVES[name]
-        if args[-1] not in self._groups:
-            self._groups[args[-1]] = _resolve_process_group(args[-1]).size()
-        group = self._groups[args[-1]]
-        wire = _nbytes(out) * plan_cost.ring_factor(op, group)
+        op, group, wire = _wire(name, args, out, self._groups)
         self.coll_bytes[op] += wire
         self.coll_counts[op] += 1
         self.sites.add(op, group, wire)
@@ -211,6 +209,45 @@ class PlanMode(FakeTensorMode):
     def _died(self, key, n) -> None:
         self._seen.discard(key)
         self.live -= n
+
+
+def _wire(name, args, out, groups: Dict[str, int]):
+    """(operation, group size, wire bytes a rank) of a functional
+    collective: its output's bytes times the ring factor for its group
+    (``groups`` caches the sizes by group name)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    op = _COLLECTIVES[name]
+    if args[-1] not in groups:
+        groups[args[-1]] = _resolve_process_group(args[-1]).size()
+    group = groups[args[-1]]
+    return op, group, _nbytes(out) * plan_cost.ring_factor(op, group)
+
+
+class CommTally(TorchDispatchMode):
+    """The functional collectives a real run issues (DTensor's
+    redistributions and the model's own reductions), counted as
+    :class:`PlanMode` counts them: ``bytes`` (wire bytes a rank) and
+    ``counts`` by operation.  Enter it around the run on each rank."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+        self._groups: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor first: its redistributions come back here as the
+            # collectives they issue
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        name = func._overloadpacket.__name__
+        if name in _COLLECTIVES:
+            op, _, wire = _wire(name, args, out, self._groups)
+            self.bytes[op] += wire
+            self.counts[op] += 1
+        return out
 
 
 def _is_view(func) -> bool:

@@ -55,8 +55,7 @@ class _ReduceProducts(torch.overrides.TorchFunctionMode):
         out = func(*args, **(kwargs or {}))
         if func in self._PRODUCTS and is_dtensor(out) and out.ndim >= 2 \
                 and any(p.is_partial() for p in out.placements):
-            from repro_torch.distribution.sharding import spec_of
-            last = spec_of(out.placements, out.device_mesh, out.ndim)[-1]
+            last = spec_now(out)[-1]
             out = constrain(out, batch_entry(out.shape[0]),
                             *([None] * (out.ndim - 2)), last)
         return out
@@ -222,11 +221,84 @@ def sum_all(t: torch.Tensor) -> torch.Tensor:
     comes back to every rank in ``t``'s placements, never gathered."""
     if not is_dtensor(t):
         return t.sum()
-    from repro_torch.distribution.sharding import spec_of
-    spec = spec_of(t.placements, t.device_mesh, t.ndim)
+    spec = spec_now(t)
     parts = tuple(a for e in spec for a in axes_of(e))
     (s,) = local_call(lambda a: (a.sum(),), (t,), (spec,), [((), parts)])
     return s
+
+
+def spec_now(x) -> Tuple[Any, ...]:
+    """The spec of a DTensor's current placements (partial sums read as
+    unsplit)."""
+    from repro_torch.distribution.sharding import spec_of
+    return spec_of(x.placements, x.device_mesh, x.ndim)
+
+
+def shard_index(entry) -> int:
+    """This rank's block along a dim split over ``entry``'s axes (major
+    first, as :func:`~repro_torch.distribution.sharding.placements` splits
+    it); 0 for an unsplit dim."""
+    idx = 0
+    for a in axes_of(entry):
+        idx = idx * _MESH.size(_MESH.mesh_dim_names.index(a)) \
+            + _MESH.get_local_rank(a)
+    return idx
+
+
+def reduce_over(t: torch.Tensor, op: str, entry) -> torch.Tensor:
+    """A rank-local tensor reduced (``"sum"`` or ``"max"``) over the mesh
+    axes ``entry`` names, inside a :func:`local_call`; ``t`` as it is for
+    none."""
+    from torch.distributed import _functional_collectives as funcol
+    for a in axes_of(entry):
+        t = funcol.all_reduce(t, op, (_MESH, _MESH.mesh_dim_names.index(a)))
+    return t
+
+
+def write_slots(cache: torch.Tensor, slot: int, vals: torch.Tensor) -> None:
+    """``cache[:, slot:slot + S] = vals`` in place.  On a cache whose
+    sequence dim is split (the batch-1 rule of ``cache_specs``) each rank
+    writes the part of ``vals`` that falls in its own slots, taken from
+    ``vals`` placed as the cache with its sequence whole (DTensor's slice
+    assignment would gather the cache first, and write into the gathered
+    copy)."""
+    S = vals.shape[1]
+    spec = spec_now(cache) if is_dtensor(cache) else (None, None)
+    if spec[1] is None:
+        cache[:, slot:slot + S] = vals.to(cache.dtype)
+        return
+    local = cache.to_local()
+    n = local.shape[1]
+    lo = shard_index(spec[1]) * n
+    a, b = max(slot, lo), min(slot + S, lo + n)
+    if a >= b:
+        return
+    want = _with_partial((spec[0], None) + tuple(spec[2:]), ())
+    if tuple(vals.placements) != tuple(want):
+        vals = vals.redistribute(_MESH, want)
+    vals = vals.to_local()
+    local[:, a - lo:b - lo] = vals[:, a - slot:b - slot].to(local.dtype)
+
+
+def gather_fsdp(tree):
+    """Each DTensor weight of ``tree`` (nested dicts) made whole over the
+    data axes where FSDP split it, its other splits kept: GSPMD's choice
+    for a step that trains, a layer's weights gathered where they are
+    used (their gradients reduce-scattered back by autograd).  Left split,
+    DTensor would keep the weight and move the activations instead,
+    gathering the batch and reducing the products over it.  The identity
+    without a mesh."""
+    if _MESH is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v) for k, v in tree.items()}
+    if not is_dtensor(tree):
+        return tree
+    data = ("pod", "data")
+    spec = [tuple(a for a in axes_of(e) if a not in data)
+            for e in spec_now(tree)]
+    return constrain(tree, *(e if len(e) > 1 else (e[0] if e else None)
+                             for e in spec))
 
 
 def whole(w: torch.Tensor) -> torch.Tensor:
@@ -242,6 +314,4 @@ def whole(w: torch.Tensor) -> torch.Tensor:
 def whole_last(x: torch.Tensor) -> torch.Tensor:
     """A DTensor with its last dim whole (gathered where it was split),
     every other dim placed as it was; partial sums reduced."""
-    from repro_torch.distribution.sharding import spec_of
-    spec = spec_of(x.placements, x.device_mesh, x.ndim)
-    return constrain(x, *spec[:-1], None)
+    return constrain(x, *spec_now(x)[:-1], None)

@@ -272,12 +272,14 @@ def spec_of(placements_: Sequence, mesh, ndim: int) -> Spec:
     return tuple(_entry(e) for e in entries)
 
 
-def distribute(tree, specs, mesh):
+def distribute(tree, specs, mesh, copy: bool = True):
     """Every tensor of ``tree`` as a DTensor with its spec's placements
     (``specs`` nested as ``tree``).  Each rank passes the same full
     tensors and keeps its shard (no communication); non-tensors are
-    returned as they are."""
-    from torch.distributed.tensor import distribute_tensor
+    returned as they are.  ``copy=False`` keeps each shard as a view of
+    the full tensor (no memory of its own: the full tensors may be
+    another process's, shared over CUDA IPC)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     def f(path, leaf):
         spec = specs
@@ -285,10 +287,28 @@ def distribute(tree, specs, mesh):
             spec = spec[k]
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return distribute_tensor(leaf, mesh, placements(spec, mesh),
-                                 src_data_rank=None)
+        if copy:
+            return distribute_tensor(leaf, mesh, placements(spec, mesh),
+                                     src_data_rank=None)
+        return DTensor.from_local(_shard_view(leaf, spec, mesh), mesh,
+                                  placements(spec, mesh), run_check=False)
 
     return _walk(tree, f)
+
+
+def _shard_view(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (every split dim divides),
+    as a view."""
+    names = list(mesh.mesh_dim_names)
+    for dim, e in enumerate(spec):
+        idx, total = 0, 1
+        for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+            n = mesh.size(names.index(a))
+            idx, total = idx * n + mesh.get_local_rank(a), total * n
+        if total > 1:
+            step = t.shape[dim] // total
+            t = t.narrow(dim, idx * step, step)
+    return t
 
 
 def local_bytes(tree, specs, axes: Axes) -> int:

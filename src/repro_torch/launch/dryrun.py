@@ -136,9 +136,13 @@ def _fake_like(specs: Dict[str, torch.Tensor], device) -> Dict[str, Any]:
 
 
 def plan_case(cfg: ModelConfig, shape: InputShape, mesh,
-              pol: CasePolicy, mode: PlanMode) -> Dict[str, Any]:
+              pol: CasePolicy, mode: PlanMode,
+              dtype=torch.bfloat16) -> Dict[str, Any]:
     """Trace one case's step on ``mesh`` (a ``DeviceMesh`` over a fake
-    group, or over real ranks) inside ``mode`` (entered by the caller).
+    group, or over real ranks) inside ``mode`` (entered by the caller),
+    computing and caching in ``dtype`` (the sweep's bf16).  A prefill
+    fills caches of ``pol.cache_len`` slots where it is set (a serving
+    engine's, longer than the prompt), else of the prompt's length.
     Returns the per-device argument bytes by part ("params", "opt" or
     "caches", "batch"); ``mode`` holds the tally of the step alone."""
     axes = mesh_axes(mesh)
@@ -195,23 +199,20 @@ def plan_case(cfg: ModelConfig, shape: InputShape, mesh,
                                      1.0)
                     mode.repeat(step, mb)
                 return parts
-            cache_len = (dec_len(cfg, shape.seq_len) if shape.kind ==
-                         "prefill" else pol.cache_len)
+            cache_len = (pol.cache_len or dec_len(cfg, shape.seq_len)
+                         if shape.kind == "prefill" else pol.cache_len)
             caches = make_caches(cfg, shape.global_batch, cache_len,
-                                 torch.bfloat16, enc_len=pol.enc_len,
-                                 device=dev)
+                                 dtype, enc_len=pol.enc_len, device=dev)
             csp = cache_specs(axes, caches, shape, cfg, pure_dp=pol.pure_dp)
             parts["caches"] = local_bytes(caches, csp, axes)
             caches = distribute(caches, csp, mesh)
             with torch.no_grad():
                 mode.start()
                 if shape.kind == "prefill":
-                    prefill(params, cfg, batch, caches, flags,
-                            dtype=torch.bfloat16)
+                    prefill(params, cfg, batch, caches, flags, dtype=dtype)
                 else:
                     decode_step(params, cfg, caches, batch["tokens"],
-                                pol.cache_len - 1, flags,
-                                dtype=torch.bfloat16)
+                                pol.cache_len - 1, flags, dtype=dtype)
             return parts
     finally:
         mode.counting = False

@@ -78,31 +78,70 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def init_ranks(device: str = "cuda") -> Tuple[int, int]:
+def init_ranks(device: str = "cuda",
+               cards: Optional[int] = None) -> Tuple[int, int]:
     """Initialise the default process group from the environment
     ``torch.distributed.run`` sets (``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``, ``MASTER_PORT``; one rank when absent) and return
     (rank, world size).  The backend follows the device: NCCL on the card
-    (one rank a card: rank r takes card ``LOCAL_RANK`` or r), gloo on the
-    CPU.  (gloo on CUDA tensors would let ranks share a card, but its
-    functional all-gather, which DTensor issues, fails there on torch
-    2.11: ROADMAP Queue 3.)"""
+    (one rank a card: rank r takes card ``LOCAL_RANK`` or r, modulo
+    ``cards``, the first cards of the host the ranks spread over, default
+    every visible one), gloo on the CPU.  Where more ranks than cards
+    share a host (``LOCAL_WORLD_SIZE``, else the world), NCCL cannot run:
+    the ranks share the cards over gloo, its all-gathers routed through
+    c10d (:func:`share_card_gathers`)."""
     import torch.distributed as dist
     rank = int(os.environ.get("RANK", "0"))
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     dev = _device.resolve(device)
+    backend = "gloo"
     if dev.type == "cuda":
+        cards = min(cards or torch.cuda.device_count(),
+                    torch.cuda.device_count())
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
-                              % torch.cuda.device_count())
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+                              % cards)
+        if int(os.environ.get("LOCAL_WORLD_SIZE", world)) > cards:
+            share_card_gathers()
+        else:
+            backend = "nccl"
     addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
     port = os.environ.get("MASTER_PORT") or (_free_port() if world == 1
                                              else "29500")
     dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
                             rank=rank, world_size=world)
     return rank, world
+
+
+_ROUTES: Dict[str, object] = {}
+
+
+def _c10d_all_gather(inp: torch.Tensor, group_size: int, group_name):
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import (ProcessGroup,
+                                                    _resolve_process_group)
+    group = (group_name if isinstance(group_name, ProcessGroup)
+             else _resolve_process_group(group_name))
+    out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+    dist.all_gather_into_tensor(out, inp.contiguous(), group=group)
+    return out
+
+
+def share_card_gathers(device_type: str = "cuda") -> None:
+    """Route the functional all-gather (``_c10d_functional.
+    all_gather_into_tensor``, which DTensor's redistributions issue) on
+    ``device_type`` tensors through c10d's own ``all_gather_into_tensor``,
+    synchronously.  With gloo on CUDA tensors (ranks sharing a card) the
+    functional one ends the processes (signal 11 on torch 2.11,
+    ``scripts/gloo_card_probe.py``) while c10d's works; the other
+    functional collectives work as they are.  Once a process; the
+    gathered values are the same."""
+    if device_type in _ROUTES:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _c10d_all_gather, device_type.upper())
+    _ROUTES[device_type] = lib
 
 
 class DataMesh(NamedTuple):

@@ -25,14 +25,19 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distribution.constraints import (
+    axes_of,
     batch_entry,
     constrain,
     is_dtensor,
     local_call,
     model_axis_size,
     model_entry,
+    reduce_over,
+    shard_index,
+    spec_now,
     whole,
     whole_last,
+    write_slots,
 )
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels._grad import needs_grad
@@ -151,14 +156,65 @@ def set_attention_impl(impl: str) -> None:
 def _mesh_core(q, k, v, **kw) -> torch.Tensor:
     """:func:`attention_core` on a mesh: each rank attends with its batch
     rows and, where the model axis divides both head counts, its heads
-    (else every head), the head width whole (a cache whose width the
-    cache rule split is gathered)."""
-    b = batch_entry(q.shape[0])
-    h = model_entry(q.shape[2]) and model_entry(k.shape[2])
+    (else every head).  Keys and values stay where the cache rule put them
+    when their sequence is split (the batch-1 rule), or when their head
+    width is split and the scores are narrower than the keys and values
+    (a decode step): each rank then attends over its own slots and width
+    (:func:`_split_attention`).  Else the head width is made whole."""
+    B, Sq, H, hd = q.shape
+    KV, hdv = k.shape[2], v.shape[3]
+    b = batch_entry(B)
+    h = model_entry(H) and model_entry(KV)
+    ks, vs = spec_now(k), spec_now(v)
+    seq = ks[1] if ks[1] == vs[1] else None
+    wide = (h is None and ks[3] == vs[3] == "model"
+            and H * Sq * 4 < KV * (hd + hdv) * k.element_size())
+    if (seq or wide) and Sq <= kw["block_q"] and not needs_grad(q, k, v):
+        w = "model" if wide else None
+        qs, kvs = (b, None, h, w), (b, seq, h, w)
+        scale = kw["scale"] if kw["scale"] is not None else 1 / math.sqrt(hd)
+        (o,) = local_call(
+            lambda q, k, v: (_split_attention(q, k, v, seq, w, **dict(
+                kw, scale=scale)),), (q, k, v), (qs, kvs, kvs), [(qs, ())])
+        return o
     spec = (b, None, h, None)
     (o,) = local_call(lambda q, k, v: (attention_core(q, k, v, **kw),),
                       (q, k, v), (spec, spec, spec), [(spec, ())])
     return o
+
+
+def _split_attention(q, k, v, seq, width, *, causal, q_offset, window,
+                     kv_valid_len, block_q, scale) -> torch.Tensor:
+    """One rank's part of :func:`attention_core` over keys and values whose
+    sequence is split over the axes ``seq`` and / or whose head width is
+    split over ``width`` (q's width split alike).  The scores' partial sums
+    over the width are reduced, then the softmax's max and sum over the
+    sequence's ranks, and the output's partial sums over them: the keys and
+    values never move."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgh,bskh->bkgqs",
+                     q.reshape(B, Sq, KV, H // KV, hd).float() * scale,
+                     k.float())
+    s = reduce_over(s, "sum", width)
+    kv_idx = shard_index(seq) * Skv + torch.arange(Skv, device=q.device)
+    rows = torch.arange(Sq, device=q.device) + q_offset
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_idx[None, :] <= rows[:, None]
+    if window is not None:
+        mask &= kv_idx[None, :] > rows[:, None] - window
+    if kv_valid_len is not None:
+        mask &= kv_idx[None, :] < kv_valid_len
+    s = s.masked_fill(~mask, -math.inf)
+    top = reduce_over(s.amax(dim=-1, keepdim=True), "max", seq)
+    p = torch.exp(s - top)
+    p = torch.where(torch.isnan(p), 0.0, p)            # fully-masked rows
+    p = p / reduce_over(p.sum(dim=-1, keepdim=True), "sum", seq)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    o = reduce_over(torch.einsum("bkgqs,bskh->bqkgh", p, v.float()), "sum",
+                    seq)
+    return o.to(v.dtype).reshape(B, Sq, H, -1)
 
 
 def merge_heads(o: torch.Tensor) -> torch.Tensor:
@@ -252,6 +308,15 @@ def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(B, S, n, hd)
 
 
+def head_weight(w: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """A (d_in, n·hd) weight as (d_in, n, hd), gathered first where the
+    model axis does not divide the ``n`` heads (as :func:`split_heads`)."""
+    m = model_axis_size()
+    if m and n % m and is_dtensor(w):
+        w = whole(w)
+    return w.reshape(w.shape[0], n, hd)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
                    dtype=torch.float32) -> Params:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
@@ -324,8 +389,8 @@ def apply_attention(
         Sc = ck.shape[1]
         slot = cache_index % Sc if window is not None else cache_index
         slot = min(max(slot, 0), Sc - S)   # clamped as dynamic_update_slice
-        ck[:, slot:slot + S] = k.to(ck.dtype)
-        cv[:, slot:slot + S] = v.to(cv.dtype)
+        write_slots(ck, slot, k)
+        write_slots(cv, slot, v)
         new_cache = cache
         kv_valid = min(cache_index + S, Sc)
         # Ring buffer: it holds exactly the last `window` positions, so all
@@ -370,13 +435,12 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig,
 
 def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     m = cfg.mla
-    B, S, _ = x.shape
     qk = m.qk_nope_dim + m.qk_rope_dim
     if "wdq" in p:
         q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
     else:
         q = x @ p["wq"]
-    return q.reshape(B, S, cfg.n_heads, qk)
+    return split_heads(q, cfg.n_heads, qk)
 
 
 def apply_mla(
@@ -423,16 +487,16 @@ def apply_mla(
         else:
             slot = cache_index
         slot = min(max(slot, 0), Sc - S)   # clamped as dynamic_update_slice
-        cc[:, slot:slot + S] = ckv.to(cc.dtype)
-        cr[:, slot:slot + S] = krope.to(cr.dtype)
+        write_slots(cc, slot, ckv)
+        write_slots(cr, slot, krope)
         ckv, krope = cc, cr
         new_cache = cache
         q_offset = cache_index
         kv_valid = min(cache_index + S, Sc)
 
     Skv = ckv.shape[1]
-    wuk = p["wuk"].reshape(m.kv_lora, H, nope)
-    wuv = p["wuv"].reshape(m.kv_lora, H, hdv)
+    wuk = head_weight(p["wuk"], H, nope)
+    wuv = head_weight(p["wuv"], H, hdv)
 
     if absorb:
         # ---- absorbed decode: attention in the kv_lora-dim latent space --
@@ -457,17 +521,39 @@ def apply_mla(
         return out, new_cache
 
     # ---- faithful reconstruct path ----------------------------------------
+    if is_dtensor(ckv):
+        # the latent (kv_lora wide) made whole on the model ranks, not the
+        # products (H·nope and H·hdv wide): each rank reconstructs its own
+        # heads' keys and values where the latents lie
+        ckv, krope = whole_last(ckv), whole_last(krope)
     k_nope = torch.einsum("bsl,lhe->bshe", ckv, wuk.to(ckv.dtype))
     v = torch.einsum("bsl,lhe->bshe", ckv, wuv.to(ckv.dtype))
     # K: the reconstructed k_nope joined to krope shared by every head; its
     # width nope + rope differs from V's hdv
-    k = torch.cat([k_nope, krope[:, :, None, :].expand(B, Skv, H, rope_d)
-                   .to(k_nope.dtype)], dim=-1)
+    k = _join_rope(k_nope, krope)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     out = attention_core(qfull, k, v, causal=causal, q_offset=q_offset,
                          kv_valid_len=kv_valid, block_q=block_q, scale=scale)
     out = merge_heads(out) @ p["wo"]
     return out, new_cache
+
+
+def _join_rope(k_nope: torch.Tensor, krope: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, nope) keys joined to the (B, S, rope) rope keys that every
+    head shares.  On a mesh each rank joins its own heads and rows (the
+    rope keys' gradient a partial sum over the heads' ranks)."""
+    def join(kn, kr):
+        B, S, H, _ = kn.shape
+        return (torch.cat([kn, kr[:, :, None, :].expand(B, S, H, -1)
+                           .to(kn.dtype)], dim=-1),)
+
+    if not is_dtensor(k_nope):
+        return join(k_nope, krope)[0]
+    rows = spec_now(krope)
+    spec = (rows[0], rows[1], model_entry(k_nope.shape[2]), None)
+    (k,) = local_call(join, (k_nope, krope), (spec, rows[:2] + (None,)),
+                      [(spec, ())], grad_partial=[(), axes_of(spec[2])])
+    return k
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from repro_torch.distribution.constraints import (
     axes_of,
     batch_entry,
     constrain_batch_dim,
+    gather_fsdp,
     is_dtensor,
     local_call,
     sum_all,
@@ -403,6 +404,9 @@ def chunked_ce_loss(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return sum_all(lse - tgt), sum_all(hit)
 
     grad = needs_grad(x)
+    if grad and is_dtensor(x):   # FSDP's head gathered once, not by chunk
+        p = gather_fsdp({k: p[k] for k in ("final_norm", "embed",
+                                           "lm_head") if k in p})
     losses, hits = zip(*(checkpointed(one, x[:, c0:c0 + chunk],
                                       targets[:, c0:c0 + chunk].long(),
                                       on=grad)

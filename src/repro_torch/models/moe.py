@@ -38,11 +38,14 @@ import torch.nn.functional as F
 from repro_torch.distribution.constraints import (
     axes_of,
     batch_entry,
+    constrain,
     constrain_batch_dim,
-    current_mesh,
     is_dtensor,
     local_call,
     model_axis_size,
+    reduce_over,
+    shard_index,
+    spec_now,
 )
 from repro_torch.kernels._ops import is_fake
 from repro_torch.models.config import ModelConfig
@@ -160,6 +163,8 @@ def apply_moe(p: Params, cfg: ModelConfig,
 
     if B * S <= 16:
         out, aux = _moe_gather_path(p, cfg, x)
+        if is_dtensor(out):     # whole (sums reduced) before the reshape
+            out = constrain(out, None, None, None)
         return out.reshape(B0, S0, d), aux
 
     x = constrain_batch_dim(x)
@@ -174,12 +179,13 @@ def apply_moe(p: Params, cfg: ModelConfig,
     return out.reshape(B0, S0, d), aux
 
 
-def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor, e0: int = 0
-              ) -> Tuple[torch.Tensor, Routing]:
+def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor, e0: int = 0,
+              cols=None) -> Tuple[torch.Tensor, Routing]:
     """The routed experts' output for ``x`` (B, S, d) and its routing.
     ``p``'s expert weights may be the slice of experts ``e0 ..`` (expert
     parallel): the buffer then holds those experts only and every other
-    slot adds nothing."""
+    slot adds nothing.  ``cols`` as :func:`_gather`'s; the output is as
+    wide as ``we_o``'s last dim."""
     mo = cfg.moe
     B, S, d = x.shape
     E, K = mo.n_experts, mo.top_k
@@ -205,63 +211,83 @@ def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor, e0: int = 0
     xe.index_add_(0, rows, src.reshape(B * TK, d))
     xe = xe.reshape(B, n, cap, d)
 
+    if cols is not None:
+        xe = xe[..., cols[0]:cols[0] + p["we_g"].shape[1]]
     g = torch.einsum("becd,edf->becf", xe, p["we_g"])          # (B, E, cap, ffe)
     u = torch.einsum("becd,edf->becf", xe, p["we_u"])
+    if cols is not None and axes_of(cols[1]):
+        g, u = reduce_over(torch.stack([g, u]), "sum", cols[1]).unbind(0)
     ye = torch.einsum("becf,efd->becd", F.silu(g) * u, p["we_o"])
-    ye = ye.reshape(B, n * cap, d)
+    w = ye.shape[-1]
+    ye = ye.reshape(B, n * cap, w)
 
-    contrib = ye.gather(1, dest[..., None].expand(B, TK, d))
+    contrib = ye.gather(1, dest[..., None].expand(B, TK, w))
     contrib = contrib * (sg * keep)[..., None].to(ye.dtype)
     # combine: the slots back in (token, pick) order, each token's K summed
     per_tok = torch.empty_like(contrib).scatter_(
-        1, r.order[..., None].expand(B, TK, d), contrib)
-    return per_tok.reshape(B, S, K, d).sum(2).to(x.dtype), r
+        1, r.order[..., None].expand(B, TK, w), contrib)
+    return per_tok.reshape(B, S, K, w).sum(2).to(x.dtype), r
 
 
 _EXPERT_KEYS = ("router", "we_g", "we_u", "we_o")
 
 
 def _expert_specs(cfg: ModelConfig):
-    """(specs of router, we_g, we_u, we_o on a mesh, whether the experts
-    themselves are split): the experts on "model" when it divides them,
-    else each expert's hidden width when it divides that, else
-    replicated; the router whole."""
+    """Specs of router, we_g, we_u, we_o on a mesh, FSDP's split gathered:
+    the experts on "model" when it divides them, else each expert's hidden
+    width when it divides that, else replicated; the router whole."""
     mo, m = cfg.moe, model_axis_size()
     if m and mo.n_experts % m == 0:
         return ((None, None), ("model", None, None), ("model", None, None),
-                ("model", None, None)), True
+                ("model", None, None))
     f = "model" if m and mo.d_expert % m == 0 else None
-    return ((None, None), (None, None, f), (None, None, f),
-            (None, f, None)), False
+    return (None, None), (None, None, f), (None, None, f), (None, f, None)
+
+
+def _held(p: Params, cfg: ModelConfig, b):
+    """How a rank holds the experts for tokens on the batch axes ``b``:
+    (in-specs of router, we_g, we_u, we_o; the axes splitting the model
+    width that we_g's and we_u's products sum over, reduced before the
+    gate's nonlinearity; the output's spec; the axes over which it is a
+    partial sum).  Where every rank holds every token (``b`` None: decode)
+    the weights stay as the rules placed them, FSDP's split too, and the
+    few tokens' activations move; else FSDP's split is gathered
+    (:func:`_expert_specs`).  The router is whole."""
+    if b is None:
+        sg, so = spec_now(p["we_g"]), spec_now(p["we_o"])
+        sg = (sg[0], sg[1], so[1])      # the hidden width sliced as we_o's
+    else:
+        _, sg, _, so = _expert_specs(cfg)
+    return (((None, None), sg, sg, so), sg[1], (b, None, so[2]),
+            axes_of(so[0]) + axes_of(so[1]))
 
 
 def _mesh_dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor):
     """:func:`_dispatch` on each rank's rows and experts (or hidden-width
-    slice); returns (out, aux), out a partial sum over the model axis
-    where the experts are split."""
+    slice) as :func:`_held` holds them; returns (out, aux), out a partial
+    sum over the axes splitting the experts or their widths."""
     mo = cfg.moe
     B, S, _ = x.shape
     b = batch_entry(B)
-    specs, split_experts = _expert_specs(cfg)
-    split = split_experts or specs[1][2] is not None
+    specs, cols, os_, part = _held(p, cfg, b)
     xs = (b, None, None)
 
     def local(x, router, we_g, we_u, we_o):
         lp = dict(router=router, we_g=we_g, we_u=we_u, we_o=we_o)
-        e0 = current_mesh().get_local_rank("model") * we_g.shape[0] \
-            if split_experts else 0
-        out, r = _dispatch(lp, cfg, x, e0)
+        e0 = shard_index(specs[1][0]) * we_g.shape[0]
+        out, r = _dispatch(lp, cfg, x, e0,
+                           cols=(shard_index(cols) * we_g.shape[1], cols))
         counts = (r.expert_ids[..., None] == torch.arange(
             mo.n_experts, device=x.device)).float().sum(dim=(0, 1, 2))
         return out, counts
 
     # a rank's gradients reach the router and x only through its own
-    # experts' slots: partial sums over the model axis where it splits them
-    part = ("model",) if split else ()
+    # experts' slots: partial sums over the axes splitting them
     out, counts = local_call(
         local, (x,) + tuple(p[k] for k in _EXPERT_KEYS), (xs,) + specs,
-        [(xs, part), ((None,), axes_of(b))],
-        grad_partial=[part, axes_of(b) + part] + [axes_of(b)] * 3)
+        [(os_, part), ((None,), axes_of(b))],
+        grad_partial=[part + axes_of(cols), axes_of(b) + part]
+        + [axes_of(b)] * 3)
     me = torch.softmax((x @ p["router"]).float(), dim=-1).mean(dim=(0, 1))
     ce = counts / (B * S * mo.top_k)
     aux = mo.n_experts * torch.sum(me * ce) * mo.router_aux_weight
@@ -278,47 +304,65 @@ def _moe_gather_path(p: Params, cfg: ModelConfig, x: torch.Tensor):
     work when almost every expert slot would be padding.  Each distinct
     picked expert's weights are read once, for the tokens that picked it
     (the JAX package gathers a (T, K, d, d_expert) copy instead).  On a
-    mesh every rank applies the experts (or the hidden-width slice) it
-    holds to every token, the outputs summed over the model axis."""
+    mesh the expert weights stay as the rules placed them
+    (:func:`_mesh_gather`)."""
     B, S, d = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if is_dtensor(x):
-        specs, split_experts = _expert_specs(cfg)
-        part = ("model",) if split_experts or specs[1][2] else ()
-        xs = (None, None, None)
-
-        def local(x, router, we_g, we_u, we_o):
-            lp = dict(router=router, we_g=we_g, we_u=we_u, we_o=we_o)
-            e0 = current_mesh().get_local_rank("model") * we_g.shape[0] \
-                if split_experts else 0
-            return (_gather(lp, cfg, x, e0),)
-
-        (out,) = local_call(
-            local, (x,) + tuple(p[k] for k in _EXPERT_KEYS), (xs,) + specs,
-            [(xs, part)], grad_partial=[part, part, (), (), ()])
-    else:
-        out = _gather(p, cfg, x)
+    out = _mesh_gather(p, cfg, x) if is_dtensor(x) else _gather(p, cfg, x)
     if cfg.moe.n_shared:
         out = out + _shared(p, x)
     return out, aux
 
 
-def _gather(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            e0: int = 0) -> torch.Tensor:
+def _mesh_gather(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """:func:`_gather` on a mesh, every rank routing every token with the
+    expert weights as :func:`_held` holds them for tokens on no batch
+    axis: the rules' placement (experts, hidden width or, under FSDP, the
+    model width split), so the few tokens' activations move, never the
+    weights."""
+    specs, cols, os_, part = _held(p, cfg, None)
+
+    def local(x, router, we_g, we_u, we_o):
+        lp = dict(router=router, we_g=we_g, we_u=we_u, we_o=we_o)
+        e0 = shard_index(specs[1][0]) * we_g.shape[0]
+        return (_gather(lp, cfg, x, e0,
+                        cols=(shard_index(cols) * we_g.shape[1], cols)),)
+
+    (out,) = local_call(
+        local, (x,) + tuple(p[k] for k in _EXPERT_KEYS),
+        ((None, None, None),) + specs, [(os_, part)],
+        grad_partial=[part + axes_of(cols), part, (), (), ()])
+    return out
+
+
+def _gather(p: Params, cfg: ModelConfig, x: torch.Tensor, e0: int = 0,
+            cols=None) -> torch.Tensor:
     """The routed experts' output of the gather path, from the experts
-    ``e0 ..`` that ``p`` holds (all of them by default)."""
+    ``e0 ..`` that ``p`` holds (all of them by default).  ``cols`` = (c0,
+    axes): ``we_g`` / ``we_u`` hold the model width's rows ``c0 ..`` of a
+    width split over those mesh axes, so their products are summed over
+    them (inside a :func:`local_call`)."""
     B, S, d = x.shape
     n = p["we_g"].shape[0]
     xt = x.reshape(B * S, d)
     _, gate_vals, expert_ids = _top_k(p, cfg, xt)              # (T, K)
-    ye = (torch.empty if n == cfg.moe.n_experts else torch.zeros)(
-        (*expert_ids.shape, d), dtype=x.dtype, device=x.device)
-    for e, t, k in _held_picks(cfg, expert_ids, e0, n):
-        xs = xt[t]
-        h = F.silu(xs @ p["we_g"][e]) * (xs @ p["we_u"][e])
-        ye[t, k] = h @ p["we_o"][e]
+    picks = list(_held_picks(cfg, expert_ids, e0, n))
+    xw = xt if cols is None else xt[:, cols[0]:cols[0] + p["we_g"].shape[1]]
+    gs = [xw[t] @ p["we_g"][e] for e, t, _ in picks]
+    us = [xw[t] @ p["we_u"][e] for e, t, _ in picks]
+    if cols is not None and axes_of(cols[1]) and picks:
+        gu = reduce_over(torch.cat(gs + us), "sum", cols[1])
+        rows = [len(t) for _, t, _ in picks]
+        parts = gu.split(rows * 2)
+        gs, us = parts[:len(picks)], parts[len(picks):]
+    width = p["we_o"].shape[2]
+    ye = (torch.empty if n == cfg.moe.n_experts and cols is None
+          else torch.zeros)((*expert_ids.shape, width), dtype=x.dtype,
+                            device=x.device)
+    for (e, t, k), g, u in zip(picks, gs, us):
+        ye[t, k] = (F.silu(g) * u) @ p["we_o"][e]
     out = (ye * gate_vals.to(ye.dtype)[..., None]).sum(1)
-    return out.reshape(B, S, d)
+    return out.reshape(B, S, width)
 
 
 def _held_picks(cfg: ModelConfig, expert_ids: torch.Tensor, e0: int,

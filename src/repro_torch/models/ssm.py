@@ -43,7 +43,7 @@ from repro_torch.distribution.constraints import (
 )
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, rmsnorm, split_heads
 
 Params = Dict[str, Any]
 
@@ -242,18 +242,17 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
 def _rwkv_gates(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 xprev: torch.Tensor):
     H, hd = rwkv_dims(cfg)
-    B, S, d = x.shape
 
     def mix(mu):
         return x + (xprev - x) * whole(mu).to(x.dtype)
 
-    r = (mix(p["mu_r"]) @ p["wr"]).reshape(B, S, H, hd)
-    k = (mix(p["mu_k"]) @ p["wk"]).reshape(B, S, H, hd)
-    v = (mix(p["mu_v"]) @ p["wv"]).reshape(B, S, H, hd)
+    r = split_heads(mix(p["mu_r"]) @ p["wr"], H, hd)
+    k = split_heads(mix(p["mu_k"]) @ p["wk"], H, hd)
+    v = split_heads(mix(p["mu_v"]) @ p["wv"], H, hd)
     g = F.silu(mix(p["mu_g"]) @ p["wg"])
     logw = whole(p["w0"]).float() + torch.tanh(
         mix(p["mu_w"]).float() @ p["wA"].float()) @ p["wB"].float()
-    w = torch.exp(-torch.exp(logw)).reshape(B, S, H, hd)  # decay in (0, 1)
+    w = split_heads(torch.exp(-torch.exp(logw)), H, hd)  # decay in (0, 1)
     return r, k, v, g, w
 
 

@@ -31,7 +31,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.distribution.constraints import constrain_batch_dim
+from repro_torch.distribution.constraints import (constrain_batch_dim,
+                                                  gather_fsdp)
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -145,6 +147,8 @@ def apply_layer(
     """Pre-norm residual layer.  Returns (x, cache, aux_loss); the cache is
     the one given, written in place (None without one)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if needs_grad(x):     # training: FSDP's weights gathered here
+        p = gather_fsdp(p)
 
     h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
     if mixer == "attn":
