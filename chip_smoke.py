@@ -254,17 +254,23 @@ Phases (any failure exits non-zero; none is caught):
    ``dryrun.plan_case`` of 21a's case on a (1, 1) mesh of a fake process
    group, its argument bytes exactly 21a's tensors', its peak and FLOPs
    printed beside 21a's measured peak and ``model_flops_estimate``; 21d
-   two ranks sharing one card (``shared_card_phase``; ``init_ranks``
-   given one card, each rank checked to be gloo on cuda:0), the
-   all-gathers routed through c10d (``launch.mesh.share_card_gathers``),
-   smollm-135m at full size and DeepSeek-V2 at every published width cut
-   to 2 layers (weights drawn once, each rank's shards views of them over
-   CUDA IPC) prefill and decode greedily in f32 on mesh (1, 2) and, at
-   batch 1 with the caches' sequence split, on (2, 1): logits within
-   ``SHARED_TIER`` of one rank's, tokens equal, each collective kind's
-   bytes and count equal to ``plan_case``'s (``serve_on_mesh``,
-   ``plan_serve``), times beside one rank's.  The planner's whole sweep (``python -m repro_torch.launch.dryrun --arch
-   all --shape all --mesh both``) needs no card and is not run here: it
+   ranks sharing one card (``shared_card_phase``; ``init_ranks`` given
+   one card, each rank checked to be gloo on cuda:0), the all-gathers
+   routed through c10d (``launch.mesh.share_card_gathers``): two ranks
+   with smollm-135m at full size and DeepSeek-V2 at every published width
+   cut to 2 layers (weights drawn once, each rank's shards views of them
+   over CUDA IPC) prefill and decode greedily in f32 on mesh (1, 2) and,
+   at batch 1 with the caches' sequence split, on (2, 1), and reduced
+   qwen1.5-110b (4 query heads, 1 key head) on (1, 2); four ranks with
+   qwen2-vl-2b at every published width cut to 2 layers (12 query heads,
+   2 key heads) on (1, 4): logits within ``SHARED_TIER`` of one rank's,
+   tokens equal, each collective kind's bytes and count equal to
+   ``plan_case``'s (``serve_on_mesh``, ``plan_serve``), times beside one
+   rank's; the planned attention FLOPs a rank of smollm-135m and qwen on
+   (1, 2) and of qwen2-vl-2b on (1, 4) beside one rank's
+   (``plan_attention_flops``).  The planner's whole sweep (``python -m
+   repro_torch.launch.dryrun --arch all --shape all --mesh both``) needs
+   no card and is not run here: it
    would load the host's cores under the timed phases;
 22. the analysis tooling and the examples: 22a every entry of the
    committed tuning cache for this card (``tuning_phase``): the tuned
@@ -399,14 +405,25 @@ MESH_SCORING = dict(jamba_B=2, S=2048)
 # (before AdamW reduced each gradient into its moments' layout) the first
 # steps read at most 4.81e-6 and the later ones at most 1.71e-4
 MESH_LOSS_TIER = (1e-5, 1e-3)
-# phase 21d: two gloo ranks sharing cuda:0 (``launch.mesh.init_ranks``
-# routes their all-gathers through c10d) decode greedily in f32 on mesh
+# phase 21d: gloo ranks sharing cuda:0 (``launch.mesh.init_ranks`` routes
+# their all-gathers through c10d) decode greedily in f32: two on mesh
 # (1, 2) at batch B and on (2, 1) at batch 1, where the caches' sequence is
-# split over the data axis: smollm-135m at full size and DeepSeek-V2 at
-# every published width cut to 2 layers, against one rank (logits within
+# split over the data axis (smollm-135m at full size and DeepSeek-V2 at
+# every published width cut to 2 layers), four on (1, 4) (qwen2-vl-2b at
+# its published widths, 2 layers), against one rank (logits within
 # SHARED_TIER, tokens equal) and against the planner (collectives equal)
 SHARED_SERVE = dict(B=8, prompt=512, cache_len=1024, tokens=8)
 SHARED_TIER = 1e-4
+# ... and on (1, m), head counts the model axis splits its own way, each
+# rank planning 1/m of one rank's attention FLOPs: smollm-135m's 9 query /
+# 3 key heads, which 2 does not divide (``models.layers.head_blocks``),
+# reduced qwen1.5-110b's 4 / 1 on 2 and qwen2-vl-2b's 12 / 2 on 4, whose
+# key heads the axis does not divide
+SHARED_HEADS = {"smollm-135m": "every head, half of the prompt's rows",
+                "qwen1.5-110b-reduced": "2 query heads a rank against the "
+                                        "key head made whole",
+                "qwen2-vl-2b": "3 query heads a rank against the key head "
+                               "their group reads"}
 FAMILIES = ("median", "maxmarg", "sampling")   # the unified dispatch's mix
 # phase 17b: a unified pool at a service's size; res_cap holds the ε=0.01
 # SAMPLING sessions' 1711-row ε-net (the default sizes it at eps=0.05)
@@ -2761,6 +2778,25 @@ def _mesh_scoring(n):
                 shapes[-1])])
 
 
+def _mesh_scoring_launches(arch, shape, rank, n_attn):
+    """The kernel launches rank ``rank`` of mesh ``shape`` (data, model)
+    makes in one of 21b's scoring passes: Jamba one attention and one
+    scan; smollm-135m one attention a layer, except where the model axis
+    does not divide its 9 heads and splits the rows instead
+    (``layers.head_blocks``): a rank whose rows do not start at
+    position 0 takes the plain attention there (the kernel takes no
+    offset, as JAX's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import head_blocks
+    if arch == "jamba":
+        return dict(attention=1, mamba_scan=1)
+    cfg, m = get_config(arch), shape[1]
+    split = head_blocks(cfg.n_heads, cfg.n_kv, m if m > 1 else 0,
+                        MESH_SCORING["S"], 1024)
+    first = split is None or (rank % m) % split[1] == 0
+    return dict(attention=n_attn if first else 0)
+
+
 def _mesh_rank_jobs(rank, world, log):
     """Phase 21b on this rank: each of ``_mesh_jobs(world)`` trained
     ``MESH_STEPS`` steps (rwkv6-7b's first step's WKV calls recorded),
@@ -3060,13 +3096,13 @@ def mesh_phase(dev, refs, card):
               f"per rank {[gb(res['peak']) for res in per]}; {card}")
     n_attn = get_config("smollm-135m").n_layers    # one launch a layer
     for tag, arch, shape in _mesh_scoring(world):
-        want = (dict(attention=1, mamba_scan=1) if arch == "jamba"
-                else dict(attention=n_attn))
         per = [ranks[r][tag] for r in range(world)]
         for r, res in enumerate(per):
+            want = _mesh_scoring_launches(arch, shape, r, n_attn)
             if res["launches"] != dict(zero, **want):
                 raise AssertionError(f"21b {tag} rank {r} launched "
                                      f"{res['launches']}; expected {want}")
+        want = _mesh_scoring_launches(arch, shape, 0, n_attn)
         paths[f"mesh_{tag}"] = {k: sum(res["launches"][k] for res in per)
                                 for k in zero}
         routes[f"mesh_{tag}"] = {k: sum(res["routes"][k] for res in per)
@@ -3191,13 +3227,35 @@ def serve_on_mesh(cfg, lm, tokens, decode, dtype, mesh=None,
 
 
 def plan_serve(cfg, mesh_shape, B, S, decode, dtype, cache_len=None,
-               fsdp=False):
+               fsdp=False, device="cuda"):
     """``dryrun.plan_case``'s collectives a rank, by kind ({op: bytes},
     {op: count}), for :func:`serve_on_mesh`'s prefill and for one of its
     decode steps (caches of ``cache_len`` slots, default S + ``decode``),
     planned on a ("data", "model") mesh of ``mesh_shape`` over a fake
     group; weights in ``dtype``, placed as :func:`serve_on_mesh` places
-    them with ``fsdp``."""
+    them with ``fsdp``; the prompt's tokens alone, as it serves them (a
+    VLM without image patches); for ranks on ``device``'s type (on the
+    CPU a group has no all-to-all: ``roofline.PlanMode``)."""
+    return [(dict(m.coll_bytes), dict(m.coll_counts))
+            for m in _plan_serve_modes(cfg, mesh_shape, B, S, decode, dtype,
+                                       cache_len, fsdp, device=device)]
+
+
+def plan_attention_flops(cfg, mesh_shape, B, S, decode, dtype,
+                         cache_len=None):
+    """The batched products' FLOPs a rank (``bmm``: the attention's
+    scores and weighted sums; the projections are ``mm``) of
+    :func:`serve_on_mesh`'s prefill, planned as :func:`plan_serve` plans
+    it on a ("data", "model") mesh of ``mesh_shape``."""
+    mode = _plan_serve_modes(cfg, mesh_shape, B, S, decode, dtype,
+                             cache_len, False, kinds=("prefill",))[0]
+    return float(mode.flops_by_op.get("bmm", 0))
+
+
+def _plan_serve_modes(cfg, mesh_shape, B, S, decode, dtype, cache_len,
+                      fsdp, kinds=("prefill", "decode"), device="cuda"):
+    """The ``PlanMode`` of each of ``kinds``, planned as
+    :func:`plan_serve` says."""
     import torch.distributed as dist
     from repro_torch.analysis.roofline import PlanMode
     from repro_torch.launch import dryrun as dr
@@ -3205,37 +3263,37 @@ def plan_serve(cfg, mesh_shape, B, S, decode, dtype, cache_len=None,
     from repro_torch.models.config import InputShape
 
     out = []
-    for kind in ("prefill", "decode"):
+    for kind in kinds:
         pol = dr.CasePolicy(cache_len=cache_len or S + decode,
                             param_dtype=dtype, remat=False, fsdp=fsdp)
         dr.fake_group(mesh_shape[0] * mesh_shape[1])
         try:
             mesh = _mesh("cpu", mesh_shape, ("data", "model"))
-            mode = PlanMode()
+            mode = PlanMode(alltoall=device != "cpu")
             with mode:
                 dr.plan_case(cfg, InputShape("serve", S, B, kind), mesh, pol,
-                             mode, dtype=dtype)
+                             mode, dtype=dtype, inputs=("tokens",))
         finally:
             dist.destroy_process_group()
-        out.append((dict(mode.coll_bytes), dict(mode.coll_counts)))
+        out.append(mode)
     return out
 
 
-def _shared_rank(rank, port, device, jobs, q):
-    """One of phase 21d's two ranks, both on ``device`` (cuda:0 on the
-    card: ``init_ranks`` is given one card, so it picks gloo for the two
+def _shared_rank(rank, world, port, device, jobs, q):
+    """One of phase 21d's ``world`` ranks, all on ``device`` (cuda:0 on
+    the card: ``init_ranks`` is given one card, so it picks gloo for the
     ranks and routes the all-gathers through c10d; "cpu" to rehearse).
     ``jobs``: (name, config, weights on the card, shared with the parent,
     [(mesh shape, prompt on the host)]).  Puts (rank, {(name, shape):
-    serve_on_mesh's logits, tokens, tallies and ms} plus the backend, or
-    "error": the traceback)."""
+    serve_on_mesh's logits (rank 0's; None on the others), tokens,
+    tallies and ms} plus the backend, or "error": the traceback)."""
     import faulthandler
     import traceback
     faulthandler.enable()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import torch.distributed as dist
-    os.environ.update(RANK=str(rank), WORLD_SIZE="2",
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     out = {}
     try:
@@ -3258,7 +3316,8 @@ def _shared_rank(rank, port, device, jobs, q):
                                     torch.float32,
                                     make_launch_mesh(device, shape),
                                     cache_len=sv["cache_len"])
-                out[(name, shape)] = got
+                out[(name, shape)] = (got[0] if rank == 0 else None,
+                                      *got[1:])
             del lm
     except Exception:      # noqa: BLE001 — reported to the parent
         out["error"] = traceback.format_exc()
@@ -3269,26 +3328,30 @@ def _shared_rank(rank, port, device, jobs, q):
 
 
 def shared_card_phase(dev, card):
-    """Phase 21d: two ranks on one card.  NCCL takes one rank a card, so
-    two ranks sharing cuda:0 run gloo, with the functional all-gather
-    DTensor issues routed through c10d's (``launch.mesh.
-    share_card_gathers``; the functional one ends both processes there).
-    smollm-135m at full size and DeepSeek-V2 at every published width cut
-    to 2 layers (faithful MLA; its MoE on the gather path in decode),
-    weights drawn once on the card in f32 and shared with the ranks, each
-    prefill ``SHARED_SERVE["prompt"]`` tokens into caches of
-    ``cache_len`` and decode ``tokens`` greedily on mesh (1, 2) at batch
-    B and on (2, 1) at batch 1 (the caches' sequence split over the data
-    axis).  Held: every call's logits within ``SHARED_TIER`` of one
-    rank's, the greedy tokens equal, both ranks' collectives alike and,
-    by kind, equal to ``plan_case``'s on a fake group of 2.  Returns the
-    launches (none: the plain attention and no scan)."""
+    """Phase 21d: ranks sharing one card.  NCCL takes one rank a card, so
+    ranks sharing cuda:0 run gloo, with the functional all-gather DTensor
+    issues routed through c10d (``launch.mesh.share_card_gathers``; the
+    functional one ends the processes there).  Two ranks: smollm-135m at
+    full size and DeepSeek-V2 at every published width cut to 2 layers
+    (faithful MLA; its MoE on the gather path in decode), on mesh (1, 2)
+    at batch B and on (2, 1) at batch 1 (the caches' sequence split over
+    the data axis), and reduced qwen1.5-110b (4 query heads, 1 key head)
+    on (1, 2); then four ranks: qwen2-vl-2b at every published width cut
+    to 2 layers (12 query heads, 2 key heads: 3 query heads a rank against
+    the key head their group reads) on (1, 4).  Weights drawn once on the
+    card in f32 and shared with the ranks; each prefills
+    ``SHARED_SERVE["prompt"]`` tokens into caches of ``cache_len`` and
+    decodes ``tokens`` greedily.  Held: every call's logits within
+    ``SHARED_TIER`` of one rank's, the greedy tokens equal, every rank's
+    collectives alike and, by kind, equal to ``plan_case``'s on a fake
+    group of the same size; for ``SHARED_HEADS`` the prefill's planned
+    attention FLOPs a rank at most 1/m + 0.05 of one rank's on m model
+    ranks (printed).  Returns the launches (none: the plain attention and
+    no scan)."""
     import dataclasses
     import torch
-    import torch.multiprocessing as mp
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import _free_port
     from repro_torch.models import layers, model as lm_model
 
     t0 = time.perf_counter()
@@ -3297,17 +3360,21 @@ def shared_card_phase(dev, card):
     f32 = torch.float32
     cfgs = {"smollm-135m": get_config("smollm-135m"),
             "deepseek-v2-236b": dataclasses.replace(
-                get_config("deepseek-v2-236b"), n_layers=2)}
+                get_config("deepseek-v2-236b"), n_layers=2),
+            "qwen1.5-110b-reduced": get_config("qwen1.5-110b").reduced(),
+            "qwen2-vl-2b": dataclasses.replace(get_config("qwen2-vl-2b"),
+                                               n_layers=2)}
+    shapes = {"qwen1.5-110b-reduced": [(1, 2)], "qwen2-vl-2b": [(1, 4)]}
     g = np.random.default_rng(21)
-    jobs, refs, lms = [], {}, []
+    jobs, refs, lms = {}, {}, []
     kernels.reset_launches()
     for name, cfg in cfgs.items():
         lm = lm_model.init_lm(cfg, seed=0, dtype=f32, device=dev)
         lms.append(lm)
         prompt = torch.as_tensor(g.integers(0, cfg.vocab,
                                             (sv["B"], sv["prompt"])))
-        prompts = [((1, 2), prompt), ((2, 1), prompt[:1])]
-        for shape, p in prompts:
+        for shape in shapes.get(name, [(1, 2), (2, 1)]):
+            p = prompt if shape[0] == 1 else prompt[:1]
             r0 = time.perf_counter()
             refs[(name, shape)] = serve_on_mesh(
                 cfg, lm, p.to(dev), sv["tokens"], f32,
@@ -3317,53 +3384,34 @@ def shared_card_phase(dev, card):
                   f"{refs[(name, shape)][3][0]:.1f} ms, decode "
                   f"{np.median(refs[(name, shape)][3][1:]):.1f} ms a token"
                   f" ({time.perf_counter() - r0:.1f} s); {card}")
-        jobs.append((name, cfg, lm.tree(), prompts))
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_shared_rank,
-                         args=(r, port, dev.type, jobs, q))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    ranks, deadline = {}, time.time() + 900
-    try:
-        while len(ranks) < 2 and time.time() < deadline:
-            try:
-                r, res = q.get(timeout=10)
-                ranks[r] = res
-            except queue.Empty:     # a rank that died puts nothing
-                if all(p.exitcode is not None for p in procs):
-                    break
-    finally:
-        for p in procs:
-            p.join(timeout=120)
-            if p.is_alive():
-                p.kill()
+            world = shape[0] * shape[1]
+            mine = jobs.setdefault(world, {})
+            mine.setdefault(name, (name, cfg, lm.tree(), []))[3].append(
+                (shape, p))
+    ranks = {}
+    for world, mine in sorted(jobs.items()):
+        ranks[world] = _shared_ranks(world, dev, list(mine.values()))
     del jobs, lms
     torch.cuda.empty_cache()
-    errors = [f"21d rank {r}:\n{res['error']}"
-              for r, res in sorted(ranks.items()) if "error" in res]
-    if errors or len(ranks) < 2:
-        raise AssertionError("\n".join(errors) or f"21d: ranks {ranks} "
-                             f"and exit codes {[p.exitcode for p in procs]}")
     for (name, shape), ref in refs.items():
         cfg = cfgs[name]
-        B = sv["B"] if shape == (1, 2) else 1
-        logits, toks, tallies, ms = ranks[0][(name, shape)]
+        world = shape[0] * shape[1]
+        B = sv["B"] if shape[0] == 1 else 1
+        got = ranks[world]
+        logits, toks, tallies, ms = got[0][(name, shape)]
         worst = max(float(np.abs(a - b).max())
                     for a, b in zip(logits, ref[0]))
         same = all(np.array_equal(a, b) for a, b in zip(toks, ref[1]))
-        if ranks[1][(name, shape)][2] != tallies:
+        if any(got[r][(name, shape)][2] != tallies for r in range(world)):
             raise AssertionError(f"21d {name} {shape}: the ranks' "
                                  f"collectives differ")
         plan = plan_serve(cfg, shape, B, sv["prompt"], sv["tokens"], f32,
-                          cache_len=sv["cache_len"])
+                          cache_len=sv["cache_len"], device=dev.type)
         planned = [plan[0]] + [plan[1]] * sv["tokens"]
         agree = all(t["bytes"] == pb and t["counts"] == pc
                     for t, (pb, pc) in zip(tallies, planned))
-        print(f"21d {name} mesh (data, model) = {shape} B={B}, two "
-              f"{ranks[0]['backend']} ranks on one card, f32: max |logit "
+        print(f"21d {name} mesh (data, model) = {shape} B={B}, {world} "
+              f"{got[0]['backend']} ranks on one card, f32: max |logit "
               f"- one rank's| {worst!r} (tier {SHARED_TIER}), greedy tokens "
               f"{'equal' if same else 'DIFFER'}; collectives a rank, run "
               f"against plan: prefill {tallies[0]['bytes']} "
@@ -3376,11 +3424,61 @@ def shared_card_phase(dev, card):
         if worst > SHARED_TIER or not same or not agree:
             raise AssertionError(f"21d {name} {shape}: logits, tokens or "
                                  f"collectives off")
+        if name in SHARED_HEADS and shape[0] == 1:
+            att = [plan_attention_flops(cfg, m, B, sv["prompt"],
+                                        sv["tokens"], f32,
+                                        cache_len=sv["cache_len"])
+                   for m in (shape, (1, 1))]
+            print(f"21d {name} ({cfg.n_heads} query, {cfg.n_kv} key "
+                  f"heads) prefill: planned attention FLOPs a rank on "
+                  f"{shape} {att[0]:.6g}, one rank {att[1]:.6g} (ratio "
+                  f"{att[0] / att[1]:.4f}; {SHARED_HEADS[name]})")
+            if att[0] > (1 / shape[1] + 0.05) * att[1]:
+                raise AssertionError(f"21d {name}: each rank plans "
+                                     f"{att[0]:.4g} attention FLOPs, one "
+                                     f"rank {att[1]:.4g}")
     got = kernels.launches()
     if any(got.values()):
         raise AssertionError(f"21d launched {got}")
     print(f"21d: {time.perf_counter() - t0:.1f} s")
     return {"shared_card": got}
+
+
+def _shared_ranks(world, dev, jobs):
+    """Phase 21d's ``jobs`` on ``world`` ranks sharing ``dev``
+    (:func:`_shared_rank`); {rank: its results}, or AssertionError with
+    the ranks' tracebacks."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import _free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_shared_rank,
+                         args=(r, world, port, dev.type, jobs, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    ranks, deadline = {}, time.time() + 900
+    try:
+        while len(ranks) < world and time.time() < deadline:
+            try:
+                r, res = q.get(timeout=10)
+                ranks[r] = res
+            except queue.Empty:     # a rank that died puts nothing
+                if all(p.exitcode is not None for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+    errors = [f"21d rank {r} of {world}:\n{res['error']}"
+              for r, res in sorted(ranks.items()) if "error" in res]
+    if errors or len(ranks) < world:
+        raise AssertionError("\n".join(errors) or f"21d: ranks {ranks} "
+                             f"and exit codes {[p.exitcode for p in procs]}")
+    return ranks
 
 
 # phase 22b: each example's arguments on the card (train_smollm cut to 30

@@ -20,6 +20,9 @@ run:
   output is read once is known only when it can no longer be read (its
   storage written again or freed, or the tally read), so each output is
   settled then;
+* **top FLOPs and live bytes** (:func:`top_flops`, :func:`top_live`): the
+  FLOPs by call site, and the storages alive at the temporaries' peak by
+  the site that made them;
 * **top collectives** (:class:`CollectiveSites`, :func:`top_collectives`):
   each collective's wire bytes (its output times :func:`ring_factor` for
   its group) by (operation, group size, call site), the call site being
@@ -47,6 +50,7 @@ _DOT_PREFIXES = ("_scaled_dot_product", "_flash_attention",
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ANALYSIS = os.path.dirname(os.path.abspath(__file__))
 _CONSTRAINTS = os.path.join(_PACKAGE, "distribution", "constraints.py")
+_CHECKPOINT = torch.utils.checkpoint.__file__
 
 
 def ring_factor(op: str, g: int) -> float:
@@ -138,6 +142,26 @@ class FusionTally:
         self._offset += times * (at_step - update) + update - now
 
 
+def op_site(node) -> str:
+    """The call site of an operation dispatched while the autograd
+    ``node`` (or None) runs: in a backward pass, the site of the forward
+    operation whose gradient it computes (:func:`node_site`), unless
+    checkpointing is recomputing a forward pass, whose operations are
+    their own model frame's, marked ``(recompute)``; else :func:`_site`."""
+    if node is None:
+        return _site()
+    frames, recompute = [], False
+    f = sys._getframe(1)
+    while f is not None:
+        frames.append((f.f_code.co_filename, f.f_lineno, f.f_code.co_name))
+        recompute = recompute or f.f_code.co_filename == _CHECKPOINT
+        f = f.f_back
+    if not recompute:
+        return node_site(node)
+    site = _site_of(frames)
+    return f"{site} (recompute)" if site else ""
+
+
 def _site() -> str:
     """``module:line`` of the innermost ``repro_torch`` frame outside the
     analysis modules and ``distribution.constraints`` (the model code
@@ -145,17 +169,49 @@ def _site() -> str:
     ``" via constraints:line"`` where a constraint issued it; the
     constraint's frame alone if no other ``repro_torch`` frame calls it;
     ``""`` if none."""
+    def frames():
+        f = sys._getframe(2)
+        while f is not None:
+            yield f.f_code.co_filename, f.f_lineno, f.f_code.co_name
+            f = f.f_back
+    return _site_of(frames())
+
+
+def node_site(node) -> str:
+    """:func:`_site` of the forward operation that made the autograd
+    ``node``, followed by ``" (backward)"``: the stack anomaly mode keeps
+    in each node's metadata, which under ``PlanMode`` is that site alone
+    (:func:`site_stack`); ``""`` without one."""
+    meta = node.metadata
+    if "plan_site" not in meta:
+        site = (meta.get("traceback_") or [""])[-1]
+        meta["plan_site"] = f"{site} (backward)" if site else ""
+    return meta["plan_site"]
+
+
+def site_stack() -> List[str]:
+    """The stack anomaly mode keeps for a new autograd node, in
+    ``PlanMode``: its :func:`_site` alone (formatting every frame of every
+    node's stack would slow a training step's plan several times over)."""
+    return [_site()]
+
+
+def _site_of(frames) -> str:
+    """:func:`_site` over ``(file, line, function)`` triples, innermost
+    first.  A mode's hook in the constraints (``__torch_function__``, the
+    products reduced where made) is not a site: the product is its
+    caller's."""
     inner = None
-    f = sys._getframe(1)
-    while f is not None:
-        path = os.path.abspath(f.f_code.co_filename)
+    for fname, line, func in frames:
+        path = os.path.abspath(fname)
+        if path == _CONSTRAINTS and func == "__torch_function__":
+            continue
         if path.startswith(_PACKAGE) and not path.startswith(_ANALYSIS):
             rel = os.path.relpath(path, os.path.dirname(_PACKAGE))
-            here = f"{rel[:-3].replace(os.sep, '.')}:{f.f_lineno}"
+            here = f"{rel[:-3].replace(os.sep, '.')}:{line}"
             if path != _CONSTRAINTS:
                 return here if inner is None else f"{here} via {inner}"
             inner = inner or here
-        f = f.f_back
     return inner or ""
 
 
@@ -194,4 +250,25 @@ def top_collectives(mode, k: int = 20) -> List[Dict]:
              "site": site}
             for (op, g, site), (c, b) in mode.sites.rows.items()]
     rows.sort(key=lambda r: (-r["bytes"], -r["count"], r["site"]))
+    return rows[:k]
+
+
+def top_flops(mode, k: int = 20) -> List[Dict]:
+    """The ``k`` call sites of a :class:`~repro_torch.analysis.roofline.
+    PlanMode` tally with the most FLOPs a device: ``{"site", "flops"}``
+    (a backward operation under its forward operation's site, marked
+    ``(backward)``), the counterpart of JAX's dot FLOPs by ``op_name``."""
+    rows = [{"site": site, "flops": float(f)}
+            for site, f in mode.flops_by_site.items() if f]
+    rows.sort(key=lambda r: (-r["flops"], r["site"]))
+    return rows[:k]
+
+
+def top_live(mode, k: int = 20) -> List[Dict]:
+    """The ``k`` call sites holding the most temporary bytes at the
+    step's peak: ``{"site", "bytes", "count"}`` (storages alive then, by
+    the site that made them)."""
+    rows = [{"site": site, "bytes": int(b), "count": int(c)}
+            for site, (c, b) in mode.live_at_peak().items()]
+    rows.sort(key=lambda r: (-r["bytes"], r["site"]))
     return rows[:k]

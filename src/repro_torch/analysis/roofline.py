@@ -53,7 +53,10 @@ from repro_torch.analysis.bounds import (
 _COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                 "reduce_scatter_tensor": "reduce-scatter",
                 "all_reduce": "all-reduce",
-                "all_to_all_single": "all-to-all"}
+                "all_to_all_single": "all-to-all",
+                # DTensor's move of a split from one dim to another, where
+                # the group does all-to-all (NCCL; gloo on CUDA tensors)
+                "shard_dim_alltoall": "all-to-all"}
 
 
 def _nbytes(x) -> int:
@@ -74,21 +77,33 @@ def _tensors(tree):
 class PlanMode(FakeTensorMode):
     """``FakeTensorMode`` that tallies each local operation (one on fake
     tensors, not on the DTensors around them) while ``counting`` is on.
-    DTensor infers an operation's output shapes by running it on whole
+    DTensor infers an operation's output shapes, and the strategy of an
+    operation it only knows by its decomposition, by running them on whole
     (global) fake tensors in the active fake mode, once per distinct
-    call; those runs are not counted (the propagator's method is wrapped
-    while the mode is entered)."""
+    call; those runs are not counted (the propagator's methods are
+    wrapped while the mode is entered).
 
-    def __init__(self):
+    ``alltoall``: whether the planned group does all-to-all, as NCCL and
+    gloo on CUDA tensors do (a card's run): DTensor then moves a split
+    from one dim to another with one all-to-all, which the planner's
+    fake group on the CPU would otherwise replace, as a CPU group does,
+    by an all-gather and a slice (False: a run on the CPU)."""
+
+    def __init__(self, alltoall: bool = True):
         super().__init__(allow_non_fake_inputs=True)
+        self.alltoall = alltoall
         self.counting = False
         self.flops = 0
         self.bytes = 0
         self.coll_bytes: Dict[str, float] = defaultdict(float)
         self.coll_counts: Dict[str, int] = defaultdict(int)
         self.flops_by_op: Dict[str, int] = defaultdict(int)
+        self.flops_by_site: Dict[str, float] = defaultdict(float)
         self.live = 0
         self.peak = 0
+        self.peak_sites: Dict[str, List[int]] = {}
+        self._live_sites: Dict[int, tuple] = {}
+        self._at_peak = False
         self.fusion = plan_cost.FusionTally()
         self.sites = plan_cost.CollectiveSites()
         self._seen = set()
@@ -97,6 +112,8 @@ class PlanMode(FakeTensorMode):
     def start(self) -> None:
         self.counting = True
         self.live = self.peak = 0
+        self.peak_sites = {}
+        self._at_peak = False
 
     def tally(self) -> Dict[str, Any]:
         """The counts so far (flops, bytes and collectives; the fused
@@ -105,6 +122,7 @@ class PlanMode(FakeTensorMode):
                 "coll_bytes": dict(self.coll_bytes),
                 "coll_counts": dict(self.coll_counts),
                 "flops_by_op": dict(self.flops_by_op),
+                "flops_by_site": dict(self.flops_by_site),
                 "fused_saved": self.fusion.saved(),
                 "sites": self.sites.snapshot()}
 
@@ -125,7 +143,8 @@ class PlanMode(FakeTensorMode):
 
         self.flops = total(step["flops"], self.flops)
         self.bytes = total(step["bytes"], self.bytes)
-        for name in ("coll_bytes", "coll_counts", "flops_by_op"):
+        for name in ("coll_bytes", "coll_counts", "flops_by_op",
+                     "flops_by_site"):
             now, then = getattr(self, name), step[name]
             for k in set(now) | set(then):
                 now[k] = total(then.get(k, 0), now.get(k, 0))
@@ -137,28 +156,49 @@ class PlanMode(FakeTensorMode):
         if self._depth > 1:   # re-entered by each fake tensor's dispatch
             return super().__enter__()
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
-        name = next(n for n in ("_propagate_tensor_meta_non_cached",
-                                "_propagate_tensor_meta")
-                    if hasattr(ShardingPropagator, n))
-        orig = getattr(ShardingPropagator, name)
+        # the output shapes, and the strategies that an operation without
+        # rules of its own takes from its decomposition run on whole fake
+        # tensors: both are propagation, not a rank's work
+        names = [n for n in ("_propagate_tensor_meta_non_cached",
+                             "_propagate_tensor_meta",
+                             "propagate_op_sharding_non_cached")
+                 if hasattr(ShardingPropagator, n)]
         mode = self
 
-        def quiet(prop, *args, **kwargs):
-            was, mode.counting = mode.counting, False
-            try:
-                return orig(prop, *args, **kwargs)
-            finally:
-                mode.counting = was
+        def quiet(orig):
+            def run(prop, *args, **kwargs):
+                was, mode.counting = mode.counting, False
+                try:
+                    return orig(prop, *args, **kwargs)
+                finally:
+                    mode.counting = was
+            return run
 
-        self._patched = (ShardingPropagator, name, orig)
-        setattr(ShardingPropagator, name, quiet)
+        self._patched = [(ShardingPropagator, n,
+                          getattr(ShardingPropagator, n)) for n in names]
+        for cls, n, orig in self._patched:
+            setattr(cls, n, quiet(orig))
+        if self.alltoall:
+            self._patched += _alltoall_route()
+        # each autograd node keeps its forward operation's site (anomaly
+        # mode's stack, cut to the site), so that a backward operation is
+        # tallied at the site that needed it
+        import torch.fx.traceback as fx_traceback
+        self._anomaly = (torch.is_anomaly_enabled(),
+                         torch.is_anomaly_check_nan_enabled(),
+                         fx_traceback.format_stack)
+        fx_traceback.format_stack = plan_cost.site_stack
+        torch.autograd.set_detect_anomaly(True, check_nan=False)
         return super().__enter__()
 
     def __exit__(self, *exc):
         self._depth -= 1
         if self._depth == 0:
-            cls, name, orig = self._patched
-            setattr(cls, name, orig)
+            for cls, name, orig in self._patched:
+                setattr(cls, name, orig)
+            import torch.fx.traceback as fx_traceback
+            torch.autograd.set_detect_anomaly(*self._anomaly[:2])
+            fx_traceback.format_stack = self._anomaly[2]
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -172,19 +212,24 @@ class PlanMode(FakeTensorMode):
             return out
         packet = func._overloadpacket
         name = packet.__name__
+        site = None
         if name in _COLLECTIVES:
             self._collective(name, args, out)
         elif packet in flop_registry:
             n = flop_registry[packet](*args, **(kwargs or {}), out_val=out)
             self.flops += n
             self.flops_by_op[name] += n
+            site = _op_site()
+            self.flops_by_site[site] += n
         if not _is_view(func):
             outs = [t for t in _tensors(out) if isinstance(t, FakeTensor)]
             self.bytes += sum(map(_nbytes, ins)) + sum(
                 map(_nbytes, _tensors(out)))
             self.fusion.op(func, ins, outs)
             for t in _tensors(out):
-                self._born(t)
+                if site is None:
+                    site = _op_site()
+                self._born(t, site)
         return out
 
     def _collective(self, name, args, out) -> None:
@@ -193,7 +238,7 @@ class PlanMode(FakeTensorMode):
         self.coll_counts[op] += 1
         self.sites.add(op, group, wire)
 
-    def _born(self, t: torch.Tensor) -> None:
+    def _born(self, t: torch.Tensor, site: str) -> None:
         try:
             key = t.untyped_storage()._cdata
         except (RuntimeError, NotImplementedError):
@@ -202,13 +247,52 @@ class PlanMode(FakeTensorMode):
             return
         n = t.untyped_storage().nbytes()
         self._seen.add(key)
+        self._live_sites[key] = (n, site)
         self.live += n
-        self.peak = max(self.peak, self.live)
+        if self.live > self.peak:
+            self.peak, self._at_peak = self.live, True
         weakref.finalize(t, self._died, key, n)
 
     def _died(self, key, n) -> None:
+        if self._at_peak:    # the live set at the peak, by site
+            self._snap_peak()
         self._seen.discard(key)
+        self._live_sites.pop(key, None)
         self.live -= n
+
+    def _snap_peak(self) -> None:
+        sites: Dict[str, List[int]] = {}
+        for n, site in self._live_sites.values():
+            row = sites.setdefault(site, [0, 0])
+            row[0] += 1
+            row[1] += n
+        self.peak_sites, self._at_peak = sites, False
+
+    def live_at_peak(self) -> Dict[str, List[int]]:
+        """``{site: [storages, bytes]}`` alive at the peak so far."""
+        if self._at_peak:
+            self._snap_peak()
+        return self.peak_sites
+
+
+def _alltoall_route():
+    """Point DTensor's move of a split between dims at its all-to-all
+    operator whatever the mesh's device (its CPU route is an all-gather
+    and a slice); returns the (module, name, original) patched."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+    mods = [m for m in (placement_types, _collective_utils)
+            if hasattr(m, "shard_dim_alltoall")]
+    if not mods:
+        raise RuntimeError("DTensor has no shard_dim_alltoall to plan")
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    patched = [(m, "shard_dim_alltoall", m.shard_dim_alltoall) for m in mods]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    return patched
 
 
 def _wire(name, args, out, groups: Dict[str, int]):
@@ -221,6 +305,12 @@ def _wire(name, args, out, groups: Dict[str, int]):
         groups[args[-1]] = _resolve_process_group(args[-1]).size()
     group = groups[args[-1]]
     return op, group, _nbytes(out) * plan_cost.ring_factor(op, group)
+
+
+def _op_site() -> str:
+    """The call site of the operation being dispatched
+    (:func:`.plan_cost.op_site`)."""
+    return plan_cost.op_site(torch._C._current_autograd_node())
 
 
 class CommTally(TorchDispatchMode):
@@ -280,6 +370,8 @@ class RooflineReport:
     bytes_fused: float = 0.0        # per device, a fusing compiler's
     memory_fused_s: float = 0.0
     top_collectives: Optional[List[Dict]] = None
+    top_flops: Optional[List[Dict]] = None
+    top_live: Optional[List[Dict]] = None
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -313,7 +405,9 @@ def analyze_plan(name: str, mode: PlanMode, *, chips: int, arg_bytes: int,
         dot_flops=plan_cost.dot_flops(mode.flops_by_op),
         bytes_fused=float(mode.bytes_fused),
         memory_fused_s=float(mode.bytes_fused) / HBM_BW,
-        top_collectives=plan_cost.top_collectives(mode))
+        top_collectives=plan_cost.top_collectives(mode),
+        top_flops=plan_cost.top_flops(mode),
+        top_live=plan_cost.top_live(mode))
 
 
 def model_flops_estimate(cfg, shape) -> float:

@@ -46,7 +46,10 @@ class _ReduceProducts(torch.overrides.TorchFunctionMode):
     kept split where it is.  Left partial, DTensor would reduce it at the
     next nonlinearity by scattering it over whichever dim it picks (the
     sequence, say), a layout the next product cannot take.  Only the
-    forward's products pass here: autograd's backward ops do not."""
+    forward's products pass here: autograd's backward ops do not, nor a
+    checkpointed layer's recomputation, whose partial products meet the
+    residual stream's pins (:func:`constrain_batch_dim`, which pins the
+    gradient too)."""
 
     _PRODUCTS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
                  torch.einsum}
@@ -144,7 +147,10 @@ def dp_size() -> int:
 def constrain_batch_dim(x, bdim: int = 0):
     """Pin x's ``bdim`` to the data-parallel axes (if the dim divides; a
     DTensor whose batch does not divide them is pinned replicated, its
-    partial sums reduced)."""
+    partial sums reduced).  Its gradient is pinned alike, as GSPMD pins a
+    constrained value's cotangent: partial sums coming back from the loss
+    or a row-parallel product are reduced here, where the residual stream
+    is, not met by weights DTensor would gather."""
     dp = batch_axes()
     if dp is None:
         return x
@@ -154,7 +160,26 @@ def constrain_batch_dim(x, bdim: int = 0):
         spec[bdim] = dp
     elif not is_dtensor(x):
         return x
-    return constrain(x, *spec)
+    x = constrain(x, *spec)
+    if is_dtensor(x) and x.requires_grad and torch.is_grad_enabled():
+        x = _PinGrad.apply(x)
+    return x
+
+
+class _PinGrad(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to the placements
+    of its input (partial sums reduced)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
 
 
 def local_call(fn, args, in_specs, out_specs, grad_partial=None):

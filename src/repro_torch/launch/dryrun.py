@@ -33,7 +33,7 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -137,12 +137,15 @@ def _fake_like(specs: Dict[str, torch.Tensor], device) -> Dict[str, Any]:
 
 def plan_case(cfg: ModelConfig, shape: InputShape, mesh,
               pol: CasePolicy, mode: PlanMode,
-              dtype=torch.bfloat16) -> Dict[str, Any]:
+              dtype=torch.bfloat16,
+              inputs: Optional[Tuple[str, ...]] = None) -> Dict[str, Any]:
     """Trace one case's step on ``mesh`` (a ``DeviceMesh`` over a fake
     group, or over real ranks) inside ``mode`` (entered by the caller),
     computing and caching in ``dtype`` (the sweep's bf16).  A prefill
     fills caches of ``pol.cache_len`` slots where it is set (a serving
     engine's, longer than the prompt), else of the prompt's length.
+    ``inputs`` names the batch's inputs to plan (default every one
+    ``make_batch_specs`` gives the shape: a VLM's image patches too).
     Returns the per-device argument bytes by part ("params", "opt" or
     "caches", "batch"); ``mode`` holds the tally of the step alone."""
     axes = mesh_axes(mesh)
@@ -163,7 +166,8 @@ def plan_case(cfg: ModelConfig, shape: InputShape, mesh,
     psp = param_specs(axes, tree, fsdp=pol.fsdp, pure_dp=pol.pure_dp)
     params = LM(cfg, distribute(tree, psp, mesh))
     parts = {"params": local_bytes(tree, psp, axes)}
-    bspecs = _fake_like(make_batch_specs(cfg, shape), dev)
+    bspecs = _fake_like({k: v for k, v in make_batch_specs(cfg, shape).items()
+                         if inputs is None or k in inputs}, dev)
     bsp = batch_specs(axes, bspecs, shape, pure_dp=pol.pure_dp)
     batch = distribute(bspecs, bsp, mesh)
     parts["batch"] = local_bytes(bspecs, bsp, axes)

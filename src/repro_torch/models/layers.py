@@ -28,6 +28,7 @@ from repro_torch.distribution.constraints import (
     axes_of,
     batch_entry,
     constrain,
+    current_mesh,
     is_dtensor,
     local_call,
     model_axis_size,
@@ -155,12 +156,19 @@ def set_attention_impl(impl: str) -> None:
 
 def _mesh_core(q, k, v, **kw) -> torch.Tensor:
     """:func:`attention_core` on a mesh: each rank attends with its batch
-    rows and, where the model axis divides both head counts, its heads
-    (else every head).  Keys and values stay where the cache rule put them
-    when their sequence is split (the batch-1 rule), or when their head
-    width is split and the scores are narrower than the keys and values
-    (a decode step): each rank then attends over its own slots and width
-    (:func:`_split_attention`).  Else the head width is made whole."""
+    rows and, where the model axis divides the query heads, its heads
+    against the key and value heads they read (every key and value head
+    where the model axis divides those too; else the keys and values are
+    made whole and each rank keeps its groups' heads, as GSPMD lays out a
+    grouped query whose key heads the axis does not divide).  A head
+    count the model axis does not divide is split by
+    :func:`_blocked_attention` before it gets here, or (a decode step)
+    attends with every head.  Keys and values stay where the cache rule
+    put them when their sequence is split (the batch-1 rule), or when
+    their head width is split and the scores are narrower than the keys
+    and values (a decode step): each rank then attends over its own slots
+    and width (:func:`_split_attention`).  Else the head width is made
+    whole."""
     B, Sq, H, hd = q.shape
     KV, hdv = k.shape[2], v.shape[3]
     b = batch_entry(B)
@@ -177,10 +185,111 @@ def _mesh_core(q, k, v, **kw) -> torch.Tensor:
             lambda q, k, v: (_split_attention(q, k, v, seq, w, **dict(
                 kw, scale=scale)),), (q, k, v), (qs, kvs, kvs), [(qs, ())])
         return o
+    hq = H // model_axis_size() if model_entry(H) else 0
+    if h is None and hq and (hq % (H // KV) == 0 or (H // KV) % hq == 0):
+        # the query heads split, each rank's key and value heads taken
+        # from them made whole
+        qs, kvs = (b, None, "model", None), (b, None, None, None)
+
+        def own(q, k, v):
+            kv0 = current_mesh().get_local_rank("model") * hq // (H // KV)
+            n = max(1, hq // (H // KV))
+            return (attention_core(q, k[:, :, kv0:kv0 + n],
+                                   v[:, :, kv0:kv0 + n], **kw),)
+
+        (o,) = local_call(own, (q, k, v), (qs, kvs, kvs), [(qs, ())],
+                          grad_partial=[(), ("model",), ("model",)])
+        return o
     spec = (b, None, h, None)
     (o,) = local_call(lambda q, k, v: (attention_core(q, k, v, **kw),),
                       (q, k, v), (spec, spec, spec), [(spec, ())])
     return o
+
+
+def head_blocks(H: int, KV: int, m: int, Sq: int,
+                block_q: int) -> Optional[Tuple[int, int]]:
+    """How a model axis of ``m`` ranks (0: none) splits attention over
+    ``H`` query heads it does not divide, ``KV`` key heads and ``Sq``
+    query rows: ``(blocks, r)``, the query heads grouped by key head in
+    ``blocks`` blocks as GSPMD splits them (the key heads over gcd(KV, m)
+    ranks; when that takes every key head, each head's group over the gcd
+    of its size and the ranks left), each block's rows over the ``r = m /
+    blocks`` ranks that GSPMD leaves computing the same block.  Model rank
+    ``i`` takes block ``i // r`` at part ``i % r`` of the rows; only part
+    0's rows start at position 0, which the flash kernel needs.  None
+    where ``m`` divides ``H`` (or is 0), or where the rows do not split
+    into ``r`` parts the query-block pass takes (a decode step)."""
+    if not m or H % m == 0:
+        return None
+    G = H // KV
+    f_kv = math.gcd(KV, m)
+    f_g = math.gcd(G, m // f_kv) if f_kv == KV else 1
+    blocks = f_kv * f_g
+    r = m // blocks
+    rows = Sq // r
+    if Sq < 2 or Sq % r or (rows > block_q and rows % block_q):
+        return None
+    return blocks, r
+
+
+def _blocked_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, blocks: int, r: int, *,
+                       causal: bool, q_offset: int = 0,
+                       window: Optional[int] = None,
+                       kv_valid_len: Optional[int] = None,
+                       block_q: int = 1024) -> torch.Tensor:
+    """Attention and its output projection on a mesh whose model axis does
+    not divide the ``H`` query heads (:func:`head_blocks`): model rank
+    ``i`` projects, rotates and attends with the query heads of block
+    ``i // r`` at its ``1/r`` of the rows (``i % r``), against the key and
+    value heads they read (made whole), and projects its output with its
+    heads' rows of ``wo``; the ranks' outputs are summed (a partial sum
+    over the model axis, reduced here).  No rank computes another's heads
+    and rows, and no query is gathered: the projections' weights are made
+    whole instead.  Rows after the first part attend with an offset, so
+    the flash kernel takes only the first part's (as JAX's kernel takes
+    no offset)."""
+    B, Sq, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    G, hq, rows = H // KV, H // blocks, Sq // r
+    b = batch_entry(B)
+    ws = [whole(p["wq"]), whole(p["wo"])]
+    if "bq" in p:
+        ws.append(whole(p["bq"]))
+    pos_spec = None
+    if is_dtensor(positions):
+        pos_spec = (b, None) if positions.ndim == 2 else (None, b, None)
+
+    def local(x, k, v, pos, wq, wo, *bq):
+        i = current_mesh().get_local_rank("model")
+        blk, part = divmod(i, r)
+        r0, cols = part * rows, slice(blk * hq * hd, (blk + 1) * hq * hd)
+        n = x.shape[0]
+        if pos_spec is None:      # a plain tensor of every batch row
+            pos = pos.narrow(-2, shard_index(b) * n, n)
+        # contiguous rows: one (rows, d) × (d, hq·hd) product, not a
+        # batched one over a slice the weight is broadcast to
+        q = project_query(x[:, r0:r0 + rows].contiguous(), wq[:, cols],
+                          bq[0][cols] if bq else None,
+                          pos[..., r0:r0 + rows], cfg, hq)
+        kv0, nkv = blk * hq // G, max(1, hq // G)
+        o = attention_core(q, k[:, :, kv0:kv0 + nkv], v[:, :, kv0:kv0 + nkv],
+                           causal=causal, q_offset=q_offset + r0,
+                           window=window, kv_valid_len=kv_valid_len,
+                           block_q=block_q)
+        out = project_out(o, wo[cols])
+        return (F.pad(out, (0, 0, r0, Sq - r0 - rows)),)
+
+    kvs = (b, None, None, None)
+    axes = axes_of(b) + ("model",)
+    specs = [(b, None, None), kvs, kvs, pos_spec] + [(None,) * w.ndim
+                                                     for w in ws]
+    (out,) = local_call(local, (x, k, v, positions, *ws), specs,
+                        [((b, None, None), ("model",))],
+                        grad_partial=[("model",), ("model",), ("model",),
+                                      ()] + [axes] * len(ws))
+    return constrain(out, b, None, None)
 
 
 def _split_attention(q, k, v, seq, width, *, causal, q_offset, window,
@@ -299,8 +408,10 @@ def attention_core(
 
 def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     """(B, S, n·hd) as (B, S, n, hd).  On a mesh whose model axis does not
-    divide the ``n`` heads the width is gathered first (every model rank
-    computes every head, as GSPMD does with such a head count)."""
+    divide the ``n`` heads the width is gathered first: the key and value
+    heads of grouped attention, which each rank reads whole
+    (:func:`_mesh_core`, :func:`_blocked_attention`); a query that no
+    model rank splits by heads (a decode step)."""
     B, S = x.shape[:2]
     m = model_axis_size()
     if m and n % m and is_dtensor(x):
@@ -315,6 +426,35 @@ def head_weight(w: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     if m and n % m and is_dtensor(w):
         w = whole(w)
     return w.reshape(w.shape[0], n, hd)
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """:func:`rope_apply` with ``cfg``'s base and M-RoPE sections."""
+    sec = cfg.mrope_sections if cfg.rope == "mrope" else None
+    return rope_apply(x, positions, cfg.rope_theta, sec)
+
+
+def project_query(x: torch.Tensor, wq: torch.Tensor,
+                  bq: Optional[torch.Tensor], positions: Optional[torch.Tensor],
+                  cfg: ModelConfig, n: int) -> torch.Tensor:
+    """The ``n`` query heads of ``x`` (B, S, d): ``x @ wq`` plus the bias
+    ``bq`` (if any), rotated at ``positions`` (None: not rotated, as the
+    queries against an encoder's or given keys).  :func:`apply_attention`
+    passes a layer's weights, :func:`_blocked_attention` a rank's heads'
+    columns of them and its rows of ``x``."""
+    q = x @ wq
+    if bq is not None:
+        q = q + bq.to(q.dtype)
+    q = split_heads(q, n, cfg.hd)
+    if positions is not None and cfg.rope != "none":
+        q = rotate(q, positions, cfg)
+    return q
+
+
+def project_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """Attention's output (B, S, H, hd) through ``wo`` (H·hd, d)."""
+    return merge_heads(o) @ wo
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -352,23 +492,25 @@ def apply_attention(
     package returns new arrays instead."""
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = x @ p["wq"]
-    if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
-    q = split_heads(q, H, hd)
+    blocked = (head_blocks(H, KV, model_axis_size(), S, block_q)
+               if is_dtensor(x) and cross_y is None and kv_override is None
+               else None)
+    # queries against the encoder's or given keys are not rotated; on a
+    # blocked mesh each model rank projects its own heads
+    rot = positions if cross_y is None and kv_override is None else None
+    q = None if blocked else project_query(x, p["wq"], p.get("bq"), rot,
+                                           cfg, H)
 
     if cross_y is not None:
         # cross-attention: keys/values from the encoder sequence, no RoPE
         k = split_heads(cross_y @ p["wk"], KV, hd)
         v = split_heads(cross_y @ p["wv"], KV, hd)
         out = attention_core(q, k, v, causal=False, block_q=block_q)
-        out = merge_heads(out) @ p["wo"]
-        return out, {"k": k, "v": v}  # static cross cache for decode
+        return project_out(out, p["wo"]), {"k": k, "v": v}  # static cache
     if kv_override is not None:
         k, v = kv_override
         out = attention_core(q, k, v, causal=False, block_q=block_q)
-        out = merge_heads(out) @ p["wo"]
-        return out, None
+        return project_out(out, p["wo"]), None
     # self-attention path
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -378,9 +520,7 @@ def apply_attention(
     k = split_heads(k, KV, hd)
     v = split_heads(v, KV, hd)
     if cfg.rope != "none":
-        sec = cfg.mrope_sections if cfg.rope == "mrope" else None
-        q = rope_apply(q, positions, cfg.rope_theta, sec)
-        k = rope_apply(k, positions, cfg.rope_theta, sec)
+        k = rotate(k, positions, cfg)
 
     new_cache = None
     if cache is not None:
@@ -396,15 +536,15 @@ def apply_attention(
         # Ring buffer: it holds exactly the last `window` positions, so all
         # filled slots are attendable and absolute-position masks don't apply.
         causal_here = False if window is not None else causal
-        out = attention_core(q, ck, cv, causal=causal_here,
-                             q_offset=cache_index, window=None,
-                             kv_valid_len=kv_valid, block_q=block_q)
+        kw = dict(causal=causal_here, q_offset=cache_index, window=None,
+                  kv_valid_len=kv_valid, block_q=block_q)
+        k, v = ck, cv
     else:
-        out = attention_core(q, k, v, causal=causal, window=window,
-                             block_q=block_q)
-
-    out = merge_heads(out) @ p["wo"]
-    return out, new_cache
+        kw = dict(causal=causal, window=window, block_q=block_q)
+    if blocked is not None:
+        return _blocked_attention(p, cfg, x, positions, k, v, *blocked,
+                                  **kw), new_cache
+    return project_out(attention_core(q, k, v, **kw), p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------

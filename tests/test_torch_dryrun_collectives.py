@@ -142,7 +142,9 @@ def test_full_size_deepseek_v2_decode_holds_jax_bytes(jax_plans):
 def test_dryrun_compare_flags_cases_over_twice_jax_or_risen(tmp_path):
     """``scripts/dryrun_compare.py`` flags a case whose port bytes exceed
     twice JAX's and JAX's + 0.05 GB, or (with ``--before``) rose by more
-    than 5% from within twice JAX's; a small excess and a skip pass."""
+    than 5% from within twice JAX's; a small excess and a skip pass.
+    Alike for FLOPs a device (over 1.5× JAX's + 1e12; over 1.25× only
+    marked) and the peak (over 2× JAX's + 1 GB, or over 80 GB)."""
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import dryrun_compare
 
@@ -171,3 +173,67 @@ def test_dryrun_compare_flags_cases_over_twice_jax_or_risen(tmp_path):
                               rec("c", 0.9e9), rec("d", 0, "skipped")])
     assert dryrun_compare.main([jax, ok, "--before", before]) == 1
     assert dryrun_compare.main([jax, before, "--before", ok]) == 0
+
+    def work(arch, flops, peak_gb, status="ok"):
+        r = rec(arch, 1e9, status)
+        if status == "ok":
+            r["roofline"].update(flops=flops, arg_bytes=1e9,
+                                 temp_bytes=peak_gb * 1e9 - 1e9)
+        return r
+
+    jax = write("jax_w", [work("a", 1e13, 3), work("b", 1e14, 50),
+                          work("c", 0, 0, "skipped")])
+    fine = write("fine_w", [work("a", 1.4e13, 6.9), work("b", 1.2e14, 79),
+                            work("c", 0, 0, "skipped")])
+    assert dryrun_compare.main([jax, fine]) == 0
+    for bad in ([work("a", 1.7e13, 3), work("b", 1e14, 50)],
+                [work("a", 1e13, 7.5), work("b", 1e14, 50)],
+                [work("a", 1e13, 3), work("b", 1e14, 81)],
+                [work("a", 1e13, 3)]):
+        assert dryrun_compare.main([jax, write("bad_w", bad)]) == 1, bad
+    low = write("low_w", [work("a", 1.0e13, 3), work("b", 1e14, 50)])
+    assert dryrun_compare.main([jax, fine, "--before", low]) == 1
+    assert dryrun_compare.main([jax, low, "--before", fine]) == 0
+    rose = write("rose_w", [work("a", 1.0e13, 3.3), work("b", 1e14, 50)])
+    assert dryrun_compare.main([jax, rose, "--before", low]) == 1
+
+
+@pytest.mark.parametrize("alltoall", [True, False])
+def test_split_moved_between_dims_is_planned_as_its_group_runs_it(alltoall):
+    """A split moved from one dim to another on a model axis of 4 is one
+    all-to-all where the group does all-to-all (NCCL, gloo on CUDA:
+    ``PlanMode(alltoall=True)``), planned at the wire bytes a real run's
+    ``CommTally`` counts for DTensor's operator on the same local block
+    (3/4 of it); on the CPU's route (``alltoall=False``) it is an
+    all-gather and a slice, 4 times those bytes."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.analysis.roofline import CommTally, PlanMode
+    from repro_torch.launch.mesh import _mesh
+
+    TD.fake_group(4)
+    try:
+        mesh = _mesh("cpu", (1, 4), ("data", "model"))
+        mode = PlanMode(alltoall=alltoall)
+        with mode:
+            x = distribute_tensor(torch.empty(8, 16, 32), mesh,
+                                  [Replicate(), Shard(0)])
+            mode.start()
+            y = x.redistribute(mesh, [Replicate(), Shard(1)])
+            assert tuple(y.to_local().shape) == (8, 4, 32)
+        block = 2 * 16 * 32 * 4            # a rank's (2, 16, 32) f32 block
+        with CommTally() as tally:
+            torch.ops._dtensor.shard_dim_alltoall(
+                torch.zeros(2, 16, 32), 0, 1,
+                mesh.get_group(1).group_name)
+    finally:
+        dist.destroy_process_group()
+    assert dict(tally.bytes) == {"all-to-all": block * 3 / 4}
+    assert dict(tally.counts) == {"all-to-all": 1}
+    if alltoall:
+        assert dict(mode.coll_bytes) == dict(tally.bytes)
+        assert dict(mode.coll_counts) == dict(tally.counts)
+    else:
+        assert dict(mode.coll_bytes) == {"all-gather": 4 * block * 3 / 4}
+        assert dict(mode.coll_counts) == {"all-gather": 1}

@@ -25,6 +25,20 @@ columns on (2, 1)).  On each:
   the greedy tokens equal one device's, and JAX's argmax except where
   JAX's top two logits lie within 1e-4 of each other.
 
+Two head counts serve on (1, 2) at batch 4 as well: smollm-135m's own 9
+query and 3 key heads, which the model axis does not divide (each rank
+projects, rotates and attends with every head at half of the prompt's
+rows, its output a partial sum reduced across the ranks), and reduced
+qwen1.5-110b's 4 and 1 (each rank its 2 query heads against the key
+head made whole; a 32-token prompt, so that the prefill's scores outgrow
+the keys and values and take that layout).
+
+Four ranks serve on (1, 4) at batch 4 with reduced qwen2-vl-2b at its
+own 12 query and 2 key heads and a 32-token prompt (3 query heads a
+rank, whose group of 6 reads one key head: each rank attends with its
+heads against that key head made whole), held as above; each rank plans
+a quarter of one rank's attention FLOPs.
+
 Then each rank routes its all-gathers through c10d
 (``launch.mesh.share_card_gathers``, the route for ranks sharing a card,
 here on the CPU's kernel) and serves smollm-135m and DeepSeek-V2 again on
@@ -34,12 +48,14 @@ A second pair of ranks trains reduced smollm-135m and grok-1 (MoE) two
 steps at data=2 with the weights placed for FSDP (``launch.train.place(...,
 fsdp=True)``: each layer's weights gathered where the layer uses them,
 ``constraints.gather_fsdp``, the head once a step in ``chunked_ce_loss``),
+and the 9-head smollm-135m two steps at model=2 (tensor parallel), each
 held to the one-device step at the tiers of
 ``tests/test_torch_mesh_train.py``: the first step's loss, accuracy,
 gradient norm (rtol 1e-5), first moments and weights; the second's loss
 and gradient norm.
 """
 
+import dataclasses
 import os
 import queue
 import sys
@@ -70,42 +86,68 @@ ARCHS = ["smollm-135m", "deepseek-v2-236b", "jamba-1.5-large-398b"]
 ROUTED = ARCHS[:2]
 FSDP = ARCHS[1:]
 JOBS = [((1, 2), 4), ((2, 1), 1)]      # (data, model), batch
+# head counts the model axis of 2 does not divide (smollm-135m's 9 query
+# and 3 key heads: each rank attends with every head at half the query
+# rows) or divides for the queries only (qwen1.5-110b reduced, 4 and 1:
+# each rank its 2 query heads against the one key head)
+HEADS = {"smollm-135m:9": ("smollm-135m", {"n_heads": 9, "n_kv": 3}),
+         "qwen1.5-110b": ("qwen1.5-110b", {})}
+# served on four ranks at (1, 4): 3 query heads a rank, a key head's group
+# of 6 spread over two ranks
+FOUR = {"qwen2-vl-2b:12": ("qwen2-vl-2b", {"n_heads": 12, "n_kv": 2})}
 RUNS = ([(a, s, B, False) for a in ARCHS for s, B in JOBS]
-        + [(a, s, B, True) for a in FSDP for s, B in JOBS])
+        + [(a, s, B, True) for a in FSDP for s, B in JOBS]
+        + [(a, (1, 2), 4, False) for a in HEADS])
 S, DECODE = 16, 2
+# prompts long enough that the scores outgrow the keys and values, so that
+# the query heads split against their key head (``layers._mesh_core``)
+# rather than the attention over the caches' split head width
+SEQ = {"qwen1.5-110b": 32, "qwen2-vl-2b:12": 32}
 F32 = torch.float32
 TRAIN = ["smollm-135m", "grok-1-314b"]
+# (configuration, mesh, FSDP's placement)
+TRAIN_RUNS = [(a, (2, 1), True) for a in TRAIN] + [
+    ("smollm-135m:9", (1, 2), False)]
 TRAIN_B, TRAIN_S, STEPS = 4, 32, 2
+
+
+def _configs(key):
+    """(JAX's, the port's) reduced configuration of ``key``: an
+    architecture, or a name of :data:`HEADS` (its head counts replaced)."""
+    arch, over = {**HEADS, **FOUR}.get(key, (key, {}))
+    return (dataclasses.replace(JC.get_config(arch).reduced(), **over),
+            dataclasses.replace(TC.get_config(arch).reduced(), **over))
 
 
 def _weights(arch):
     """JAX's reduced ``init_lm`` weights as numpy, in its layout."""
-    jcfg = JC.get_config(arch).reduced()
+    jcfg = _configs(arch)[0]
     return jax.tree.map(np.asarray, JM.init_lm(jax.random.PRNGKey(0), jcfg))
 
 
-def _prompt(cfg, B):
+def _prompt(arch, cfg, B):
     g = np.random.default_rng(7)
-    return torch.as_tensor(g.integers(0, cfg.vocab, (B, S)), dtype=torch.long)
+    return torch.as_tensor(g.integers(0, cfg.vocab, (B, SEQ.get(arch, S))),
+                           dtype=torch.long)
 
 
-def _spawn(target, *args):
-    """Two ranks running ``target(rank, port, *args, q)``; returns
+def _spawn(target, *args, world=2):
+    """``world`` ranks running ``target(rank, port, *args, q)``; returns
     (processes, queue)."""
     from repro_torch.launch.mesh import _free_port
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=target, args=(r, port, *args, q))
-             for r in range(2)]
+             for r in range(world)]
     for p in procs:
         p.start()
     return procs, q
 
 
 def _collect(procs, q):
-    """Rank 0's items until its end mark, or until both ranks have ended
-    without one; both ranks joined."""
+    """Rank 0's items until its end mark, or until every rank has ended
+    without one; every rank joined."""
     runs, deadline = {}, time.monotonic() + 600
     try:
         while time.monotonic() < deadline:
@@ -137,20 +179,20 @@ def _worker(rank, port, npps, q):
     init_ranks("cpu")
     try:
         for arch, shape, B, fsdp in RUNS:
-            cfg = TC.get_config(arch).reduced()
+            cfg = _configs(arch)[1]
             lm = M.from_reference(npps[arch], cfg, device="cpu")
             got = chip_smoke.serve_on_mesh(
-                cfg, lm, _prompt(cfg, B), DECODE, F32,
+                cfg, lm, _prompt(arch, cfg, B), DECODE, F32,
                 make_launch_mesh("cpu", shape), fsdp=fsdp)
             if rank == 0:
                 q.put(((arch, shape, fsdp), got[:3]))
         share_card_gathers("cpu")
         for arch in ROUTED:
-            cfg = TC.get_config(arch).reduced()
+            cfg = _configs(arch)[1]
             lm = M.from_reference(npps[arch], cfg, device="cpu")
             for shape, B in JOBS:
                 got = chip_smoke.serve_on_mesh(
-                    cfg, lm, _prompt(cfg, B), DECODE, F32,
+                    cfg, lm, _prompt(arch, cfg, B), DECODE, F32,
                     make_launch_mesh("cpu", shape))
                 if rank == 0:
                     q.put(((arch, shape, "routed"), got[:3]))
@@ -164,16 +206,17 @@ def _jax_serve(arch, npp, B, toks):
     """JAX's prefill of the prompt and a decode step for each of ``toks``
     (the port's greedy tokens, so that both packages see the same
     inputs); the logits of each call."""
-    jcfg = JC.get_config(arch).reduced()
+    jcfg, cfg = _configs(arch)
     jp = jax.tree.map(jnp.asarray, npp)
-    caches = JM.make_caches(jcfg, B, S + DECODE, jnp.float32)
-    prompt = _prompt(TC.get_config(arch).reduced(), B).numpy()
+    prompt = _prompt(arch, cfg, B).numpy()
+    s = prompt.shape[1]
+    caches = JM.make_caches(jcfg, B, s + DECODE, jnp.float32)
     logits, caches = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(
         prompt, jnp.int32)}, caches, dtype=jnp.float32)
     out = [np.asarray(logits)]
     for t, tok in enumerate(toks):
         logits, caches = JM.decode_step(jp, jcfg, caches, jnp.asarray(
-            tok, jnp.int32), jnp.int32(S + t), dtype=jnp.float32)
+            tok, jnp.int32), jnp.int32(s + t), dtype=jnp.float32)
         out.append(np.asarray(logits))
     return out
 
@@ -203,21 +246,23 @@ def test_mesh_serving_matches_one_device_and_its_plan():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        npps = {a: _weights(a) for a in ARCHS}
+        npps = {a: _weights(a) for a in ARCHS + list(HEADS)}
         procs, q = _spawn(_worker, npps)
         try:
             one, plans, jx = {}, {}, {}
-            for arch in ARCHS:
-                cfg = TC.get_config(arch).reduced()
+            for arch in ARCHS + list(HEADS):
+                cfg = _configs(arch)[1]
                 lm = M.from_reference(npps[arch], cfg, device="cpu")
-                for shape, B in JOBS:
+                for shape, B in JOBS[:1] if arch in HEADS else JOBS:
                     one[(arch, B)] = chip_smoke.serve_on_mesh(
-                        cfg, lm, _prompt(cfg, B), DECODE, F32)
+                        cfg, lm, _prompt(arch, cfg, B), DECODE, F32)
                     jx[(arch, B)] = _jax_serve(arch, npps[arch], B,
                                                one[(arch, B)][1])
                     for fsdp in (False, True) if arch in FSDP else (False,):
                         plans[(arch, shape, fsdp)] = chip_smoke.plan_serve(
-                            cfg, shape, B, S, DECODE, F32, fsdp=fsdp)
+                            cfg, shape, B, SEQ.get(arch, S), DECODE, F32,
+                            fsdp=fsdp,
+                            device="cpu")
         finally:
             runs = _collect(procs, q)
     finally:
@@ -250,6 +295,74 @@ def test_mesh_serving_matches_one_device_and_its_plan():
             assert r_tallies == tallies, what
 
 
+def _worker4(rank, port, npps, q):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.launch.train import make_launch_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE="4",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    init_ranks("cpu")
+    try:
+        for arch in FOUR:
+            cfg = _configs(arch)[1]
+            lm = M.from_reference(npps[arch], cfg, device="cpu")
+            got = chip_smoke.serve_on_mesh(
+                cfg, lm, _prompt(arch, cfg, 4), DECODE, F32,
+                make_launch_mesh("cpu", (1, 4)))
+            if rank == 0:
+                q.put((arch, got[:3]))
+    finally:
+        dist.destroy_process_group()
+        if rank == 0:
+            q.put(None)
+
+
+def test_four_ranks_split_query_heads_against_their_key_head():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        npps = {a: _weights(a) for a in FOUR}
+        procs, q = _spawn(_worker4, npps, world=4)
+        try:
+            one, jx, plans, att = {}, {}, {}, {}
+            for arch in FOUR:
+                cfg = _configs(arch)[1]
+                lm = M.from_reference(npps[arch], cfg, device="cpu")
+                one[arch] = chip_smoke.serve_on_mesh(
+                    cfg, lm, _prompt(arch, cfg, 4), DECODE, F32)
+                jx[arch] = _jax_serve(arch, npps[arch], 4, one[arch][1])
+                plans[arch] = chip_smoke.plan_serve(
+                    cfg, (1, 4), 4, SEQ[arch], DECODE, F32, device="cpu")
+                att[arch] = [chip_smoke.plan_attention_flops(
+                    cfg, m, 4, SEQ[arch], DECODE, F32)
+                    for m in ((1, 4), (1, 1))]
+        finally:
+            runs = _collect(procs, q)
+    finally:
+        torch.set_num_threads(threads)
+    for arch in FOUR:
+        logits, toks, tallies = runs[arch]
+        what = f"{arch} mesh (1, 4) batch 4"
+        for i, (a, b, j) in enumerate(zip(logits, one[arch][0], jx[arch])):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4,
+                                       err_msg=f"{what} call {i}")
+            np.testing.assert_allclose(a, j, rtol=0, atol=1e-4,
+                                       err_msg=f"{what} call {i} against "
+                                       f"JAX")
+        for a, b in zip(toks, one[arch][1]):
+            np.testing.assert_array_equal(a, b, err_msg=what)
+        _hold_tokens(toks, jx[arch], what)
+        (pb, pc), (db, dc) = plans[arch]
+        _close(tallies[0]["bytes"], pb, f"{what} prefill bytes")
+        assert tallies[0]["counts"] == pc, (what, tallies[0], pc)
+        for t in tallies[1:]:
+            _close(t["bytes"], db, f"{what} decode bytes")
+            assert t["counts"] == dc, (what, t, dc)
+        mine, whole = att[arch]
+        assert mine == pytest.approx(whole / 4, rel=1e-12), (what, att)
+
+
 # -- FSDP training -----------------------------------------------------------
 
 def _tc():
@@ -262,20 +375,21 @@ def _batches(cfg):
     return [next(it) for _ in range(STEPS)]
 
 
-def _train(arch, npp, mesh=None):
+def _train(arch, npp, mesh=None, fsdp=True):
     """``STEPS`` train steps from JAX's weights, on one device or on
-    ``mesh`` with FSDP's placement; each step's metrics, weights and
-    first moments in the JAX package's layout, and on the mesh the
-    number of weights split over "data"."""
+    ``mesh`` (with FSDP's placement where ``fsdp``); each step's metrics,
+    weights and first moments in the JAX package's layout, and on the
+    mesh the number of weights split over its first and its second
+    axis."""
     from repro_torch.launch.train import place
-    cfg = TC.get_config(arch).reduced()
+    cfg = _configs(arch)[1]
     lm = M.from_reference(npp, cfg, device="cpu")
     opt = TA.adamw_init(lm)
     out = {"metrics": [], "weights": [], "mu": []}
     if mesh is not None:
-        lm, opt = place(lm, opt, mesh, fsdp=True)
-        out["split"] = sum(w.placements[0].is_shard()
-                           for w in TA.leaves(lm))
+        lm, opt = place(lm, opt, mesh, fsdp=fsdp)
+        out["split"] = [sum(w.placements[i].is_shard()
+                            for w in TA.leaves(lm)) for i in (0, 1)]
     step = TT.make_train_step(cfg, _tc(), mesh)
     for b in _batches(cfg):
         lm, opt, met = step(lm, opt, b)
@@ -295,8 +409,9 @@ def _train_worker(rank, port, npps, q):
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     init_ranks("cpu")
     try:
-        for arch in TRAIN:
-            out = _train(arch, npps[arch], make_launch_mesh("cpu", (2, 1)))
+        for arch, shape, fsdp in TRAIN_RUNS:
+            out = _train(arch, npps[arch], make_launch_mesh("cpu", shape),
+                         fsdp)
             if rank == 0:
                 q.put((arch, out))
     finally:
@@ -309,18 +424,20 @@ def test_fsdp_training_matches_one_device():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        npps = {a: _weights(a) for a in TRAIN}
+        npps = {a: _weights(a) for a, _, _ in TRAIN_RUNS}
         procs, q = _spawn(_train_worker, npps)
         try:
-            one = {a: _train(a, npps[a]) for a in TRAIN}
+            one = {a: _train(a, npps[a]) for a, _, _ in TRAIN_RUNS}
         finally:
             runs = _collect(procs, q)
     finally:
         torch.set_num_threads(threads)
-    for arch in TRAIN:
+    for arch, shape, fsdp in TRAIN_RUNS:
         got, want = runs[arch], one[arch]
         lr = TA.AdamWConfig().lr * want["metrics"][0]["lr_scale"]
-        assert got["split"] > 0, arch       # FSDP split some weights
+        # FSDP split some weights over "data"; tensor parallelism some
+        # over "model"
+        assert got["split"][0 if fsdp else 1] > 0, arch
         for s in range(STEPS):
             first = s == 0
             for k in ("loss", "grad_norm", "lr_scale") + (
